@@ -1,0 +1,76 @@
+"""Build and load the package's CUDA kernels (nvcc -> shared library ->
+ctypes).
+
+Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers that return
+``cudaGetLastError()``.  ``load(name)`` compiles the source for Hopper
+(sm_90a) at first use into ``build/nart_tpu_torch/`` beside the package —
+the file name carries a hash of the source and flags, so an edited source
+rebuilds — and returns the ``ctypes.CDLL``.  Nothing is compiled or loaded
+when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "nart_tpu_torch",
+)
+# --fmad=false: every multiply/add rounds on its own, as in the op-by-op
+# PyTorch reference (see csrc/cluster_hit.cu); no fast-math
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu (if not built yet); returns the .so path."""
+    src = os.path.join(SRC_DIR, name + ".cu")
+    with open(src, "rb") as f:
+        key = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:12]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent build never sees a stub
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build(name))
+        _loaded[name] = lib
+    return lib
