@@ -14,20 +14,39 @@ Phases (any failure raises and exits non-zero):
      (b) a random 40,000-triangle soup (the >= 32k cluster policy) with
      65,536 rays.  Triangle ids must agree on >= 99.99% of rays, t/u/v to
      rtol 1e-4 / atol 1e-5 where they agree, and any-hit must equal
-     closest-hit validity exactly.  Median times of kernel and plain
-     version (CUDA events, after warm-up);
+     closest-hit validity exactly.  The counter kernel's three counters
+     must equal its plain version's on every ray and its t the closest-hit
+     kernel's.  Median times of kernel and plain version (CUDA events,
+     after warm-up), and each kernel's bound: the closest-hit and counter
+     kernels' from the counters on the very rays that were timed, the
+     any-hit kernel's from its bytes (see bound);
   4. golden parity: macbeth at 96x96, 8 spp, through the kernels, against
      tests/golden/macbeth_96x96_8spp.exr (read with the port's PIZ
      reader) with test_macbeth_golden's criteria;
-  5. main path: render_scene_file on macbeth.json at its own 1280x720 with
-     spp cut from 256 to 16 (to fit the smoke's time): one warm run, one
-     timed run with launch counters reset just before it; EXR written to a
-     temporary directory and checked finite with a nonzero mean.
+  5. forward main path: render_scene_file on macbeth.json at its own
+     1280x720 with spp cut from 256 to 8 (to fit the smoke's time): one
+     warm run, one timed run with launch counters reset just before it;
+     EXR written to a temporary directory and checked finite with a nonzero
+     mean; then the counter tool's entry point (kernel_stats.main) on the
+     same scene, its launches counted the same way;
+  6. training path at full width: radiance_weighted_loss_and_grad on
+     macbeth 1280x720, one chunk of 4 spp, cot = 1 on RGB: one warm and
+     one timed run.  The loss must equal the forward work queue's
+     sum(la[..., :3]) (rtol 1e-4), every gradient leaf must be finite, the
+     albedo, texture and env-map gradients nonzero, and the closest-hit
+     and any-hit kernels launched exactly `rounds` times each: the
+     backward pass launches none.  Then the forward queue and the fwd+bwd
+     call once more under torch.profiler: the card's busy share of each;
+  7. gradients through the kernels against the same call on the CPU
+     (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
+     1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
+     gathers' backward), and one central finite difference to 5%.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs the repository checkout (it imports
 nart_tpu_torch from beside this file); imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -43,10 +62,20 @@ MACBETH_DIR = os.path.join(HERE, "tests", "fixtures", "macbeth")
 MACBETH = os.path.join(MACBETH_DIR, "macbeth.json")
 GOLDEN = os.path.join(HERE, "tests", "golden", "macbeth_96x96_8spp.exr")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
+DEVICE = "cuda"  # every phase runs on the card
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
-            "any_hit": "nart_tpu/pallas_accel.py:773"}  # _kernel_any
+            "any_hit": "nart_tpu/pallas_accel.py:773",  # _kernel_any
+            "closest_hit_stats": "tools/kernel_stats.py:27"}  # _kernel_stats
 TRI_AGREE = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
+# published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
+# tensor cores
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# float operations of cluster_hit.cu, counted from the source: slab() does
+# 6 subtractions, 6 multiplies, 12 min/max and 1 compare; tri_test() does
+# 14 up to its t-window return (two 3-term dot products, one subtraction,
+# one division, two compares) and 76 when it runs to the end
+SLAB_OPS, TRI_OPS_MIN, TRI_OPS_FULL = 25, 14, 76
 
 
 def log(msg):
@@ -98,12 +127,77 @@ def compare_closest(name, hk, hp):
     return frac, err
 
 
+def compare_stats(name, acc, rays, hit_kernel):
+    """Counter kernel vs plain on `rays`: returns (TraversalStats of the
+    kernel, max abs err of t)."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, kernel_stats
+
+    sk = kernel_stats.traversal_stats(*rays, acc)
+    sp = ca.closest_hit_stats_plain(*rays, acc)
+    for k in ("visited", "slabs", "tested"):
+        bad = int((getattr(sk, k) != getattr(sp, k)).sum())
+        if bad:
+            raise AssertionError(f"{name}: counter {k} differs on {bad} rays")
+    if not torch.equal(sk.t, hit_kernel.t):
+        raise AssertionError(f"{name}: stats t != closest-hit kernel's t")
+    if not bool((sk.together <= sp.together).all()
+                and (sk.together >= sk.tested).all()):
+        raise AssertionError(f"{name}: lanes-together count out of range")
+    both = torch.isfinite(sk.t) & torch.isfinite(sp.t)
+    if not torch.equal(torch.isfinite(sk.t), torch.isfinite(sp.t)):
+        raise AssertionError(f"{name}: stats hit set differs from plain")
+    err = float((sk.t[both] - sp.t[both]).abs().max()) if both.any() else 0.0
+    if err > ATOL:
+        raise AssertionError(f"{name}: stats t off by {err}")
+    s = kernel_stats.summarize(sk)
+    log(f"    counters {name}: visited {s['visited_sc']:.3f}, slab tests "
+        f"{s['slab_tests']:.3f}, clusters tested {s['tri_tests']:.3f} per "
+        f"ray; lanes together on a cluster {s['lanes_per_test']:.2f}/32 "
+        f"(a warp that never diverged: "
+        f"{kernel_stats.summarize(sp)['lanes_per_test']:.2f}); counters "
+        "equal plain on every ray")
+    return sk, err
+
+
+def bound(acc, n_rays, out_bytes_per_ray, stats, active, exact=True):
+    """Least time the card could take (ms) and what sets it.
+
+    Bytes: each ray read once (o, d, t_min, t_max: 32 B), each output
+    written once, the accel arrays once.  Operations: the walk's counters on
+    these very rays (`stats`, over the `active` rays: those the kernel does
+    not return from at once) times the arithmetic of one slab test and of
+    the part of a triangle test that every triangle pays (TRI_OPS_MIN; the
+    triangles whose t lies in the window pay TRI_OPS_FULL, which is not
+    counted, so the bound errs low).  exact=False: the counters are not
+    this kernel's own walk (any-hit returns at the first hit, the counters
+    walk on to the closest), so their operations are no lower limit: the
+    bound is the byte side, and the count is kept apart as an over-count."""
+    accel_bytes = sum(x.numel() * x.element_size() for x in
+                      (acc.planes, acc.aabb, acc.sc_aabb, acc.morder,
+                       acc.order))
+    nbytes = n_rays * (32 + out_bytes_per_ray) + accel_bytes
+    n_active = int(active.sum())
+    slabs = n_active * acc.n_sc + int(stats.slabs[active].sum())
+    tris = int(stats.tested[active].sum()) * acc.csize
+    ops = SLAB_OPS * slabs + TRI_OPS_MIN * tris
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    if not exact:
+        return {"bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
+                "operations_overcount": ops, "overcount_ms": t_ops}
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
 def kernel_checks(device, sizes):
     """Phase 3.  Returns the per-kernel records at the main-path shapes
     (the macbeth rays)."""
     import torch
 
-    from nart_tpu_torch import camera, cluster_accel as ca, scene
+    from nart_tpu_torch import (camera, cluster_accel as ca, kernel_stats,
+                                scene)
 
     rng = np.random.default_rng(0)
     sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
@@ -126,6 +220,7 @@ def kernel_checks(device, sizes):
     frac, err_c = compare_closest("closest-hit camera", hk, hp)
     log(f"(a) closest-hit, {n} camera rays: tri agree {frac:.6f}, "
         f"hits {int((hp.tri >= 0).sum())}, max abs err {err_c:.3g}")
+    st_cam, err_s = compare_stats("camera rays", acc, cam, hk)
 
     # (a2) random-direction rays from the camera rays' hit points
     m = sizes["shadow_rays"]
@@ -158,6 +253,7 @@ def kernel_checks(device, sizes):
     log(f"(a) {m} rays from hit points (25% t_max=0): tri agree "
         f"{frac2:.6f}, occluded {int(occ_k.sum())}, any-hit vs plain "
         f"{occ_agree:.6f}, any-hit == closest-hit validity: exact")
+    st_sh, err_s2 = compare_stats("secondary rays", acc, sh, hk2)
 
     # (b) random 40k-triangle soup: the >= 32k policy
     nt = sizes["soup_tris"]
@@ -179,6 +275,7 @@ def kernel_checks(device, sizes):
     log(f"(b) soup {nt} triangles (csize {acc_b.csize}, {acc_b.n_clusters} "
         f"clusters, sc_size {acc_b.sc_size}), {nb} rays: tri agree "
         f"{fracb:.6f}, hits {int((hpb.tri >= 0).sum())}, any-hit exact")
+    _, err_sb = compare_stats("soup", acc_b, rb, hkb)
 
     # times at the main-path shapes
     reps = sizes["reps"]
@@ -188,17 +285,41 @@ def kernel_checks(device, sizes):
     t_p2 = cuda_ms(lambda: ca.any_hit_plain(*sh, acc), max(3, reps // 4))
     t_kb = cuda_ms(lambda: ca.intersect_clusters(*rb, acc_b), reps)
     t_pb = cuda_ms(lambda: ca.closest_hit_plain(*rb, acc_b), 3, warmup=1)
+    t_k3 = cuda_ms(lambda: kernel_stats.traversal_stats(*cam, acc), reps)
+    t_p3 = cuda_ms(lambda: ca.closest_hit_stats_plain(*cam, acc), 3, warmup=1)
+    # the closest-hit kernel once more, after the counter kernel ran: the
+    # template must not have changed it
+    t_k1b = cuda_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
     log(f"time closest-hit {n} camera rays: kernel {t_k1:.4f} ms, plain "
         f"{t_p1:.4f} ms")
     log(f"time any-hit {m} secondary rays: kernel {t_k2:.4f} ms, plain "
         f"{t_p2:.4f} ms")
     log(f"time closest-hit soup {nb} rays: kernel {t_kb:.4f} ms, plain "
         f"{t_pb:.4f} ms")
-    return {
-        "closest_hit": {"max_abs_err": max(err_c, err_c2), "ms": t_k1,
-                        "plain_ms": t_p1},
-        "any_hit": {"max_abs_err": err_a, "ms": t_k2, "plain_ms": t_p2},
+    log(f"time counter kernel {n} camera rays: kernel {t_k3:.4f} ms, plain "
+        f"{t_p3:.4f} ms; closest-hit again {t_k1b:.4f} ms")
+    everyone = torch.ones(n, dtype=torch.bool, device=device)
+    records = {
+        "closest_hit": dict(max_abs_err=max(err_c, err_c2), ms=t_k1,
+                            plain_ms=t_p1, **bound(acc, n, 20, st_cam,
+                                                   everyone)),
+        # bound by its bytes; the closest-hit walk's counters on the same
+        # rays stand beside it as an over-count
+        "any_hit": dict(max_abs_err=err_a, ms=t_k2, plain_ms=t_p2,
+                        **bound(acc, m, 1, st_sh, t2 > 0, exact=False)),
+        "closest_hit_stats": dict(max_abs_err=max(err_s, err_s2, err_sb),
+                                  ms=t_k3, plain_ms=t_p3,
+                                  **bound(acc, n, 20, st_cam, everyone)),
     }
+    for k, r in records.items():
+        r["library_ms"] = None  # no PyTorch call intersects rays with a scene
+        ops = (f"{r['operations']} operations" if "operations" in r else
+               f"over-count {r['operations_overcount']} operations = "
+               f"{r['overcount_ms']:.6f} ms, no bound")
+        log(f"bound {k}: {r['bound_ms']:.6f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes; {ops}): the kernel reaches "
+            f"{100.0 * r['bound_ms'] / r['ms']:.3f}% of it")
+    return records
 
 
 def block_compare(ours, ref, mean_tol, block_tol, block_frac):
@@ -230,7 +351,7 @@ def golden_check(device, size):
     grew = {k: ca.launch_counts[k] - before[k] for k in before}
     log(f"golden render {size[0]}x{size[1]} {size[2]} spp: {sess.stats}, "
         f"launches {grew}")
-    if min(grew.values()) <= 0:
+    if min(grew["closest_hit"], grew["any_hit"]) <= 0:
         raise AssertionError(f"kernels not launched by the render: {grew}")
     ref = exr.read(GOLDEN)
     if ref.shape != ours.shape:
@@ -238,14 +359,13 @@ def golden_check(device, size):
     block_compare(ours, ref, 0.03, 0.12, 0.95)
 
 
-def main_path(device, overrides):
+def main_path(overrides):
     """Phase 5: returns the launch counts of the timed run."""
     import torch
 
     from nart_tpu_torch import cluster_accel as ca, exr, film, render
 
-    params, sess = next(render.render_scene_file(MACBETH, overrides,
-                                                 device=device))
+    params, sess = next(render.render_scene_file(MACBETH, overrides))
     log(f"main path: macbeth.json {params.image_width}x{params.image_height}"
         f" at {params.spp} spp (the scene's own session has 256 spp; cut to "
         f"{params.spp} for the smoke's time), filterWidth "
@@ -278,9 +398,210 @@ def main_path(device, overrides):
     if back.shape != tuple(img.shape):
         raise AssertionError("EXR round trip changed the shape")
     log(f"image {tuple(img.shape)} finite, mean {mean:.6f}; EXR written")
-    if min(counts.values()) <= 0:
+    if min(counts["closest_hit"], counts["any_hit"]) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
     return counts
+
+
+def stats_path():
+    """Phase 5, the counter tool's entry point on the card: returns its
+    launch counts."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, kernel_stats
+
+    ca.reset_launch_counts()
+    out = kernel_stats.main([MACBETH, "--asset-root", MACBETH_DIR])
+    torch.cuda.synchronize()
+    counts = dict(ca.launch_counts)
+    if counts["closest_hit_stats"] <= 0:
+        raise AssertionError(f"the counter kernel was not launched: {counts}")
+    for label, s in out.items():
+        if not (0 < s["tri_tests"] <= s["slab_tests"]
+                and 1.0 <= s["lanes_per_test"] <= 32.0):
+            raise AssertionError(f"kernel_stats {label}: {s}")
+    return counts
+
+
+def _image_samples(params, device):
+    """The session's Latin-square image samples: (spp, W*H, 2)."""
+    from nart_tpu_torch import render
+
+    w, h = params.image_width, params.image_height
+    return render.image_samples(
+        w, h, w + 2 * int(np.ceil(params.filter_width)), params.spp, device)
+
+
+def _rgb_cot(samples):
+    import torch
+
+    cot = torch.ones(samples.shape[:2] + (4,), device=samples.device)
+    cot[..., 3] = 0.0
+    return cot
+
+
+def _leaves(theta):
+    out = []
+    for k in sorted(theta):
+        vals = theta[k] if isinstance(theta[k], list) else [theta[k]]
+        out += [(f"{k}[{i}]", v) for i, v in enumerate(vals) if v is not None]
+    return out
+
+
+def device_busy(label, fn, wall_s, top=5):
+    """Run fn once under torch.profiler (the card's activity only) and log
+    the card's busy time -- the sum of its kernels' and copies' device time
+    -- as a share of wall_s, the wall time of the same call untraced; the
+    host dispatching the round's small operations takes the rest."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not busy_ms > 0.0:
+        raise AssertionError(f"{label}: the profiler saw no device time")
+    log(f"device busy, {label}: {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in events)} kernels and copies = "
+        f"{100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
+        f"{wall_s:.4f} s")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:top]:
+        log(f"    {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f} ms"
+            f" x{e.count}")
+
+
+def training_path(spp):
+    """Phase 6: returns the launch counts of the timed run."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, grad, render, scene
+    from nart_tpu_torch.integrators import path
+
+    # the path integrator never reads the camera's medium, and its
+    # parameters are not trainable before the volume integrator is ported
+    sc = dataclasses.replace(
+        scene.load_scene(MACBETH, asset_root=MACBETH_DIR), medium=None)
+    params = render.load_sessions(MACBETH, {"spp": spp})[0]
+    w, h = params.image_width, params.image_height
+    acc = ca.build_accel(sc.tri_v.numpy(), params.accel)
+    samples = _image_samples(params, DEVICE)
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sc)
+    log(f"training path: macbeth.json {w}x{h}, one chunk of {spp} spp, "
+        "cot = 1 on RGB")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grad.radiance_weighted_loss_and_grad(
+            sc, theta, acc, samples, cot, params, w, h)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, dt = run()
+    log(f"warm run {dt:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    (loss, grads, rays, rounds), dt = run()
+    counts = dict(ca.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"timed run fwd+bwd {dt:.4f} s, {rounds} rounds, {rays} rays "
+        f"(one forward's, algorithmic), {rays / dt / 1e6:.4f} Mrays/s "
+        f"fwd+bwd, launches {counts}, peak device memory {peak:.1f} MiB")
+    if not (counts["closest_hit"] == counts["any_hit"] == rounds):
+        raise AssertionError(
+            f"launches {counts} != rounds {rounds}: the backward pass must "
+            "launch no traversal kernel")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    la, rays_f, rounds_f = path.trace_balanced(
+        sc.to(DEVICE), acc.to(DEVICE), samples, params, w, h)
+    want = float(la[..., :3].sum())
+    torch.cuda.synchronize()
+    dt_f = time.perf_counter() - t0
+    log(f"forward work queue alone {dt_f:.4f} s ({rounds_f} rounds): "
+        f"fwd+bwd / fwd = {dt / dt_f:.3f}; loss {float(loss):.6f} vs "
+        f"sum(la rgb) {want:.6f}")
+    if not (np.isfinite(float(loss))
+            and abs(float(loss) - want) <= 1e-4 * abs(want)):
+        raise AssertionError(f"loss {float(loss)} != forward sum {want}")
+    if (rays_f, rounds_f) != (rays, rounds):
+        raise AssertionError("replay and forward disagree on rays or rounds")
+    device_busy("forward work queue", lambda: path.trace_balanced(
+        sc.to(DEVICE), acc.to(DEVICE), samples, params, w, h), dt_f)
+    device_busy("fwd+bwd", run, dt)
+    for k, g in _leaves(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient leaf {k} is not finite")
+    sums = {k: float(g.abs().sum()) for k, g in _leaves(grads)}
+    log("gradient |sum| per leaf: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in sums.items()))
+    env = [k for k, v in _leaves(theta) if k.startswith("light_le_tex")]
+    for k in ["rho_d_const[0]", "tex_data[0]"] + env:
+        if not sums[k] > 0.0:
+            raise AssertionError(f"gradient leaf {k} is all zero")
+    if not env:
+        raise AssertionError("macbeth has no env-map texture leaf")
+    return counts
+
+
+def card_against_cpu():
+    """Phase 7."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, grad, render, testing
+    from nart_tpu_torch.integrators import path
+
+    sc = testing.simple_scene(("lambert",))
+    params = render.RenderParams(image_width=32, image_height=32, spp=2)
+    acc = ca.build_clusters(sc.tri_v.numpy())
+    samples = _image_samples(params, "cpu")
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sc)
+    # 256 work slots for 2,048 items: a dozen rounds with respawns
+    args = (sc, theta, acc, samples, cot, params, 32, 32, 0, 256)
+    before = dict(ca.launch_counts)
+    loss_k, grads_k, rays_k, rounds_k = grad.radiance_weighted_loss_and_grad(
+        *args)
+    if ca.launch_counts["closest_hit"] - before["closest_hit"] != rounds_k:
+        raise AssertionError("the card's gradient did not go through the "
+                             "closest-hit kernel once per round")
+    loss_c, grads_c, rays_c, rounds_c = grad.radiance_weighted_loss_and_grad(
+        *args, device="cpu")
+    if (rays_k, rounds_k) != (rays_c, rounds_c):
+        raise AssertionError("card and CPU traced different paths")
+    worst = 0.0
+    for (k, gk), (_, gc) in zip(_leaves(grads_k), _leaves(grads_c)):
+        gk = gk.cpu()
+        if not torch.allclose(gk, gc, rtol=1e-3, atol=1e-5):
+            raise AssertionError(
+                f"gradient leaf {k}: card {gk.flatten()[:4]} vs CPU "
+                f"{gc.flatten()[:4]}")
+        worst = max(worst, float((gk - gc).abs().max()))
+
+    def fwd(delta):
+        rho = theta["rho_d_const"].clone()
+        rho[0, 0] += delta
+        scn = grad.put_params(sc, dict(theta, rho_d_const=rho)).to(DEVICE)
+        la, _, _ = path.trace_balanced(scn, acc.to(DEVICE),
+                                       samples.to(DEVICE), params, 32, 32,
+                                       n_lanes=256)
+        return float(la[..., :3].double().sum())
+
+    eps = 1e-2
+    g_fd = (fwd(eps) - fwd(-eps)) / (2 * eps)
+    g_ad = float(grads_k["rho_d_const"][0, 0])
+    log(f"card vs CPU gradients: loss {float(loss_k):.6f} vs "
+        f"{float(loss_c):.6f}, {rounds_k} rounds, every leaf within rtol "
+        f"1e-3 / atol 1e-5 (max abs diff {worst:.3g}); d/d rho_d[0,0]: "
+        f"replay {g_ad:.6f}, finite difference {g_fd:.6f}")
+    if not abs(g_ad - g_fd) <= 0.05 * max(abs(g_fd), 1e-3):
+        raise AssertionError(f"replay {g_ad} vs finite difference {g_fd}")
 
 
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
@@ -310,13 +631,17 @@ def main():
     cuda_build.load("cluster_hit")
     log(f"build: {SOURCE} in {time.perf_counter() - t0:.2f} s")
 
-    records = kernel_checks("cuda", SIZES)
-    golden_check("cuda", (96, 96, 8))
-    counts = main_path("cuda", {"spp": 16})
+    records = kernel_checks(DEVICE, SIZES)
+    golden_check(DEVICE, (96, 96, 8))
+    counts = main_path({"spp": 8})
+    counts["closest_hit_stats"] = stats_path()["closest_hit_stats"]
+    counts_train = training_path(4)
+    card_against_cpu()
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-                    launches=counts[k], **records[k])
-               for k in ("closest_hit", "any_hit")]
+                    launches=counts[k], launches_training=counts_train[k],
+                    **records[k])
+               for k in ("closest_hit", "any_hit", "closest_hit_stats")]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

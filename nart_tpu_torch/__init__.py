@@ -17,17 +17,45 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
   camera.py         pinhole ray generation (camera.py)
   geometry.py       watertight ray-triangle test, brute intersector,
                     packed surface rows (geometry.py)
-  cluster_accel.py  cluster build + closest-hit / any-hit traversal: CUDA
-                    kernels (csrc/cluster_hit.cu) for CUDA tensors, plain
-                    torch versions for CPU tensors (pallas_accel.py,
-                    accel.py's kind policy)
+  cluster_accel.py  cluster build + closest-hit / any-hit traversal and
+                    the walk's visit counters: CUDA kernels
+                    (csrc/cluster_hit.cu) for CUDA tensors, plain torch
+                    versions for CPU tensors (pallas_accel.py, accel.py's
+                    kind policy, tools/kernel_stats.py's kernel)
   bxdf.py           5 BSDF lobes + aggregation (bxdf.py)
   materials.py      per-hit BSDF descriptors, half textures (materials.py)
   lights.py         disk / ring / env / distant lights, packed area tables
                     (lights.py)
   film.py           Gaussian filter splatting (film.py)
-  integrators/      balanced work-queue path integrator (integrators/path.py)
+  integrators/      path integrator: balanced work queue, lockstep trace,
+                    detached-sampling estimator and the path replay
+                    trace_balanced_loss (integrators/path.py)
   render.py         sessions, parameter resolution, EXR output (render.py)
+  grad.py           trainable parameters, loss_and_grad,
+                    radiance_weighted_loss_and_grad (grad.py)
+  kernel_stats.py   traversal counters per ray and the tool that prints
+                    them: python -m nart_tpu_torch.kernel_stats
+                    (tools/kernel_stats.py)
+
+Entry points (RenderSession, render_scene_file, grad.loss_and_grad,
+grad.radiance_weighted_loss_and_grad, kernel_stats.main) run on the card
+unless the caller names a device, and raise where there is none
+(resolve_device); the tests name "cpu".
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+
+def resolve_device(device=None):
+    """The device of an entry point: the one the caller names, else the
+    card.  With no device named and no CUDA device present this raises; it
+    never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: nart_tpu_torch runs on the card unless the "
+            "caller names a device (device='cpu')")
+    return torch.device("cuda")

@@ -46,8 +46,11 @@ def _safe_div(a, b, where_ok=None):
 
 
 def _normalize(v):
-    n = torch.sqrt((v * v).sum(-1, keepdim=True))
-    return v / torch.where(n == 0.0, 1.0, n)
+    # the zero vector divides by 1; its sqrt is kept out of the graph
+    # (d sqrt / dx is infinite at 0 and would turn a zero adjoint into nan)
+    n2 = (v * v).sum(-1, keepdim=True)
+    zero = n2 == 0.0
+    return v / torch.where(zero, 1.0, torch.sqrt(torch.where(zero, 1.0, n2)))
 
 
 def _dot(a, b):
@@ -258,7 +261,9 @@ def ts_sample(desc, wo, u2, use_prime, eta_outer):
     alpha = _ts_alpha(desc, use_prime)
     flags = _micro_flags(alpha, 0.001)
     wh = _vndf_sample(wo, alpha, u2, flip_lower=False)
-    wi = _normalize(reflect(wo, wh))
+    # detached-sampling estimator (path replay): the sampled direction is a
+    # fixed decision; gradients flow through f/pdf evaluated at it
+    wi = _normalize(reflect(wo, wh)).detach()
     pdf = ts_pdf(desc, wo, wi, use_prime, eta_outer)
     return ts_f(desc, wo, wi, use_prime, eta_outer), wi, pdf, flags, alpha
 
@@ -344,7 +349,7 @@ def dielectric_sample(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
     matched = eta_outer == desc.eta
     flags = _micro_flags(alpha, 0.0001)
 
-    wh = _vndf_sample(wo, alpha, u2, flip_lower=True)
+    wh = _vndf_sample(wo, alpha, u2, flip_lower=True).detach()
     fr = fresnel(eta_o, eta_i, _dot(wh, wo).abs())
     cos_o = torch.clamp(_dot(wo, wh), -1.0, 1.0)
     sin_o = _safe_sqrt(1.0 - cos_o * cos_o)
@@ -356,7 +361,7 @@ def dielectric_sample(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
     wi_refr = _refract(wo, wh, _safe_div(eta_o, eta_i), cos_o,
                        torch.clamp(sin_i, max=1.0))
     do_reflect = reflect_choice | tir
-    wi = torch.where(do_reflect[..., None], wi_refl, wi_refr)
+    wi = torch.where(do_reflect[..., None], wi_refl, wi_refr).detach()
     pdf_scale = torch.where(reflect_choice, fr, 1.0 - fr)
     pdf = dielectric_pdf(desc, wo, wi, use_prime, eta_outer) * pdf_scale
     f = dielectric_f(desc, wo, wi, use_prime, eta_outer)
@@ -372,7 +377,8 @@ def dielectric_sample(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
 
 def specular_sample(desc, wo, eta_outer):
     """specularbrdf.cpp:14-29."""
-    wi = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+    wi = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]],
+                     dim=-1).detach()
     pdf = torch.ones(wo.shape[:-1], dtype=torch.float32, device=wo.device)
     fr = fresnel(eta_outer, desc.eta, wi[..., 2])
     f = desc.rho_s * _safe_div(fr, wi[..., 2].abs())[..., None]
@@ -417,7 +423,7 @@ def specdiel_sample(desc, wo, u2, eta_outer, prev_flags):
     flags = torch.where(refl_or_tir, spec, spec | TRANSMISSIVE)
 
     # index-matched pass-through (speculardielectricbrdf.cpp:23-28)
-    wi = torch.where(matched[..., None], -wo, wi)
+    wi = torch.where(matched[..., None], -wo, wi).detach()
     pdf = torch.where(matched, 0.0, pdf)
     f = torch.where(matched[..., None], desc.tau, f)
     flags = torch.where(matched, prev_flags | TRANSMISSIVE, flags)

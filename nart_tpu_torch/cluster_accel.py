@@ -12,8 +12,10 @@ octant member visit order.
 Each query dispatches on the device of its tensors:
   * CUDA tensors launch the hand-written Hopper kernels in
     csrc/cluster_hit.cu (``nart_closest_hit`` replaces ``_kernel``,
-    ``nart_any_hit`` replaces ``_kernel_any``) and count the launch in
-    ``launch_counts``;
+    ``nart_any_hit`` replaces ``_kernel_any``, ``nart_closest_hit_stats``
+    replaces tools/kernel_stats.py's ``_kernel_stats``: the closest-hit
+    walk with visit counters, dispatched by kernel_stats.traversal_stats)
+    and count the launch in ``launch_counts``;
   * CPU tensors run the plain versions below: a chunked watertight brute
     force over the planes with the same tie rule (lowest row wins within a
     cluster; a strictly closer hit replaces the running best).
@@ -28,13 +30,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from . import cuda_build
-from .geometry import Hit, _select_nearest, ray_shear, watertight
+from .geometry import Hit, RayShear, _select_nearest, ray_shear, watertight
 from .scene import _to_device
 
 INF = np.float32(np.inf)
@@ -43,9 +45,10 @@ CLUSTER_LARGE = 64  # triangles per cluster from LARGE_MESH up
 SUPER_TARGET = 128  # supercluster count target below LARGE_MESH
 SUPER_TARGET_LARGE = 256
 LARGE_MESH = 32768  # triangle count where the large-mesh policy starts
+WARP = 32  # rays of consecutive index that share a warp in the kernels
 
 # kernel launches per wrapper since the last reset_launch_counts()
-launch_counts = {"closest_hit": 0, "any_hit": 0}
+launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0}
 
 
 def reset_launch_counts():
@@ -273,6 +276,87 @@ def any_hit_plain(o, d, t_min, t_max, accel: ClusterAccel):
     return occ & (t_max > 0.0)
 
 
+class TraversalStats(NamedTuple):
+    """What the closest-hit walk did for each ray (all (N,))."""
+
+    t: torch.Tensor  # f32 nearest hit distance (inf on a miss), K1's t
+    visited: torch.Tensor  # int32 superclusters whose slab test passed
+    slabs: torch.Tensor  # int32 member-cluster slab tests done
+    tested: torch.Tensor  # int32 clusters whose triangles were tested
+    # int32, summed over the ray's tested clusters: the lanes of its warp
+    # (32 consecutive rays) that tested the same cluster -- in the same step
+    # from the kernel (what the card did), at any step from the plain
+    # version (what a warp that never diverged would reach).  Over `tested`
+    # it is the mean number of lanes that share a cluster's triangle tests.
+    together: torch.Tensor
+
+
+def _slab(box, c, o, inv, t_lo, t_hi):
+    """cluster_hit.cu's slab(): rays against box column c of a (6, n) lo/hi
+    table, window (t_lo, t_hi)."""
+    a0 = (box[0:3, c] - o) * inv
+    a1 = (box[3:6, c] - o) * inv
+    near = torch.minimum(a0, a1).max(dim=-1).values
+    far = torch.maximum(a0, a1).min(dim=-1).values
+    return torch.maximum(near, t_lo) <= torch.minimum(far, t_hi)
+
+
+def closest_hit_stats_plain(o, d, t_min, t_max,
+                            accel: ClusterAccel) -> TraversalStats:
+    """The walk of nart_closest_hit_stats, vectorised over rays: superclusters
+    in index order behind a slab test against (t_min, t_best), members in
+    the ray's octant order (morder) behind their own slab test, then the
+    cluster's triangles; t_best runs per ray.  The three counters equal the
+    kernel's exactly and t equals closest_hit_plain's."""
+    n = o.shape[0]
+    dev = o.device
+    shear = ray_shear(d)
+    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    octant = ((d[:, 0] > 0).long() * 4 + (d[:, 1] > 0).long() * 2
+              + (d[:, 2] > 0).long())
+    groups = [torch.nonzero(octant == k)[:, 0] for k in range(8)]
+    morder = accel.morder.cpu().numpy()
+    t_best = t_max.clone()
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    visited, slabs, tested, together = (
+        torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(4))
+    warp = WARP
+    n_warps = -(-n // warp)
+    for sc in range(accel.n_sc):
+        live_sc = _slab(accel.sc_aabb, sc, o, inv, t_min, t_best)
+        visited += live_sc
+        slabs += live_sc.to(torch.int32) * accel.sc_size
+        # which of this supercluster's members each ray tested
+        hit_cl = torch.zeros((n_warps * warp, accel.sc_size),
+                             dtype=torch.bool, device=dev)
+        for k, rays in enumerate(groups):
+            if rays.numel() == 0:
+                continue
+            og, dg = o[rays], d[rays]
+            sg = RayShear(*(x[rays] for x in shear))
+            for j in range(accel.sc_size):
+                c = int(morder[k, sc * accel.sc_size + j])
+                tb = t_best[rays]
+                live = live_sc[rays] & _slab(accel.aabb, c, og, inv[rays],
+                                             t_min[rays], tb)
+                pl = accel.planes[:, c, :]
+                hit, t, _, _, _ = watertight(og, dg, sg, pl[0:3].T, pl[3:6].T,
+                                             pl[6:9].T, pl[9:12].T, pl[12])
+                hit = (hit & live[:, None] & (t > t_min[rays, None])
+                       & (t < tb[:, None]))
+                t_sel = torch.where(hit, t, INF).min(dim=1).values
+                t_best[rays] = torch.minimum(tb, t_sel)
+                found[rays] |= hit.any(dim=1)
+                hit_cl[rays, c - sc * accel.sc_size] = live
+        tested += hit_cl[:n].sum(1, dtype=torch.int32)
+        by_warp = hit_cl.reshape(n_warps, warp, -1)
+        lanes = by_warp.sum(1, keepdim=True, dtype=torch.int32)
+        together += (by_warp * lanes).reshape(n_warps * warp, -1)[:n].sum(
+            1, dtype=torch.int32)
+    t = torch.where(found, t_best, torch.full_like(t_best, INF))
+    return TraversalStats(t, visited, slabs, tested, together)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -288,6 +372,9 @@ def _kernel_lib():
         lib.nart_any_hit.argtypes = [p, p, p, p, i, p, p, p, p,
                                      i, i, i, i, p, p]
         lib.nart_any_hit.restype = ctypes.c_int
+        lib.nart_closest_hit_stats.argtypes = [p, p, p, p, i, p, p, p, p,
+                                               i, i, i, i, p, p, p, p, p, p]
+        lib.nart_closest_hit_stats.restype = ctypes.c_int
     return lib
 
 
@@ -358,6 +445,29 @@ def any_hit_cuda(o, d, t_min, t_max, accel: ClusterAccel):
         raise RuntimeError(f"nart_any_hit launch failed: CUDA error {rc}")
     launch_counts["any_hit"] += 1
     return occ
+
+
+def closest_hit_stats_cuda(o, d, t_min, t_max,
+                           accel: ClusterAccel) -> TraversalStats:
+    """Launch nart_closest_hit_stats on CUDA tensors (one thread per ray)."""
+    n = _check_args(o, d, t_min, t_max, accel)
+    lib = _kernel_lib()
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    counters = [torch.empty(n, dtype=torch.int32, device=o.device)
+                for _ in range(4)]
+    rc = lib.nart_closest_hit_stats(
+        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
+        accel.planes.data_ptr(), accel.aabb.data_ptr(),
+        accel.sc_aabb.data_ptr(), accel.morder.data_ptr(), accel.n_clusters,
+        accel.n_sc, accel.sc_size, accel.csize, t.data_ptr(),
+        *(c.data_ptr() for c in counters),
+        torch.cuda.current_stream(o.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"nart_closest_hit_stats launch failed: CUDA error {rc}")
+    launch_counts["closest_hit_stats"] += 1
+    return TraversalStats(t, *counters)
 
 
 def intersect_clusters(o, d, t_min, t_max, accel: ClusterAccel) -> Hit:

@@ -1,9 +1,11 @@
 // Closest-hit and any-hit ray traversal of the two-level triangle clusters
 // built by nart_tpu_torch/cluster_accel.py (build_clusters).
 //
-// Replaces the two TPU kernels of nart_tpu/pallas_accel.py:
-//   * nart_closest_hit  <- _kernel      (intersect_clusters)
-//   * nart_any_hit      <- _kernel_any  (intersect_clusters_any)
+// Replaces the two TPU kernels of nart_tpu/pallas_accel.py and the counter
+// kernel of tools/kernel_stats.py:
+//   * nart_closest_hit        <- _kernel        (intersect_clusters)
+//   * nart_any_hit            <- _kernel_any    (intersect_clusters_any)
+//   * nart_closest_hit_stats  <- _kernel_stats  (tools/kernel_stats.py run)
 //
 // Design: one thread per ray.  Each thread walks the superclusters in index
 // order, gates each behind a slab test of its AABB against the ray's current
@@ -30,6 +32,15 @@
 // watertightness relies on (nart_tpu/geometry.py:24-40).  The FMA-noise
 // snap of the edge functions is kept as well, for parity with the
 // reference.  No fast-math: t = (v0.n - o.n) / (d.n) is an IEEE division.
+//
+// The counter kernel is the closest-hit walk itself (the same template,
+// kStats = true) and writes, per ray, t and what the walk did: superclusters
+// whose slab test passed, member slab tests, clusters whose triangles were
+// tested, and the sum over those clusters of the warp's lanes that tested
+// the same cluster in the same step (the TPU tool's live-lane census,
+// restated for a 32-lane warp).  It is an instrument, bound by the same
+// arithmetic as the walk it counts; the counters are what the bounds of
+// the two production kernels are reckoned from.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -146,6 +157,16 @@ struct Accel {
   int n_cl, n_sc, sc_size, csize;
 };
 
+// Per-ray counters of the walk (kStats only), all (N,) int32.
+struct Stats {
+  int* visited;   // superclusters whose slab test passed
+  int* slabs;     // member-cluster slab tests done
+  int* tested;    // clusters whose triangles were tested
+  int* together;  // sum over tested clusters of the warp's lanes on the
+                  // same cluster in the same step
+};
+
+template <bool kStats>
 __global__ void closest_hit_kernel(const float* __restrict__ o,
                                    const float* __restrict__ d,
                                    const float* __restrict__ t_min,
@@ -153,7 +174,7 @@ __global__ void closest_hit_kernel(const float* __restrict__ o,
                                    Accel a, float* __restrict__ t_out,
                                    long long* __restrict__ tri_out,
                                    float* __restrict__ u_out,
-                                   float* __restrict__ v_out) {
+                                   float* __restrict__ v_out, Stats st) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
@@ -161,13 +182,21 @@ __global__ void closest_hit_kernel(const float* __restrict__ o,
   float t_best = t_max[i];
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
+  [[maybe_unused]] int n_visited = 0, n_slabs = 0, n_tested = 0,
+                       n_together = 0;
   const int stride = a.n_cl * a.csize;
   const int* morder = a.morder + r.octant * a.n_cl;
   for (int sc = 0; sc < a.n_sc; ++sc) {
     if (!slab(a.sc_aabb, a.n_sc, sc, r, r.t_min, t_best)) continue;
+    if constexpr (kStats) ++n_visited;
     for (int j = 0; j < a.sc_size; ++j) {
       int c = morder[sc * a.sc_size + j];
+      if constexpr (kStats) ++n_slabs;
       if (!slab(a.aabb, a.n_cl, c, r, r.t_min, t_best)) continue;
+      if constexpr (kStats) {
+        ++n_tested;
+        n_together += __popc(__match_any_sync(__activemask(), c));
+      }
       int row0 = c * a.csize;
       for (int k = 0; k < a.csize; ++k) {
         float t, e0, e1, esum;
@@ -183,9 +212,16 @@ __global__ void closest_hit_kernel(const float* __restrict__ o,
     }
   }
   t_out[i] = best >= 0 ? t_best : INFINITY;
-  tri_out[i] = best >= 0 ? (long long)a.order[best] : -1LL;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  if constexpr (kStats) {
+    st.visited[i] = n_visited;
+    st.slabs[i] = n_slabs;
+    st.tested[i] = n_tested;
+    st.together[i] = n_together;
+  } else {
+    tri_out[i] = best >= 0 ? (long long)a.order[best] : -1LL;
+    u_out[i] = bu;
+    v_out[i] = bv;
+  }
 }
 
 __global__ void any_hit_kernel(const float* __restrict__ o,
@@ -239,11 +275,31 @@ extern "C" int nart_closest_hit(const void* o, const void* d,
   Accel a{(const float*)planes, (const float*)aabb, (const float*)sc_aabb,
           (const int*)morder,   (const int*)order,  n_cl,
           n_sc,                 sc_size,            csize};
-  closest_hit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       (cudaStream_t)stream>>>(
+  closest_hit_kernel<false><<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                              (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const float*)t_min,
       (const float*)t_max, n, a, (float*)t_out, (long long*)tri_out,
-      (float*)u_out, (float*)v_out);
+      (float*)u_out, (float*)v_out, Stats{});
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nart_closest_hit_stats(
+    const void* o, const void* d, const void* t_min, const void* t_max, int n,
+    const void* planes, const void* aabb, const void* sc_aabb,
+    const void* morder, int n_cl, int n_sc, int sc_size, int csize,
+    void* t_out, void* visited_out, void* slabs_out, void* tested_out,
+    void* together_out, void* stream) {
+  if (n <= 0) return 0;
+  Accel a{(const float*)planes, (const float*)aabb, (const float*)sc_aabb,
+          (const int*)morder,   nullptr,            n_cl,
+          n_sc,                 sc_size,            csize};
+  Stats st{(int*)visited_out, (int*)slabs_out, (int*)tested_out,
+           (int*)together_out};
+  closest_hit_kernel<true><<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)o, (const float*)d, (const float*)t_min,
+      (const float*)t_max, n, a, (float*)t_out, nullptr, nullptr, nullptr,
+      st);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,195 @@
+"""Differentiable rendering: gradients w.r.t. scene/material/light params.
+
+Counterpart of ``nart_tpu/grad.py``, path integrator only (the volume
+integrator and its ``medium`` parameters are not ported yet):
+
+  * every sampling *decision* (directions, lobe/light choices, RR) is
+    detached -- the detached-sampling estimator: grad E[f/p] = E[grad f / p]
+    with p and the sample fixed (path.make_bounce, differentiable=True);
+  * the work-queue route (radiance_weighted_loss_and_grad) is a path
+    replay: the forward pass keeps each round's carry and traversal
+    outputs, the backward pass re-runs each round's shading and never
+    traverses (path.trace_balanced_loss);
+  * geometry (hit positions, the traversal kernels) carries no gradient.
+
+Trainable parameters are a dict of tensors extracted from SceneData, with
+the JAX package's keys.  Entry points run on the card unless the caller
+names a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import camera, resolve_device, rng, sampling
+from .cluster_accel import build_accel
+from .integrators import path as path_integrator
+from .scene import SceneData
+
+TRAINABLE_FIELDS = (
+    "rho_d_const",
+    "rho_s_const",
+    "tau_const",
+    "alpha_const",
+    "eta_const",
+    "tex_data",
+)
+
+
+_NO_MEDIUM = ("the medium's parameters wait for the volume integrator "
+              "(slice C of the port)")
+
+
+def _no_medium(scene):
+    if scene.medium is not None:
+        raise NotImplementedError(_NO_MEDIUM)
+
+
+def get_params(scene: SceneData):
+    """The trainable parameter dict of a scene: the six material tables and,
+    per light, the constant Le, the Le texture (None for constant lights)
+    and the scalar intensity.  An env light's importance distribution is
+    built at scene load and not rebuilt from a trained texture: sampling
+    pdfs are detached decisions, so the estimator stays unbiased."""
+    _no_medium(scene)
+    theta = {f: getattr(scene, f) for f in TRAINABLE_FIELDS}
+    theta["light_le"] = [li.le_const for li in scene.lights]
+    theta["light_le_tex"] = [li.le_tex for li in scene.lights]
+    theta["light_intensity"] = [li.intensity for li in scene.lights]
+    return theta
+
+
+def put_params(scene: SceneData, theta):
+    """A scene with its trainable parameters replaced by theta."""
+    _no_medium(scene)
+    lights = [
+        dataclasses.replace(li, le_const=le, le_tex=le_tex, intensity=inten)
+        for li, le, le_tex, inten in zip(
+            scene.lights, theta["light_le"], theta["light_le_tex"],
+            theta["light_intensity"])
+    ]
+    return dataclasses.replace(
+        scene, lights=lights, **{f: theta[f] for f in TRAINABLE_FIELDS})
+
+
+def _map_params(fn, theta):
+    """theta with fn applied to every tensor (None entries stay)."""
+    def conv(v):
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return None if v is None else fn(v)
+
+    return {k: conv(v) for k, v in theta.items()}
+
+
+def _param_list(theta):
+    out = []
+    _map_params(out.append, theta)
+    return out
+
+
+def params_from_numpy(theta):
+    """The port's parameter dict from one of numpy arrays with the same
+    keys (for example the JAX package's ``get_params`` result)."""
+    if "medium" in theta:
+        raise NotImplementedError(_NO_MEDIUM)
+    return _map_params(
+        lambda a: torch.from_numpy(np.array(a, np.float32)), theta)
+
+
+def _grads_of(loss, theta):
+    """d loss / d theta in theta's layout (zeros where loss ignores a
+    leaf)."""
+    leaves = _param_list(theta)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    filled = iter([torch.zeros_like(x) if g is None else g
+                   for x, g in zip(leaves, grads)])
+    return _map_params(lambda _: next(filled), theta)
+
+
+def _as_leaves(theta, device):
+    return _map_params(
+        lambda x: x.detach().to(device).requires_grad_(), theta)
+
+
+def render_lanes(scene, accel, params, width, height, spp, seed_base=0,
+                 return_aux=False):
+    """Differentiable per-pixel radiance (no film filter): (N, 3).
+
+    Averages spp samples per pixel with the RNG stream discipline of the
+    forward renderer (seeds are y * totalWidth + x where totalWidth
+    includes the filter border), all lanes in lockstep (path.trace).  Runs
+    on the device of the scene's tensors.  With return_aux=True also
+    returns {"unfinished": 0} (the path integrator never truncates)."""
+    if params.integrator == "volume":
+        raise NotImplementedError(
+            "the volume integrator is not ported yet (slice C)")
+    dev = scene.tri_v.device
+    n = width * height
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    px, py = idx % width, idx // width
+    total_w = width + 2 * int(np.ceil(params.filter_width))
+    state = rng.seed(py * total_w + px + seed_base)
+    samples, state = sampling.latin_square(state, spp)  # (N, spp, 2)
+    acc = torch.zeros((n, 3), device=dev)
+    for i in range(spp):
+        o, d = camera.cast_rays(scene.cam_to_world, scene.fov, width, height,
+                                px, py, samples[:, i])
+        l, _, state, _ = path_integrator.trace(
+            scene, accel, o, d, state, params, differentiable=True)
+        acc = acc + l
+    out = acc / float(np.float32(spp))
+    if return_aux:
+        return out, {"unfinished": 0}
+    return out
+
+
+def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
+                                    params, width, height, chunk_base=0,
+                                    lanes=0, n_rounds=None, device=None):
+    """Value and gradient of sum(cot * per-sample radiance) over the
+    balanced work queue, by path replay (path.trace_balanced_loss).
+
+    Any image loss linearises to this form: the film splat is linear in
+    the per-sample radiance, so cot = d loss / d la comes from a forward
+    render.  ``n_rounds`` is accepted and ignored: the JAX package measures
+    and caches a static round count for its compiled loop, this loop ends
+    when no lane is alive.  Everything is moved to ``device`` (the card
+    unless one is named).
+
+    Returns (loss, grads, rays, n_rounds): grads has theta's layout, rays
+    is one forward's algorithmic count, n_rounds the measured round count.
+    """
+    if params.integrator == "volume":
+        raise NotImplementedError(
+            "the volume integrator is not ported yet (slice C)")
+    dev = resolve_device(device)
+    theta = _as_leaves(theta, dev)
+    scn = put_params(scene.to(dev), theta)
+    accel = None if accel is None else accel.to(dev)
+    loss, rays, _, rounds = path_integrator.trace_balanced_loss(
+        scn, accel, samples.to(dev), cot.to(dev), params, width, height,
+        chunk_base=chunk_base, n_lanes=lanes)
+    return loss.detach(), _grads_of(loss, theta), rays, rounds
+
+
+def loss_and_grad(scene, params, width, height, spp, loss_fn, device=None):
+    """Value and gradient of loss_fn(image (H, W, 3)) w.r.t. the trainable
+    parameters, through render_lanes (lockstep wavefront, per-pixel RNG
+    streams), on ``device`` (the card unless one is named).
+
+    Returns (loss, grads_dict)."""
+    if params.integrator == "volume":
+        raise NotImplementedError(
+            "the volume integrator is not ported yet (slice C)")
+    dev = resolve_device(device)
+    accel = build_accel(scene.tri_v.cpu().numpy(), params.accel)
+    accel = None if accel is None else accel.to(dev)
+    theta = _as_leaves(get_params(scene), dev)
+    lanes = render_lanes(put_params(scene.to(dev), theta), accel, params,
+                         width, height, spp)
+    loss = loss_fn(lanes.reshape(height, width, 3))
+    return loss.detach(), _grads_of(loss, theta)

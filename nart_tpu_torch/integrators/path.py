@@ -7,7 +7,15 @@ lighting (both strategies, one batched any-hit shadow query) -> scatter ->
 nested-dielectric list update -> Russian roulette] on the whole wavefront
 with masked lanes, then lanes whose path ended pull the next (pixel,
 sample) work item.  The round loop is a Python loop; the per-item radiance
-is written with ``index_add_``.
+is written with ``index_add_``.  ``trace`` is the lockstep wavefront (one
+bounce per round, no respawn).
+
+Gradients: ``make_bounce(differentiable=True)`` is the detached-sampling
+estimator, and ``trace_balanced_loss`` differentiates the work queue by
+path replay: rounds run forward without a graph, each round's carry and
+traversal outputs are kept, and the backward pass re-runs the rounds in
+reverse with the two queries answered from what was kept, so it never
+traverses.
 
 RNG: each work item owns an independent Xorshift32 stream seeded from its
 global (sample, pixel) id (``_path_stream_seed``); draws happen at the
@@ -38,6 +46,7 @@ from ..lights import (
     pack_area_lights,
 )
 from ..materials import make_bsdf, pack_tex_half
+from ..scene import map_tensors
 
 SHADOW_BIAS = float(np.float32(0.001))  # pathintegrator.h:36
 INF = math.inf
@@ -327,18 +336,35 @@ def _make_queries(scene, accel, params):
     return isect, occluded
 
 
-def make_bounce(scene, accel, params):
+def make_bounce(scene, accel, params, differentiable=False, queries=None):
     """The per-round wavefront step: bounce_body(bounce (N,), paths) ->
-    Paths.  Mirrors nart_tpu's _make_bounce step for step."""
+    Paths.  Mirrors nart_tpu's _make_bounce step for step.
+
+    differentiable=True gives the detached-sampling estimator: every
+    sampling decision (sampled directions, the pdfs they are divided by,
+    the Russian-roulette probability) is detached where the JAX package
+    calls stop_gradient, so grad E[f/p] = E[grad f / p] with the sample
+    fixed.  The forward values are the same bits either way (textures:
+    where the texels are half floats, as the reference's are).  queries, an
+    (isect, occluded) pair, replaces the scene's traversal queries (the
+    path replay answers them from stored outputs)."""
     n_lights = len(scene.lights)
     gamma = float(np.float32(params.roughening_factor ** 2))
     surf_rows = pack_surface_rows(scene.tri_v, scene.tri_n, scene.tri_uv,
                                   scene.tri_mesh)
     light_part = _light_partition(scene.lights, scene.tri_v.device)
-    tex_half = pack_tex_half(scene.tex_data) if scene.tex_slots else None
+    # packed half textures on the render path (the reference's in-memory
+    # textures are half, so its scenes read the same values); gradients
+    # read the float32 table, as the JAX package's do
+    tex_half = None
+    if scene.tex_slots and not differentiable:
+        tex_half = pack_tex_half(scene.tex_data)
     mesh_priority = scene.mesh_priority.long()
-    isect, occluded = _make_queries(scene, accel, params)
+    isect, occluded = queries or _make_queries(scene, accel, params)
     lights = scene.lights
+
+    def det(x):
+        return x.detach() if differentiable else x
 
     def bounce_body(bounce, p: Paths) -> Paths:
         n = p.o.shape[0]
@@ -385,19 +411,22 @@ def make_bounce(scene, accel, params):
         fA, wiA, pdfA, dflags, _, _ = bxdf.bsdf_sample_f(
             desc, wo, ua_l, torch.stack([ua_x, ua_y], -1), ones_b, eta_outer,
             torch.zeros(n, dtype=torch.int64, device=dev))
-        wiA_world = bxdf.to_world(frame, wiA)
+        wiA, pdfA = det(wiA), det(pdfA)
+        wiA_world = det(bxdf.to_world(frame, wiA))
         liA, light_pdf_A, tA = _select_light_eval(
             lights, light_part, light_idx, surf.p, wiA_world)
+        light_pdf_A = det(light_pdf_A)
         # draw sites 5-6: strategy B light sample
         ub_x, st8 = rng.masked_next_float(st8, m_valid)
         ub_y, st8 = rng.masked_next_float(st8, m_valid)
         liB, wiB_world, light_pdf_B, tB = _select_light_sample(
             lights, light_part, light_idx, surf.p,
             torch.stack([ub_x, ub_y], -1))
-        wiB = bxdf.to_local(frame, wiB_world)
+        wiB_world, light_pdf_B = det(wiB_world), det(light_pdf_B)
+        wiB = det(bxdf.to_local(frame, wiB_world))
         # strategy B's bsdf terms do not depend on occlusion: evaluated
         # before the shadow query so provably-zero lanes never trace
-        pdfB = bxdf.bsdf_pdf(desc, wo, wiB, ones_b, eta_outer)
+        pdfB = det(bxdf.bsdf_pdf(desc, wo, wiB, ones_b, eta_outer))
         fB = bxdf.bsdf_f(desc, wo, wiB, ones_b, eta_outer)
 
         # one batched shadow query for both strategies; lanes that cannot
@@ -455,6 +484,7 @@ def make_bounce(scene, accel, params):
         fS, wiS, pdfS, new_flags, alpha_i, eta_smp = bxdf.bsdf_sample_f(
             desc, wo, us_l, torch.stack([us_x, us_y], -1), ~ones_b,
             eta_outer, p.flags)
+        wiS, pdfS = det(wiS), det(pdfS)
         pdf_ok = pdfS > 0.0
         go = m_valid & pdf_ok
         alpha_tweak = torch.where(go, (1.0 - gamma * alpha_i) * p.alpha_tweak,
@@ -465,7 +495,7 @@ def make_bounce(scene, accel, params):
                            / torch.where(pdf_ok, pdfS, 1.0))[:, None],
             p.beta,
         )
-        wiS_world = bxdf.to_world(frame, wiS)
+        wiS_world = det(bxdf.to_world(frame, wiS))
         new_o = torch.where(
             go[:, None],
             surf.p + surf.gn * (SHADOW_BIAS * _flip_sign(wiS[..., 2]))[:, None],
@@ -492,7 +522,8 @@ def make_bounce(scene, accel, params):
         # Russian roulette (pathintegrator.cpp:237-246): bounce > 3 only
         rr_mask = alive & no_break & (bounce > 3)
         u_rr, st8 = rng.masked_next_float(st8, rr_mask)
-        q = torch.clamp(beta.sum(-1) * _RR_SCALE, min=0.0)
+        # the survival probability is a sampling decision
+        q = det(torch.clamp(beta.sum(-1) * _RR_SCALE, min=0.0))
         rr_live = q >= u_rr
         beta = torch.where((rr_mask & rr_live)[:, None],
                            beta / torch.where(q > 0, q, 1.0)[:, None], beta)
@@ -530,6 +561,32 @@ def _paths_init(o, d, state):
     )
 
 
+def trace(scene, accel, o, d, state, params, differentiable=False):
+    """Trace one wavefront of camera rays to radiance, all lanes in
+    lockstep (one bounce per round, no respawn).
+
+    Args:
+      o, d: (N, 3) camera rays.
+      state: (N,) int64 RNG states (already past the Latin-square draws).
+      differentiable: detached-sampling estimator (see make_bounce); the
+        result then carries the graph to the scene's tensors that require
+        grad.  The graph holds every bounce's intermediates (the traversal
+        queries have no backward, so a backward pass runs none): this is
+        the route of small renders and the oracle of the gradient tests;
+        trace_balanced_loss is the one whose memory stays O(lanes).
+    Returns (L (N, 3), alpha (N,), state, rays (int, algorithmic count)).
+    """
+    bounce_body = make_bounce(scene, accel, params, differentiable)
+    paths = _paths_init(o, d, state)
+    bounce = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    for _ in range(params.bounces):
+        if not bool(paths.alive.any()):
+            break
+        paths = bounce_body(bounce, paths)
+        bounce = bounce + 1
+    return paths.l, paths.alpha, paths.state, int(paths.rays)
+
+
 def _next_pow2(v):
     return 1 << int(np.ceil(np.log2(max(int(v), 1))))
 
@@ -555,14 +612,15 @@ def auto_lanes(total):
 
 
 def _balanced_machine(scene, accel, samples, params, render_w, render_h,
-                      chunk_base, n_lanes):
+                      chunk_base, n_lanes, differentiable=False, queries=None):
     """Work-queue machinery: returns (core0, step) where step(core) ->
-    (core', dying, la, item_before)."""
+    (core', dying, la, item_before).  differentiable and queries go to
+    make_bounce."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or auto_lanes(total)
     dev = samples.device
-    bounce_body = make_bounce(scene, accel, params)
+    bounce_body = make_bounce(scene, accel, params, differentiable, queries)
     samples_flat = samples.reshape(total, 2)
 
     def spawn(item):
@@ -653,3 +711,162 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
         rounds += 1
     return (la_out[:total].reshape(spp_chunk, n_pix, 4),
             int(core[0].rays), rounds)
+
+
+class _QueryTape:
+    """The two traversal queries of a round: run and remembered on the way
+    forward, answered from what was remembered when ``replaying``."""
+
+    def __init__(self, isect=None, occluded=None):
+        self._isect, self._occluded = isect, occluded
+        self.hit = self.occ = None
+        self.replaying = isect is None
+
+    def isect(self, *rays):
+        if not self.replaying:
+            self.hit = self._isect(*rays)
+        return self.hit
+
+    def occluded(self, *rays):
+        if not self.replaying:
+            self.occ = self._occluded(*rays)
+        return self.occ
+
+
+# the float leaves of the carry that can depend on a trainable parameter.
+# Origins, directions and t_lim come from geometry and detached samples,
+# alpha from constants: their adjoints are never needed.
+_ADJOINT_FIELDS = ("beta", "l", "eta_sampled", "alpha_tweak")
+
+
+def _adjoint_leaves(p: Paths):
+    return [getattr(p, f) for f in _ADJOINT_FIELDS] + [p.lst.eta]
+
+
+def _with_adjoint_leaves(p: Paths, vals):
+    return replace(p, **dict(zip(_ADJOINT_FIELDS, vals)),
+                   lst=replace(p.lst, eta=vals[-1]))
+
+
+class _BalancedReplay:
+    """Path replay over the work queue: sum(cot * la) and its gradient
+    with respect to the scene's tensors that require grad."""
+
+    def __init__(self, scene, accel, samples, cot, params, render_w,
+                 render_h, chunk_base, n_lanes):
+        self.scene, self.accel, self.samples = scene, accel, samples
+        self.machine_args = (params, render_w, render_h, chunk_base, n_lanes)
+        self.total = samples.shape[0] * samples.shape[1]
+        self.cot_flat = cot.reshape(self.total, 4)
+        self.params = params
+        seen = {}
+        map_tensors(scene, lambda t: seen.setdefault(id(t), t)
+                    if t.requires_grad else t)
+        self.leaves = list(seen.values())
+        self.saved = []  # per round: (incoming carry, Hit, occ)
+        self.rays = 0
+
+    def _contribution(self, dying, la, item):
+        c = self.cot_flat[item.clamp(0, self.total - 1)]
+        return ((c * la).sum(-1) * dying.to(la.dtype)).sum()
+
+    def forward(self):
+        """Run the rounds without a graph, keeping each round's incoming
+        carry and traversal outputs; returns the loss (a detached scalar)."""
+        with torch.no_grad():
+            tape = _QueryTape(*_make_queries(self.scene, self.accel,
+                                             self.params))
+            core, step = _balanced_machine(
+                self.scene, self.accel, self.samples, *self.machine_args,
+                differentiable=True, queries=(tape.isect, tape.occluded))
+            loss = torch.zeros((), device=self.samples.device)
+            while bool(core[0].alive.any()):
+                core_in = core
+                core, dying, la, item = step(core)
+                self.saved.append((core_in, tape.hit, tape.occ))
+                loss = loss + self._contribution(dying, la, item)
+            self.rays = int(core[0].rays)
+        return loss
+
+    def backward(self, g):
+        """g * d loss / d leaf for every leaf (None where the loss does not
+        depend on it): walks the rounds backwards, re-runs each with the
+        graph on and the two queries answered from the record, and pushes
+        the carry's adjoint through it.  No traversal query runs."""
+        tape = _QueryTape()
+        with torch.enable_grad():
+            proxies = [x.detach().requires_grad_() for x in self.leaves]
+            swap = {id(x): p for x, p in zip(self.leaves, proxies)}
+            scene = map_tensors(self.scene, lambda t: swap.get(id(t), t))
+            _, step = _balanced_machine(
+                scene, self.accel, self.samples, *self.machine_args,
+                differentiable=True, queries=(tape.isect, tape.occluded))
+            grads = [None] * len(proxies)
+            adjoint = None  # of the carry after the round at hand
+            for core_in, hit, occ in reversed(self.saved):
+                tape.hit, tape.occ = hit, occ
+                carry = [x.detach().requires_grad_()
+                         for x in _adjoint_leaves(core_in[0])]
+                core_out, dying, la, item = step(
+                    (_with_adjoint_leaves(core_in[0], carry),) + core_in[1:])
+                outs, outs_grad = [self._contribution(dying, la, item)], [g]
+                if adjoint is not None:
+                    for y, a in zip(_adjoint_leaves(core_out[0]), adjoint):
+                        if a is not None and y.requires_grad:
+                            outs.append(y)
+                            outs_grad.append(a)
+                # retain_graph: the rounds share the tables make_bounce
+                # derived from the proxies; each round's own graph goes
+                # when its tensors do
+                res = torch.autograd.grad(outs, carry + proxies, outs_grad,
+                                          allow_unused=True,
+                                          retain_graph=True)
+                adjoint = res[:len(carry)]
+                for i, r in enumerate(res[len(carry):]):
+                    if r is not None:
+                        grads[i] = r if grads[i] is None else grads[i] + r
+        self.saved = []
+        return grads
+
+
+class _ReplayLoss(torch.autograd.Function):
+    """The replay as one differentiable function of the scene's leaves."""
+
+    @staticmethod
+    def forward(ctx, replay, *leaves):
+        ctx.replay = replay
+        return replay.forward()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return (None, *ctx.replay.backward(g))
+
+
+def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
+                        render_h, n_rounds=None, chunk_base=0, n_lanes=0):
+    """Differentiable balanced wavefront: scalar loss = sum(cot * la),
+    with gradients by path replay.
+
+    The loss is a function of the scene's tensors that require grad
+    (``loss.backward()`` or ``torch.autograd.grad`` reach them).  The
+    forward pass runs the work queue without a graph and keeps, per round,
+    the incoming carry and the outputs of the two traversal queries
+    (O(lanes) per round); the backward pass walks the rounds in reverse,
+    re-runs each round's shading with the graph on and the queries answered
+    from what was kept, and pushes the carry's adjoint through it: one
+    extra forward of shading per round and **no traversal** in the backward
+    pass.  For an arbitrary image loss, linearise first (the splat is
+    linear in la) and pass d loss / d la as ``cot``.
+
+    Args:
+      cot: (spp_chunk, P, 4) cotangent of the per-sample radiance.
+      n_rounds: accepted and ignored.  The JAX package needs a static trip
+        count for reverse mode; here the loop ends when no lane is alive.
+    Returns (loss, rays, unfinished, rounds): unfinished is always 0, rays
+    is one forward's algorithmic count, rounds the measured round count.
+    """
+    replay = _BalancedReplay(scene, accel, samples, cot, params, render_w,
+                             render_h, chunk_base, n_lanes)
+    loss = _ReplayLoss.apply(replay, *replay.leaves)
+    return loss, replay.rays, 0, len(replay.saved)

@@ -45,9 +45,9 @@ def tex_fetch(scene: SceneData, tex_id, st, tex_half=None):
     """Nearest-neighbour texture lookup: (N, 3) f32, from the half table
     when one is given."""
     idx = _tex_index(scene, tex_id, st)
-    if tex_half is not None:
-        return tex_half[idx].to(torch.float32)
-    return scene.tex_data[idx]
+    if tex_half is None:
+        return scene.tex_data[idx]
+    return tex_half[idx].to(torch.float32)
 
 
 def mesh_lookup(scene: SceneData, mesh_id):

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import exr, film, rng, sampling
+from . import exr, film, resolve_device, rng, sampling
 from .cluster_accel import build_accel, resolve_accel_kind
 from .integrators import path as path_integrator
 from .scene import SceneData, load_scene
@@ -99,15 +99,27 @@ def load_sessions(scene_path: str, overrides: Optional[dict] = None):
     return [resolve_params(s, overrides) for s in doc.get("renderSessions", [])]
 
 
-class RenderSession:
-    """One render: scene + params on a device -> film -> EXR."""
+def image_samples(width, height, total_w, spp, device):
+    """The Latin-square image samples of a width x height pixel grid:
+    (spp, width * height, 2).  Per-pixel streams are seeded
+    y * total_w + x, total_w being the image width with its filter border
+    (render.cpp:81-82)."""
+    idx = torch.arange(width * height, dtype=torch.int64, device=device)
+    state = rng.seed((idx // width) * total_w + idx % width)
+    samples, _ = sampling.latin_square(state, spp)
+    return samples.transpose(0, 1).contiguous()
 
-    def __init__(self, scene: SceneData, params: RenderParams, device):
+
+class RenderSession:
+    """One render: scene + params on a device (the card unless one is
+    named, see resolve_device) -> film -> EXR."""
+
+    def __init__(self, scene: SceneData, params: RenderParams, device=None):
         if params.integrator != "path" or params.wavefront != "balanced":
             raise NotImplementedError(
                 "only the path integrator in wavefront='balanced' mode is "
                 f"ported (got {params.integrator!r}, {params.wavefront!r})")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = params
         self.filter_bounds = int(np.ceil(params.filter_width))
         self.total_w = params.image_width + 2 * self.filter_bounds
@@ -131,12 +143,8 @@ class RenderSession:
         ``self.stats`` gets the algorithmic ray count and round count."""
         p = self.params
         dev = self.device
-        n = self.render_w * self.render_h
-        idx = torch.arange(n, dtype=torch.int64, device=dev)
-        px, py = idx % self.render_w, idx // self.render_w
-        state = rng.seed(py * self.total_w + px)
-        samples, _ = sampling.latin_square(state, p.spp)
-        samples = samples.transpose(0, 1).contiguous()  # (spp, N, 2)
+        samples = image_samples(self.render_w, self.render_h, self.total_w,
+                                p.spp, dev)
         buf = torch.zeros((self.total_h, self.total_w, 5), device=dev)
         table = film.filter_table(dev)
         chunk = min(p.spp_chunk, p.spp) if p.spp_chunk else min(p.spp, 32)
@@ -169,9 +177,9 @@ class RenderSession:
 
 
 def render_scene_file(scene_path: str, overrides: Optional[dict] = None,
-                      *, device, asset_root: Optional[str] = None):
+                      *, device=None, asset_root: Optional[str] = None):
     """Load a scene and its sessions; yields (params, RenderSession) per
-    renderSessions entry, on ``device``."""
+    renderSessions entry, on ``device`` (the card unless one is named)."""
     scn = load_scene(scene_path, asset_root=asset_root)
     for params in load_sessions(scene_path, overrides):
         yield params, RenderSession(scn, params, device)

@@ -56,14 +56,14 @@ _MAT_CODES = {
 LIGHT_DISK, LIGHT_RING, LIGHT_ENV, LIGHT_DISTANT = 0, 1, 2, 3
 
 
-def _to_device(obj, device):
-    """A copy of dataclass ``obj`` with every tensor (also inside nested
-    dataclasses and lists) moved to ``device``."""
+def map_tensors(obj, fn):
+    """A copy of dataclass ``obj`` with ``fn`` applied to every tensor
+    (also inside nested dataclasses and lists)."""
     def conv(v):
         if torch.is_tensor(v):
-            return v.to(device)
+            return fn(v)
         if dataclasses.is_dataclass(v):
-            return _to_device(v, device)
+            return map_tensors(v, fn)
         if isinstance(v, list):
             return [conv(x) for x in v]
         return v
@@ -71,6 +71,10 @@ def _to_device(obj, device):
     return dataclasses.replace(
         obj, **{f.name: conv(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
     )
+
+
+def _to_device(obj, device):
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 def _t(a, dtype=None):

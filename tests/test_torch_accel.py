@@ -16,6 +16,7 @@ import torch
 from nart_tpu import pallas_accel as jpa
 from nart_tpu.geometry import intersect_brute as j_brute
 from nart_tpu_torch import cluster_accel as tca
+from nart_tpu_torch import kernel_stats
 
 ARRAYS = ("planes", "order", "aabb", "sc_aabb", "morder", "cl_lo", "cl_hi")
 META = ("n_clusters", "n_tris", "n_sc", "sc_size", "csize")
@@ -165,7 +166,9 @@ def test_cpu_tensors_take_the_plain_path():
     tca.reset_launch_counts()
     tca.intersect_clusters(o, d, tmin, tmax, acc)
     tca.intersect_clusters_any(o, d, tmin, tmax, acc)
-    assert tca.launch_counts == {"closest_hit": 0, "any_hit": 0}
+    kernel_stats.traversal_stats(o, d, tmin, tmax, acc)
+    assert tca.launch_counts == {"closest_hit": 0, "any_hit": 0,
+                                 "closest_hit_stats": 0}
     with pytest.raises(ValueError):
         tca.intersect_clusters(o.to("meta"), d.to("meta"), tmin.to("meta"),
                                tmax.to("meta"), acc)

@@ -6,7 +6,8 @@ present, deciding inside the fixture, never at import.  Run them on a
 machine with a card with ``python -m pytest tests/test_torch_kernels.py``.
 Criteria (as chip_smoke.py): triangle ids agree on >= 99.99% of rays,
 t/u/v to rtol 1e-4 / atol 1e-5 where they agree, any-hit equal to
-closest-hit validity exactly.
+closest-hit validity exactly; the counter kernel's counters equal to its
+plain version's on every ray.
 """
 
 import os
@@ -71,6 +72,31 @@ def test_kernels_match_plain_on_soups(cuda, n_tris, kw):
     rng = np.random.default_rng(n_tris)
     acc = ca.build_clusters(_soup(n_tris, rng), **kw).to(cuda)
     _check(_rays(8192, rng, cuda), acc)
+
+
+@pytest.mark.parametrize("n_tris,kw", [
+    (5, {}), (700, {"super_target": 2}), (40000, {}),
+])
+def test_stats_kernel_matches_plain(cuda, n_tris, kw):
+    """The counter kernel: counters equal to the plain walk's on every ray,
+    t equal to the closest-hit kernel's, and the lanes it saw together on
+    a cluster no more than a warp that never diverged would reach."""
+    from nart_tpu_torch import kernel_stats
+
+    rng = np.random.default_rng(n_tris)
+    acc = ca.build_clusters(_soup(n_tris, rng), **kw).to(cuda)
+    rays = _rays(4096, rng, cuda)
+    before = ca.launch_counts["closest_hit_stats"]
+    sk = kernel_stats.traversal_stats(*rays, acc)
+    torch.cuda.synchronize()
+    assert ca.launch_counts["closest_hit_stats"] == before + 1
+    sp = ca.closest_hit_stats_plain(*rays, acc)
+    for k in ("visited", "slabs", "tested"):
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+    assert torch.equal(sk.t, ca.intersect_clusters(*rays, acc).t)
+    assert torch.equal(sk.t, sp.t)
+    assert (sk.together >= sk.tested).all()
+    assert (sk.together <= sp.together).all()
 
 
 def test_kernels_match_plain_on_macbeth(cuda):

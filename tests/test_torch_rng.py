@@ -128,7 +128,8 @@ def test_warps_match(warp):
 def test_package_imports_without_jax():
     """The port must import on a machine with no JAX at all."""
     code = ("import sys; sys.modules['jax'] = None; "
-            "import nart_tpu_torch.render, nart_tpu_torch.cluster_accel; "
+            "import nart_tpu_torch.render, nart_tpu_torch.cluster_accel, "
+            "nart_tpu_torch.grad, nart_tpu_torch.kernel_stats; "
             "assert 'nart_tpu' not in sys.modules")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
