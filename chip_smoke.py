@@ -14,12 +14,12 @@ Phases (any failure raises and exits non-zero):
      (b) a random 40,000-triangle soup (the >= 32k cluster policy) with
      65,536 rays.  Triangle ids must agree on >= 99.99% of rays, t/u/v to
      rtol 1e-4 / atol 1e-5 where they agree, and any-hit must equal
-     closest-hit validity exactly.  The counter kernel's three counters
-     must equal its plain version's on every ray and its t the closest-hit
-     kernel's.  Median times of kernel and plain version (CUDA events,
-     after warm-up), and each kernel's bound: the closest-hit and counter
-     kernels' from the counters on the very rays that were timed, the
-     any-hit kernel's from its bytes (see bound);
+     closest-hit validity exactly.  The two counter kernels' five counters
+     must equal their plain versions' on every ray, the closest-hit walk's
+     t the closest-hit kernel's and the any-hit walk's occlusion the
+     any-hit kernel's.  Median times of kernel and plain version (CUDA
+     events, after warm-up), and each kernel's bound from its own walk's
+     counters on the very rays that were timed (see bound);
   4. golden parity: macbeth at 96x96, 8 spp, through the kernels, against
      tests/golden/macbeth_96x96_8spp.exr (read with the port's PIZ
      reader) with test_macbeth_golden's criteria;
@@ -28,7 +28,7 @@ Phases (any failure raises and exits non-zero):
      warm run, one timed run with launch counters reset just before it;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
-     same scene, its launches counted the same way;
+     same scene (both walks), its launches counted the same way;
   6. training path at full width: radiance_weighted_loss_and_grad on
      macbeth 1280x720, one chunk of 4 spp, cot = 1 on RGB: one warm and
      one timed run.  The loss must equal the forward work queue's
@@ -65,7 +65,10 @@ SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 DEVICE = "cuda"  # every phase runs on the card
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             "any_hit": "nart_tpu/pallas_accel.py:773",  # _kernel_any
-            "closest_hit_stats": "tools/kernel_stats.py:27"}  # _kernel_stats
+            "closest_hit_stats": "tools/kernel_stats.py:27",  # _kernel_stats
+            # the same counters, on _kernel_any's walk
+            "any_hit_stats": "tools/kernel_stats.py:27"}
+KERNELS = tuple(REPLACES)
 TRI_AGREE = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
@@ -73,8 +76,12 @@ RTOL, ATOL = 1e-4, 1e-5
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # float operations of cluster_hit.cu, counted from the source: slab() does
 # 6 subtractions, 6 multiplies, 12 min/max and 1 compare; tri_test() does
-# 14 up to its t-window return (two 3-term dot products, one subtraction,
-# one division, two compares) and 76 when it runs to the end
+# 76 when it runs to the end: 60 for the edge functions (21 to translate
+# and shear the corners, 9 for each of the three, 12 for the sign and zero
+# checks), 14 for the plane equation and the t-window (two 3-term dot
+# products, one subtraction, one division, two compares), 2 for esum.  The
+# bound charges a triangle the 14: the least that rejects it, whichever
+# part a kernel runs first (cluster_hit.cu runs the edge functions first)
 SLAB_OPS, TRI_OPS_MIN, TRI_OPS_FULL = 25, 14, 76
 
 
@@ -127,65 +134,78 @@ def compare_closest(name, hk, hp):
     return frac, err
 
 
-def compare_stats(name, acc, rays, hit_kernel):
-    """Counter kernel vs plain on `rays`: returns (TraversalStats of the
-    kernel, max abs err of t)."""
+def compare_stats(name, acc, rays, hit_kernel, any_hit=False):
+    """Counter kernel vs plain on `rays`, for the closest-hit walk
+    (hit_kernel: the closest-hit kernel's Hit) or the any-hit walk
+    (hit_kernel: the any-hit kernel's occlusion): returns (the kernel's
+    stats, max abs err of its t or occlusion)."""
     import torch
 
     from nart_tpu_torch import cluster_accel as ca, kernel_stats
 
-    sk = kernel_stats.traversal_stats(*rays, acc)
-    sp = ca.closest_hit_stats_plain(*rays, acc)
-    for k in ("visited", "slabs", "tested"):
+    sk = kernel_stats.traversal_stats(*rays, acc, any_hit=any_hit)
+    plain = ca.any_hit_stats_plain if any_hit else ca.closest_hit_stats_plain
+    sp = plain(*rays, acc)
+    # `together` too: it is the size of the group that tested the cluster,
+    # which follows from the walk alone
+    for k in ("visited", "slabs", "tested", "together", "sc_tests"):
         bad = int((getattr(sk, k) != getattr(sp, k)).sum())
         if bad:
             raise AssertionError(f"{name}: counter {k} differs on {bad} rays")
-    if not torch.equal(sk.t, hit_kernel.t):
-        raise AssertionError(f"{name}: stats t != closest-hit kernel's t")
-    if not bool((sk.together <= sp.together).all()
-                and (sk.together >= sk.tested).all()):
-        raise AssertionError(f"{name}: lanes-together count out of range")
-    both = torch.isfinite(sk.t) & torch.isfinite(sp.t)
-    if not torch.equal(torch.isfinite(sk.t), torch.isfinite(sp.t)):
-        raise AssertionError(f"{name}: stats hit set differs from plain")
-    err = float((sk.t[both] - sp.t[both]).abs().max()) if both.any() else 0.0
-    if err > ATOL:
-        raise AssertionError(f"{name}: stats t off by {err}")
+    if any_hit:
+        if not torch.equal(sk.occluded, hit_kernel):
+            raise AssertionError(f"{name}: stats occlusion != any-hit kernel's")
+        agree = float((sk.occluded == sp.occluded).float().mean())
+        if agree < TRI_AGREE:
+            raise AssertionError(f"{name}: occlusion vs plain {agree:.6f}")
+        err = float((sk.occluded != sp.occluded).any())
+    else:
+        if not torch.equal(sk.t, hit_kernel.t):
+            raise AssertionError(f"{name}: stats t != closest-hit kernel's t")
+        both = torch.isfinite(sk.t) & torch.isfinite(sp.t)
+        if not torch.equal(torch.isfinite(sk.t), torch.isfinite(sp.t)):
+            raise AssertionError(f"{name}: stats hit set differs from plain")
+        err = (float((sk.t[both] - sp.t[both]).abs().max()) if both.any()
+               else 0.0)
+        if err > ATOL:
+            raise AssertionError(f"{name}: stats t off by {err}")
     s = kernel_stats.summarize(sk)
-    log(f"    counters {name}: visited {s['visited_sc']:.3f}, slab tests "
+    log(f"    counters {name}: supercluster tests {s['sc_tests']:.3f}, "
+        f"visited {s['visited_sc']:.3f}, slab tests "
         f"{s['slab_tests']:.3f}, clusters tested {s['tri_tests']:.3f} per "
-        f"ray; lanes together on a cluster {s['lanes_per_test']:.2f}/32 "
-        f"(a warp that never diverged: "
-        f"{kernel_stats.summarize(sp)['lanes_per_test']:.2f}); counters "
-        "equal plain on every ray")
+        f"ray; rays together on a cluster {s['lanes_per_test']:.2f}/32; all "
+        "five counters equal plain on every ray")
     return sk, err
 
 
-def bound(acc, n_rays, out_bytes_per_ray, stats, active, exact=True):
+def bound(acc, n_rays, out_bytes_per_ray, stats):
     """Least time the card could take (ms) and what sets it.
 
     Bytes: each ray read once (o, d, t_min, t_max: 32 B), each output
-    written once, the accel arrays once.  Operations: the walk's counters on
-    these very rays (`stats`, over the `active` rays: those the kernel does
-    not return from at once) times the arithmetic of one slab test and of
-    the part of a triangle test that every triangle pays (TRI_OPS_MIN; the
-    triangles whose t lies in the window pay TRI_OPS_FULL, which is not
-    counted, so the bound errs low).  exact=False: the counters are not
-    this kernel's own walk (any-hit returns at the first hit, the counters
-    walk on to the closest), so their operations are no lower limit: the
-    bound is the byte side, and the count is kept apart as an over-count."""
+    written once, the accel arrays once.  Operations: the counters of the
+    kernel's own walk on these very rays (`stats`; a ray that never joins
+    the walk counts nothing) times the arithmetic of one slab test and of
+    the least part of a triangle test that can reject a triangle
+    (TRI_OPS_MIN; the kernel's own order pays 60 before it rejects, and a
+    hit costs TRI_OPS_FULL, neither of which is counted, so the bound errs
+    low).  Slab tests: the supercluster tests the ray made (an
+    any-hit ray makes none behind the supercluster that occludes it), and
+    the member tests where sc_size > 1 (where it is 1 a member's box is its
+    supercluster's and the kernel tests it once).  Triangles: every row of
+    each cluster the ray tested; but of the cluster that occludes an
+    any-hit ray only the row that does: the query may stop at its first
+    hit, whichever row it meets first."""
     accel_bytes = sum(x.numel() * x.element_size() for x in
                       (acc.planes, acc.aabb, acc.sc_aabb, acc.morder,
                        acc.order))
     nbytes = n_rays * (32 + out_bytes_per_ray) + accel_bytes
-    n_active = int(active.sum())
-    slabs = n_active * acc.n_sc + int(stats.slabs[active].sum())
-    tris = int(stats.tested[active].sum()) * acc.csize
+    slabs = int(stats.sc_tests.sum())
+    if acc.sc_size > 1:
+        slabs += int(stats.slabs.sum())
+    ended = int(stats.occluded.sum()) if hasattr(stats, "occluded") else 0
+    tris = (int(stats.tested.sum()) - ended) * acc.csize + ended
     ops = SLAB_OPS * slabs + TRI_OPS_MIN * tris
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
-    if not exact:
-        return {"bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
-                "operations_overcount": ops, "overcount_ms": t_ops}
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops}
@@ -253,7 +273,12 @@ def kernel_checks(device, sizes):
     log(f"(a) {m} rays from hit points (25% t_max=0): tri agree "
         f"{frac2:.6f}, occluded {int(occ_k.sum())}, any-hit vs plain "
         f"{occ_agree:.6f}, any-hit == closest-hit validity: exact")
-    st_sh, err_s2 = compare_stats("secondary rays", acc, sh, hk2)
+    _, err_s2 = compare_stats("secondary rays", acc, sh, hk2)
+    _, err_a1 = compare_stats(
+        "camera rays, any-hit walk", acc, cam,
+        ca.intersect_clusters_any(*cam, acc), any_hit=True)
+    st_any, err_a2 = compare_stats("secondary rays, any-hit walk", acc, sh,
+                                   occ_k, any_hit=True)
 
     # (b) random 40k-triangle soup: the >= 32k policy
     nt = sizes["soup_tris"]
@@ -276,6 +301,8 @@ def kernel_checks(device, sizes):
         f"clusters, sc_size {acc_b.sc_size}), {nb} rays: tri agree "
         f"{fracb:.6f}, hits {int((hpb.tri >= 0).sum())}, any-hit exact")
     _, err_sb = compare_stats("soup", acc_b, rb, hkb)
+    _, err_ab = compare_stats("soup, any-hit walk", acc_b, rb, occb,
+                              any_hit=True)
 
     # times at the main-path shapes
     reps = sizes["reps"]
@@ -287,6 +314,9 @@ def kernel_checks(device, sizes):
     t_pb = cuda_ms(lambda: ca.closest_hit_plain(*rb, acc_b), 3, warmup=1)
     t_k3 = cuda_ms(lambda: kernel_stats.traversal_stats(*cam, acc), reps)
     t_p3 = cuda_ms(lambda: ca.closest_hit_stats_plain(*cam, acc), 3, warmup=1)
+    t_k4 = cuda_ms(lambda: kernel_stats.traversal_stats(*sh, acc, any_hit=True),
+                   reps)
+    t_p4 = cuda_ms(lambda: ca.any_hit_stats_plain(*sh, acc), 3, warmup=1)
     # the closest-hit kernel once more, after the counter kernel ran: the
     # template must not have changed it
     t_k1b = cuda_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
@@ -298,26 +328,25 @@ def kernel_checks(device, sizes):
         f"{t_pb:.4f} ms")
     log(f"time counter kernel {n} camera rays: kernel {t_k3:.4f} ms, plain "
         f"{t_p3:.4f} ms; closest-hit again {t_k1b:.4f} ms")
-    everyone = torch.ones(n, dtype=torch.bool, device=device)
+    log(f"time any-hit counter kernel {m} secondary rays: kernel {t_k4:.4f} "
+        f"ms, plain {t_p4:.4f} ms")
     records = {
         "closest_hit": dict(max_abs_err=max(err_c, err_c2), ms=t_k1,
-                            plain_ms=t_p1, **bound(acc, n, 20, st_cam,
-                                                   everyone)),
-        # bound by its bytes; the closest-hit walk's counters on the same
-        # rays stand beside it as an over-count
+                            plain_ms=t_p1, **bound(acc, n, 20, st_cam)),
         "any_hit": dict(max_abs_err=err_a, ms=t_k2, plain_ms=t_p2,
-                        **bound(acc, m, 1, st_sh, t2 > 0, exact=False)),
+                        **bound(acc, m, 1, st_any)),
         "closest_hit_stats": dict(max_abs_err=max(err_s, err_s2, err_sb),
                                   ms=t_k3, plain_ms=t_p3,
-                                  **bound(acc, n, 20, st_cam, everyone)),
+                                  **bound(acc, n, 24, st_cam)),
+        "any_hit_stats": dict(max_abs_err=max(err_a1, err_a2, err_ab),
+                              ms=t_k4, plain_ms=t_p4,
+                              **bound(acc, m, 21, st_any)),
     }
     for k, r in records.items():
         r["library_ms"] = None  # no PyTorch call intersects rays with a scene
-        ops = (f"{r['operations']} operations" if "operations" in r else
-               f"over-count {r['operations_overcount']} operations = "
-               f"{r['overcount_ms']:.6f} ms, no bound")
         log(f"bound {k}: {r['bound_ms']:.6f} ms by {r['bound_by']} "
-            f"({r['bytes']} bytes; {ops}): the kernel reaches "
+            f"({r['bytes']} bytes; {r['operations']} operations): the kernel "
+            "reaches "
             f"{100.0 * r['bound_ms'] / r['ms']:.3f}% of it")
     return records
 
@@ -414,8 +443,8 @@ def stats_path():
     out = kernel_stats.main([MACBETH, "--asset-root", MACBETH_DIR])
     torch.cuda.synchronize()
     counts = dict(ca.launch_counts)
-    if counts["closest_hit_stats"] <= 0:
-        raise AssertionError(f"the counter kernel was not launched: {counts}")
+    if min(counts["closest_hit_stats"], counts["any_hit_stats"]) <= 0:
+        raise AssertionError(f"a counter kernel was not launched: {counts}")
     for label, s in out.items():
         if not (0 < s["tri_tests"] <= s["slab_tests"]
                 and 1.0 <= s["lanes_per_test"] <= 32.0):
@@ -468,8 +497,10 @@ def device_busy(label, fn, wall_s, top=5):
         f"{sum(e.count for e in events)} kernels and copies = "
         f"{100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
         f"{wall_s:.4f} s")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:top]:
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    # the heaviest, and the traversal kernels wherever they rank
+    for e in events[:top] + [e for e in events[top:]
+                             if "walk_kernel" in e.key]:
         log(f"    {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f} ms"
             f" x{e.count}")
 
@@ -628,20 +659,28 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    cuda_build.load("cluster_hit")
+    cuda_build.load("cluster_hit")  # the one source: one nvcc
     log(f"build: {SOURCE} in {time.perf_counter() - t0:.2f} s")
 
-    records = kernel_checks(DEVICE, SIZES)
-    golden_check(DEVICE, (96, 96, 8))
-    counts = main_path({"spp": 8})
-    counts["closest_hit_stats"] = stats_path()["closest_hit_stats"]
-    counts_train = training_path(4)
-    card_against_cpu()
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[{label}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    records = phase("kernel checks", kernel_checks, DEVICE, SIZES)
+    phase("golden", golden_check, DEVICE, (96, 96, 8))
+    counts = phase("forward path", main_path, {"spp": 8})
+    counts_tool = phase("counter tool", stats_path)
+    for k in ("closest_hit_stats", "any_hit_stats"):
+        counts[k] = counts_tool[k]
+    counts_train = phase("training path", training_path, 4)
+    phase("card against CPU", card_against_cpu)
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],
                     **records[k])
-               for k in ("closest_hit", "any_hit", "closest_hit_stats")]
+               for k in KERNELS]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

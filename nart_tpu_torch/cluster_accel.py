@@ -14,8 +14,10 @@ Each query dispatches on the device of its tensors:
     csrc/cluster_hit.cu (``nart_closest_hit`` replaces ``_kernel``,
     ``nart_any_hit`` replaces ``_kernel_any``, ``nart_closest_hit_stats``
     replaces tools/kernel_stats.py's ``_kernel_stats``: the closest-hit
-    walk with visit counters, dispatched by kernel_stats.traversal_stats)
-    and count the launch in ``launch_counts``;
+    walk with visit counters; ``nart_any_hit_stats`` is the same
+    instrument on the any-hit walk; both are dispatched by
+    kernel_stats.traversal_stats) and count the launch in
+    ``launch_counts``;
   * CPU tensors run the plain versions below: a chunked watertight brute
     force over the planes with the same tie rule (lowest row wins within a
     cluster; a strictly closer hit replaces the running best).
@@ -23,7 +25,9 @@ There is no fallback between the two: a CUDA tensor launches the kernel or
 raises.
 
 The TPU design's ray blocks, XLA block prefilter (``build_block_lists``)
-and 128-lane gates have no counterpart: the kernels walk per ray.
+and 128-lane gates have no counterpart: every ray keeps its own walk, and
+the 32 rays of a warp test each cluster together (the warp loads a cluster
+once, and all its lanes share out the triangles of each ray that wants it).
 """
 
 from __future__ import annotations
@@ -47,8 +51,10 @@ SUPER_TARGET_LARGE = 256
 LARGE_MESH = 32768  # triangle count where the large-mesh policy starts
 WARP = 32  # rays of consecutive index that share a warp in the kernels
 
-# kernel launches per wrapper since the last reset_launch_counts()
-launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0}
+# kernel launches per wrapper since the last reset_launch_counts(): each
+# *_cuda wrapper below adds one where it launches its kernel, nowhere else
+launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
+                 "any_hit_stats": 0}
 
 
 def reset_launch_counts():
@@ -281,14 +287,27 @@ class TraversalStats(NamedTuple):
 
     t: torch.Tensor  # f32 nearest hit distance (inf on a miss), K1's t
     visited: torch.Tensor  # int32 superclusters whose slab test passed
-    slabs: torch.Tensor  # int32 member-cluster slab tests done
+    slabs: torch.Tensor  # int32 member steps taken (a slab test each)
     tested: torch.Tensor  # int32 clusters whose triangles were tested
-    # int32, summed over the ray's tested clusters: the lanes of its warp
-    # (32 consecutive rays) that tested the same cluster -- in the same step
-    # from the kernel (what the card did), at any step from the plain
-    # version (what a warp that never diverged would reach).  Over `tested`
-    # it is the mean number of lanes that share a cluster's triangle tests.
+    # int32, summed over the ray's tested clusters: the rays of its warp (32
+    # consecutive rays) that tested the same cluster at the same member
+    # step, itself included -- the group that shares one load of the
+    # cluster in the kernels.  Over `tested` it is the mean group size.
     together: torch.Tensor
+    sc_tests: torch.Tensor  # int32 supercluster slab tests made: n_sc
+
+
+class AnyHitStats(NamedTuple):
+    """What the any-hit walk did for each ray: TraversalStats' counters up
+    to the ray's first cluster with a hit (all zero where t_max <= 0);
+    sc_tests counts the superclusters met before the ray was occluded."""
+
+    occluded: torch.Tensor  # bool, K2's result
+    visited: torch.Tensor
+    slabs: torch.Tensor
+    tested: torch.Tensor
+    together: torch.Tensor
+    sc_tests: torch.Tensor
 
 
 def _slab(box, c, o, inv, t_lo, t_hi):
@@ -301,13 +320,14 @@ def _slab(box, c, o, inv, t_lo, t_hi):
     return torch.maximum(near, t_lo) <= torch.minimum(far, t_hi)
 
 
-def closest_hit_stats_plain(o, d, t_min, t_max,
-                            accel: ClusterAccel) -> TraversalStats:
-    """The walk of nart_closest_hit_stats, vectorised over rays: superclusters
-    in index order behind a slab test against (t_min, t_best), members in
-    the ray's octant order (morder) behind their own slab test, then the
-    cluster's triangles; t_best runs per ray.  The three counters equal the
-    kernel's exactly and t equals closest_hit_plain's."""
+def _walk_plain(o, d, t_min, t_max, accel: ClusterAccel, any_hit: bool):
+    """The kernels' walk, vectorised over rays: superclusters in index order
+    behind a slab test against (t_min, t_best), members in the ray's octant
+    order (morder) behind their own slab test, then the cluster's
+    triangles.  Closest-hit: t_best runs per ray.  Any-hit: a ray with
+    t_max <= 0 never starts and a ray leaves at its first cluster with a
+    hit.  Returns (t_best, found, visited, slabs, tested, together,
+    sc_tests)."""
     n = o.shape[0]
     dev = o.device
     shear = ray_shear(d)
@@ -318,43 +338,68 @@ def closest_hit_stats_plain(o, d, t_min, t_max,
     morder = accel.morder.cpu().numpy()
     t_best = t_max.clone()
     found = torch.zeros(n, dtype=torch.bool, device=dev)
-    visited, slabs, tested, together = (
-        torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(4))
+    if any_hit:
+        alive = t_max > 0.0
+    else:
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+    visited, slabs, tested, together, sc_tests = (
+        torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(5))
     warp = WARP
     n_warps = -(-n // warp)
     for sc in range(accel.n_sc):
-        live_sc = _slab(accel.sc_aabb, sc, o, inv, t_min, t_best)
+        sc_tests += alive
+        live_sc = alive & _slab(accel.sc_aabb, sc, o, inv, t_min, t_best)
         visited += live_sc
-        slabs += live_sc.to(torch.int32) * accel.sc_size
-        # which of this supercluster's members each ray tested
-        hit_cl = torch.zeros((n_warps * warp, accel.sc_size),
-                             dtype=torch.bool, device=dev)
-        for k, rays in enumerate(groups):
-            if rays.numel() == 0:
-                continue
-            og, dg = o[rays], d[rays]
-            sg = RayShear(*(x[rays] for x in shear))
-            for j in range(accel.sc_size):
+        for j in range(accel.sc_size):
+            in_sc = live_sc & alive
+            slabs += in_sc
+            # which member of this supercluster each ray tests at step j
+            want = torch.zeros((n_warps * warp, accel.sc_size),
+                               dtype=torch.bool, device=dev)
+            for k, rays in enumerate(groups):
+                if rays.numel() == 0:
+                    continue
                 c = int(morder[k, sc * accel.sc_size + j])
+                og, dg = o[rays], d[rays]
+                sg = RayShear(*(x[rays] for x in shear))
                 tb = t_best[rays]
-                live = live_sc[rays] & _slab(accel.aabb, c, og, inv[rays],
-                                             t_min[rays], tb)
+                live = in_sc[rays] & _slab(accel.aabb, c, og, inv[rays],
+                                           t_min[rays], tb)
                 pl = accel.planes[:, c, :]
                 hit, t, _, _, _ = watertight(og, dg, sg, pl[0:3].T, pl[3:6].T,
                                              pl[6:9].T, pl[9:12].T, pl[12])
                 hit = (hit & live[:, None] & (t > t_min[rays, None])
                        & (t < tb[:, None]))
-                t_sel = torch.where(hit, t, INF).min(dim=1).values
-                t_best[rays] = torch.minimum(tb, t_sel)
-                found[rays] |= hit.any(dim=1)
-                hit_cl[rays, c - sc * accel.sc_size] = live
-        tested += hit_cl[:n].sum(1, dtype=torch.int32)
-        by_warp = hit_cl.reshape(n_warps, warp, -1)
-        lanes = by_warp.sum(1, keepdim=True, dtype=torch.int32)
-        together += (by_warp * lanes).reshape(n_warps * warp, -1)[:n].sum(
-            1, dtype=torch.int32)
+                hit_any = hit.any(dim=1)
+                found[rays] |= hit_any
+                if any_hit:
+                    alive[rays] &= ~hit_any
+                else:
+                    t_sel = torch.where(hit, t, INF).min(dim=1).values
+                    t_best[rays] = torch.minimum(tb, t_sel)
+                want[rays, c - sc * accel.sc_size] = live
+            tested += want[:n].sum(1, dtype=torch.int32)
+            by_warp = want.reshape(n_warps, warp, -1)
+            lanes = by_warp.sum(1, keepdim=True, dtype=torch.int32)
+            together += (by_warp * lanes).reshape(n_warps * warp, -1)[:n].sum(
+                1, dtype=torch.int32)
+    return t_best, found, visited, slabs, tested, together, sc_tests
+
+
+def closest_hit_stats_plain(o, d, t_min, t_max,
+                            accel: ClusterAccel) -> TraversalStats:
+    """The walk of nart_closest_hit_stats (see _walk_plain).  The five
+    counters equal the kernel's exactly and t equals closest_hit_plain's."""
+    t_best, found, *counters = _walk_plain(o, d, t_min, t_max, accel, False)
     t = torch.where(found, t_best, torch.full_like(t_best, INF))
-    return TraversalStats(t, visited, slabs, tested, together)
+    return TraversalStats(t, *counters)
+
+
+def any_hit_stats_plain(o, d, t_min, t_max, accel: ClusterAccel) -> AnyHitStats:
+    """The walk of nart_any_hit_stats (see _walk_plain).  The five counters
+    equal the kernel's exactly and `occluded` equals any_hit_plain's."""
+    _, found, *counters = _walk_plain(o, d, t_min, t_max, accel, True)
+    return AnyHitStats(found, *counters)
 
 
 # ---------------------------------------------------------------------------
@@ -372,9 +417,10 @@ def _kernel_lib():
         lib.nart_any_hit.argtypes = [p, p, p, p, i, p, p, p, p,
                                      i, i, i, i, p, p]
         lib.nart_any_hit.restype = ctypes.c_int
-        lib.nart_closest_hit_stats.argtypes = [p, p, p, p, i, p, p, p, p,
-                                               i, i, i, i, p, p, p, p, p, p]
-        lib.nart_closest_hit_stats.restype = ctypes.c_int
+        for fn in (lib.nart_closest_hit_stats, lib.nart_any_hit_stats):
+            fn.argtypes = [p, p, p, p, i, p, p, p, p,
+                           i, i, i, i, p, p, p, p, p, p, p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -408,7 +454,7 @@ def _check_args(o, d, t_min, t_max, accel):
 
 
 def closest_hit_cuda(o, d, t_min, t_max, accel: ClusterAccel) -> Hit:
-    """Launch nart_closest_hit on CUDA tensors (one thread per ray)."""
+    """Launch nart_closest_hit on CUDA tensors (a warp per 32 rays)."""
     n = _check_args(o, d, t_min, t_max, accel)
     lib = _kernel_lib()
     t = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -447,27 +493,41 @@ def any_hit_cuda(o, d, t_min, t_max, accel: ClusterAccel):
     return occ
 
 
-def closest_hit_stats_cuda(o, d, t_min, t_max,
-                           accel: ClusterAccel) -> TraversalStats:
-    """Launch nart_closest_hit_stats on CUDA tensors (one thread per ray)."""
+def _stats_cuda(name, hit_dtype, o, d, t_min, t_max, accel):
+    """Launch counter entry nart_<name>; returns its hit output (t or
+    occlusion) and the five counters."""
     n = _check_args(o, d, t_min, t_max, accel)
     lib = _kernel_lib()
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    hit = torch.empty(n, dtype=hit_dtype, device=o.device)
     counters = [torch.empty(n, dtype=torch.int32, device=o.device)
-                for _ in range(4)]
-    rc = lib.nart_closest_hit_stats(
+                for _ in range(5)]
+    rc = getattr(lib, "nart_" + name)(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
         accel.planes.data_ptr(), accel.aabb.data_ptr(),
         accel.sc_aabb.data_ptr(), accel.morder.data_ptr(), accel.n_clusters,
-        accel.n_sc, accel.sc_size, accel.csize, t.data_ptr(),
+        accel.n_sc, accel.sc_size, accel.csize, hit.data_ptr(),
         *(c.data_ptr() for c in counters),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"nart_closest_hit_stats launch failed: CUDA error {rc}")
-    launch_counts["closest_hit_stats"] += 1
+        raise RuntimeError(f"nart_{name} launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
+    return hit, counters
+
+
+def closest_hit_stats_cuda(o, d, t_min, t_max,
+                           accel: ClusterAccel) -> TraversalStats:
+    """Launch nart_closest_hit_stats on CUDA tensors."""
+    t, counters = _stats_cuda("closest_hit_stats", torch.float32, o, d, t_min,
+                              t_max, accel)
     return TraversalStats(t, *counters)
+
+
+def any_hit_stats_cuda(o, d, t_min, t_max, accel: ClusterAccel) -> AnyHitStats:
+    """Launch nart_any_hit_stats on CUDA tensors."""
+    occ, counters = _stats_cuda("any_hit_stats", torch.bool, o, d, t_min,
+                                t_max, accel)
+    return AnyHitStats(occ, *counters)
 
 
 def intersect_clusters(o, d, t_min, t_max, accel: ClusterAccel) -> Hit:

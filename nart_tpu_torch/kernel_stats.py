@@ -1,18 +1,23 @@
-"""Visit counters of the cluster traversal: what the closest-hit walk does
-on given rays.
+"""Visit counters of the cluster traversal: what the closest-hit and the
+any-hit walk do on given rays.
 
 Counterpart of ``tools/kernel_stats.py``, the JAX package's TPU tool.  It
-answers, per ray: how many superclusters passed their slab test, how many
+answers, per ray: how many supercluster slab tests were made (every
+supercluster, but for an any-hit ray that is occluded before the last), how
+many superclusters passed theirs, how many
 member-cluster slab tests were done, how many clusters had their triangles
-tested, and how many lanes of the ray's warp shared those triangle tests
+tested, and how many rays of the ray's warp shared those triangle tests
 (the TPU tool's live-lane census of a 512-ray block, restated for a 32-lane
 warp).  These are the data-dependent operation counts that the bounds of the
-closest-hit and any-hit kernels are reckoned from.
+closest-hit and any-hit kernels are reckoned from, each from its own walk:
+the any-hit walk ends at a ray's first cluster with a hit (the TPU tool
+counts the closest-hit walk only).
 
     python -m nart_tpu_torch.kernel_stats [scene.json] [--asset-root DIR]
 
 prints them for coherent camera rays and for random directions from the
-same origins, on the card (``--device cpu`` runs the plain version).
+same origins, for both walks, on the card (``--device cpu`` runs the plain
+versions).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from . import camera, resolve_device
 from .cluster_accel import (
     WARP,
     ClusterAccel,
-    TraversalStats,
+    any_hit_stats_cuda,
+    any_hit_stats_plain,
     build_clusters,
     closest_hit_stats_cuda,
     closest_hit_stats_plain,
@@ -39,21 +45,27 @@ DEFAULT_SCENE = os.path.join(
     "tests", "fixtures", "macbeth", "macbeth.json")
 
 
-def traversal_stats(o, d, t_min, t_max, accel: ClusterAccel) -> TraversalStats:
-    """Closest-hit t and the walk's counters per ray: CUDA tensors launch
-    nart_closest_hit_stats, CPU tensors run its plain version."""
+def traversal_stats(o, d, t_min, t_max, accel: ClusterAccel, any_hit=False):
+    """The walk's counters per ray, with the closest-hit t (TraversalStats)
+    or, for any_hit, the occlusion (AnyHitStats): CUDA tensors launch
+    nart_closest_hit_stats / nart_any_hit_stats, CPU tensors run the plain
+    version."""
     if o.device.type == "cuda":
-        return closest_hit_stats_cuda(o, d, t_min, t_max, accel)
-    if o.device.type == "cpu":
-        return closest_hit_stats_plain(o, d, t_min, t_max, accel)
-    raise ValueError(f"no traversal-stats path for device {o.device}")
+        fn = any_hit_stats_cuda if any_hit else closest_hit_stats_cuda
+    elif o.device.type == "cpu":
+        fn = any_hit_stats_plain if any_hit else closest_hit_stats_plain
+    else:
+        raise ValueError(f"no traversal-stats path for device {o.device}")
+    return fn(o, d, t_min, t_max, accel)
 
 
-def summarize(st: TraversalStats) -> dict:
-    """Means per ray of the three counters, and the mean number of lanes
-    that share a cluster's triangle tests."""
+def summarize(st) -> dict:
+    """Means per ray of the walk's counters of a TraversalStats or
+    AnyHitStats, and the mean number of rays that share a cluster's
+    triangle tests."""
     tested = int(st.tested.sum())
     return {
+        "sc_tests": float(st.sc_tests.double().mean()),
         "visited_sc": float(st.visited.double().mean()),
         "slab_tests": float(st.slabs.double().mean()),
         "tri_tests": float(st.tested.double().mean()),
@@ -93,11 +105,15 @@ def main(argv=None):
     out = {}
     for label in ("coherent", "incoherent"):
         st = traversal_stats(o, d, t_min, t_max, acc)
-        s = out[label] = summarize(st)
-        print(f"[{label}] visited_sc mean={s['visited_sc']:.1f} "
-              f"slabs mean={s['slab_tests']:.1f} "
-              f"tri_tests mean={s['tri_tests']:.1f} "
-              f"lanes/test={s['lanes_per_test']:.1f}/{WARP}", flush=True)
+        st_any = traversal_stats(o, d, t_min, t_max, acc, any_hit=True)
+        out[label] = summarize(st)
+        out[label + " any-hit"] = summarize(st_any)
+        for key in (label, label + " any-hit"):
+            s = out[key]
+            print(f"[{key}] visited_sc mean={s['visited_sc']:.1f} "
+                  f"slabs mean={s['slab_tests']:.1f} "
+                  f"tri_tests mean={s['tri_tests']:.1f} "
+                  f"lanes/test={s['lanes_per_test']:.1f}/{WARP}", flush=True)
         # second pass: random directions, from just before the points the
         # camera rays hit (the tool shoots them from the camera, which sits
         # inside its scene; a camera outside would see them all miss)

@@ -167,8 +167,9 @@ def test_cpu_tensors_take_the_plain_path():
     tca.intersect_clusters(o, d, tmin, tmax, acc)
     tca.intersect_clusters_any(o, d, tmin, tmax, acc)
     kernel_stats.traversal_stats(o, d, tmin, tmax, acc)
+    kernel_stats.traversal_stats(o, d, tmin, tmax, acc, any_hit=True)
     assert tca.launch_counts == {"closest_hit": 0, "any_hit": 0,
-                                 "closest_hit_stats": 0}
+                                 "closest_hit_stats": 0, "any_hit_stats": 0}
     with pytest.raises(ValueError):
         tca.intersect_clusters(o.to("meta"), d.to("meta"), tmin.to("meta"),
                                tmax.to("meta"), acc)

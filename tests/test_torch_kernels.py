@@ -6,8 +6,10 @@ present, deciding inside the fixture, never at import.  Run them on a
 machine with a card with ``python -m pytest tests/test_torch_kernels.py``.
 Criteria (as chip_smoke.py): triangle ids agree on >= 99.99% of rays,
 t/u/v to rtol 1e-4 / atol 1e-5 where they agree, any-hit equal to
-closest-hit validity exactly; the counter kernel's counters equal to its
-plain version's on every ray.
+closest-hit validity exactly; the two counter kernels' five counters equal
+to their plain versions' on every ray.  The small cases pin what a warp
+that tests a cluster together could get wrong: one ray to a group, one live
+lane, a ragged last warp, and ties between rows, lanes and tiles.
 """
 
 import os
@@ -74,29 +76,167 @@ def test_kernels_match_plain_on_soups(cuda, n_tris, kw):
     _check(_rays(8192, rng, cuda), acc)
 
 
+def _check_stats(rays, acc):
+    """Both counter kernels against their plain versions and against the
+    production kernels on the same rays."""
+    from nart_tpu_torch import kernel_stats
+
+    before = dict(ca.launch_counts)
+    sk = kernel_stats.traversal_stats(*rays, acc)
+    ak = kernel_stats.traversal_stats(*rays, acc, any_hit=True)
+    torch.cuda.synchronize()
+    assert ca.launch_counts["closest_hit_stats"] == (
+        before["closest_hit_stats"] + 1)
+    assert ca.launch_counts["any_hit_stats"] == before["any_hit_stats"] + 1
+    sp = ca.closest_hit_stats_plain(*rays, acc)
+    ap = ca.any_hit_stats_plain(*rays, acc)
+    for k in ("visited", "slabs", "tested", "together", "sc_tests"):
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+        assert torch.equal(getattr(ak, k), getattr(ap, k)), "any-hit " + k
+    assert torch.equal(sk.t, ca.intersect_clusters(*rays, acc).t)
+    assert torch.equal(sk.t, sp.t)
+    assert torch.equal(ak.occluded, ca.intersect_clusters_any(*rays, acc))
+    assert torch.equal(ak.occluded, ap.occluded)
+    assert (ak.tested <= sk.tested).all()
+    assert (sk.sc_tests == acc.n_sc).all()
+    return sk, ak
+
+
 @pytest.mark.parametrize("n_tris,kw", [
     (5, {}), (700, {"super_target": 2}), (40000, {}),
 ])
 def test_stats_kernel_matches_plain(cuda, n_tris, kw):
-    """The counter kernel: counters equal to the plain walk's on every ray,
-    t equal to the closest-hit kernel's, and the lanes it saw together on
-    a cluster no more than a warp that never diverged would reach."""
-    from nart_tpu_torch import kernel_stats
-
+    """The closest-hit counter kernel: all five counters equal to the plain
+    walk's on every ray (the rays together on a cluster are the group that
+    tested it, which follows from the walk alone), t equal to the
+    closest-hit kernel's."""
     rng = np.random.default_rng(n_tris)
     acc = ca.build_clusters(_soup(n_tris, rng), **kw).to(cuda)
-    rays = _rays(4096, rng, cuda)
-    before = ca.launch_counts["closest_hit_stats"]
-    sk = kernel_stats.traversal_stats(*rays, acc)
-    torch.cuda.synchronize()
-    assert ca.launch_counts["closest_hit_stats"] == before + 1
-    sp = ca.closest_hit_stats_plain(*rays, acc)
-    for k in ("visited", "slabs", "tested"):
-        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
-    assert torch.equal(sk.t, ca.intersect_clusters(*rays, acc).t)
-    assert torch.equal(sk.t, sp.t)
+    sk, _ = _check_stats(_rays(4096, rng, cuda), acc)
     assert (sk.together >= sk.tested).all()
-    assert (sk.together <= sp.together).all()
+
+
+@pytest.mark.parametrize("n_tris,kw", [
+    (5, {}), (700, {"super_target": 2}), (700, {"csize": 16}), (40000, {}),
+])
+def test_any_hit_stats_kernel_matches_plain(cuda, n_tris, kw):
+    """The any-hit counter kernel: counters and occlusion equal to the plain
+    walk's, occlusion equal to the any-hit kernel's, nothing counted where
+    t_max <= 0."""
+    rng = np.random.default_rng(n_tris + 1)
+    acc = ca.build_clusters(_soup(n_tris, rng), **kw).to(cuda)
+    rays = _rays(4096, rng, cuda)
+    _, ak = _check_stats(rays, acc)
+    parked = rays[3] <= 0
+    for x in ak:
+        assert not x[parked].any()
+    assert (ak.tested[ak.occluded] >= 1).all()
+
+
+def test_any_hit_stats_kernel_matches_plain_on_macbeth(cuda):
+    from nart_tpu_torch import scene
+
+    sc = scene.load_scene(os.path.join(FIX, "macbeth.json"))
+    acc = ca.build_clusters(sc.tri_v.numpy()).to(cuda)
+    o, d, t_min, t_max = _rays(16384, np.random.default_rng(4), cuda)
+    _check_stats((o * 0.3, d, t_min, t_max), acc)
+
+
+def _blobs(n_blobs, per_blob, rng):
+    """n_blobs tight groups of triangles along the x axis, 10 apart."""
+    tri = rng.normal(size=(n_blobs, per_blob, 3, 3)) * 0.3
+    tri[..., 0] += 10.0 * np.arange(n_blobs)[:, None, None]
+    return tri.reshape(-1, 3, 3).astype(np.float32)
+
+
+def _down_rays(n, dev, t_max):
+    """Ray i drops along +z onto blob i of _blobs."""
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = 10.0 * np.arange(n)
+    o[:, 2] = -5.0
+    d = np.tile(np.array([[1e-3, 2e-3, 1.0]], np.float32), (n, 1))
+    return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            torch.zeros(n, device=dev),
+            torch.from_numpy(np.asarray(t_max, np.float32)).to(dev))
+
+
+def test_every_lane_wants_another_cluster(cuda):
+    """32 rays of one warp, each onto a blob of its own: every group is one
+    ray, and each ray gets its own cluster's hit."""
+    rng = np.random.default_rng(6)
+    acc = ca.build_clusters(_blobs(32, 16, rng), csize=16,
+                            method="median").to(cuda)
+    rays = _down_rays(32, cuda, np.full(32, np.inf))
+    _check(rays, acc)
+    sk, ak = _check_stats(rays, acc)
+    assert (sk.tested >= 1).all()
+    assert torch.equal(sk.together, sk.tested)
+    assert torch.equal(ak.together, ak.tested)
+    assert (ca.intersect_clusters(*rays, acc).tri >= 0).sum() >= 16
+
+
+def test_only_the_last_lane_is_alive(cuda):
+    """t_max = 0 on lanes 0..30: the any-hit walk is lane 31's alone."""
+    rng = np.random.default_rng(7)
+    acc = ca.build_clusters(_soup(700, rng), super_target=2).to(cuda)
+    o, d, t_min, _ = _rays(32, rng, cuda)
+    t_max = torch.zeros(32, device=cuda)
+    t_max[31] = float("inf")
+    # aim lane 31 at a triangle so that it has a hit to find
+    o[31] = torch.tensor([0.0, 0.0, -30.0], device=cuda)
+    d[31] = torch.nn.functional.normalize(
+        acc.planes[0:3, 0, 0] * 0.4 + acc.planes[3:6, 0, 0] * 0.3
+        + acc.planes[6:9, 0, 0] * 0.3 - o[31], dim=0)
+    rays = (o, d, t_min, t_max)
+    _check(rays, acc)
+    _, ak = _check_stats(rays, acc)
+    occ = ca.intersect_clusters_any(*rays, acc)
+    assert bool(occ[31]) and not occ[:31].any()
+    assert torch.equal(ak.together, ak.tested)  # groups of one
+    assert not ak.tested[:31].any() and ak.tested[31] >= 1
+
+
+@pytest.mark.parametrize("n_rays", [1, 31, 33, 1013])
+def test_ray_counts_off_the_warp_size(cuda, n_rays):
+    rng = np.random.default_rng(n_rays)
+    acc = ca.build_clusters(_soup(700, rng), super_target=2).to(cuda)
+    rays = _rays(n_rays, rng, cuda)
+    _check(rays, acc)
+    _check_stats(rays, acc)
+
+
+@pytest.mark.parametrize("copies", [1, 40, 100], ids=lambda c: f"x{c}")
+def test_ties_go_to_the_lowest_row(cuda, copies):
+    """Two triangles with a common edge, each stored `copies` times in one
+    cluster, and rays through points of the edge and of either face: equal
+    t in other lanes (copies of one triangle in neighbouring rows), in
+    other tiles of one lane (rows 32 apart) and on the shared edge.  The
+    triangle id must be the plain version's on every ray."""
+    quad = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                     [[1, 0, 0], [1, 1, 0], [0, 1, 0]]], np.float32)
+    tri = np.repeat(quad, copies, axis=0)
+    acc = ca.build_clusters(tri).to(cuda)
+    assert acc.n_clusters == 2 if copies == 100 else acc.n_clusters == 1
+    rng = np.random.default_rng(copies)
+    n = 4096
+    s = rng.random(n).astype(np.float32)
+    on_edge = np.stack([1 - s, s, np.zeros(n, np.float32)], 1)  # (1,0)-(0,1)
+    anywhere = np.concatenate([rng.random((n, 2)), np.zeros((n, 1))], 1)
+    target = np.where((np.arange(n) % 2 == 0)[:, None], on_edge,
+                      anywhere).astype(np.float32)
+    o = (target + rng.normal(size=(n, 3)) * [0.5, 0.5, 0.0]
+         + [0, 0, 3]).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = (torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda),
+            torch.zeros(n, device=cuda),
+            torch.full((n,), float("inf"), device=cuda))
+    hk = ca.intersect_clusters(*rays, acc)
+    hp = ca.closest_hit_plain(*rays, acc)
+    assert (hp.tri >= 0).sum() > n // 2
+    assert torch.equal(hk.tri, hp.tri)
+    assert torch.equal(hk.t, hp.t)
+    assert torch.equal(ca.intersect_clusters_any(*rays, acc), hp.tri >= 0)
 
 
 def test_kernels_match_plain_on_macbeth(cuda):
