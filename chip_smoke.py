@@ -35,12 +35,33 @@ Phases (any failure raises and exits non-zero):
      sum(la[..., :3]) (rtol 1e-4), every gradient leaf must be finite, the
      albedo, texture and env-map gradients nonzero, and the closest-hit
      and any-hit kernels launched exactly `rounds` times each: the
-     backward pass launches none.  Then the forward queue and the fwd+bwd
-     call once more under torch.profiler: the card's busy share of each;
+     backward pass launches none.  Then the forward queue once more under
+     torch.profiler: the card's busy share;
   7. gradients through the kernels against the same call on the CPU
      (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
      1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
-     gathers' backward), and one central finite difference to 5%.
+     gathers' backward), and one central finite difference to 5%;
+  8. the "spp" and "regen" modes through the kernels: macbeth at 128x72,
+     2 spp; the "regen" film equals the "spp" film (rtol 1e-5 / atol
+     1e-6), both image means within 3% of the "balanced" image's;
+  9. volume golden: tests/golden/volume_blob.json at its own 96x96, 32 spp
+     against volume_blob_96x96_32spp.exr with test_volume_golden's
+     criteria (mean rel < 0.02, >= 95% of 16x16 blocks within 0.05).  The
+     scene file names blob.vol by an absolute path and a missing volume
+     only warns, so the phases render a copy that names this checkout's
+     and assert that the medium was loaded;
+ 10. volume forward at full width: volume_blob at 1280x720 with spp cut
+     from 32 to 8: one warm run, one timed run (rounds, segment starts,
+     Mrays/s, peak memory), EXR finite with a nonzero mean, no traversal
+     kernel launched; the card's busy share under torch.profiler over a
+     window of the static machine's rounds;
+ 11. volume fwd+bwd at full width: radiance_weighted_loss_and_grad on
+     volume_blob 1280x720, one chunk of 4 spp, cot = 1 on RGB: the loss
+     equals the forward's sum(la[..., :3]) (rtol 1e-4), the medium's
+     gradients are finite and nonzero, no traversal kernel launched; the
+     busy share over a window of the replay's backward rounds;
+ 12. volume gradients on the card against the CPU: medium_scene at 32x32,
+     2 spp: every leaf to rtol 1e-3 / atol 1e-5.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs the repository checkout (it imports
 nart_tpu_torch from beside this file); imports nothing of JAX.
@@ -61,6 +82,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MACBETH_DIR = os.path.join(HERE, "tests", "fixtures", "macbeth")
 MACBETH = os.path.join(MACBETH_DIR, "macbeth.json")
 GOLDEN = os.path.join(HERE, "tests", "golden", "macbeth_96x96_8spp.exr")
+VOLUME = os.path.join(HERE, "tests", "golden", "volume_blob.json")
+VOLUME_GOLDEN = os.path.join(HERE, "tests", "golden",
+                             "volume_blob_96x96_32spp.exr")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 DEVICE = "cuda"  # every phase runs on the card
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
@@ -351,7 +375,8 @@ def kernel_checks(device, sizes):
     return records
 
 
-def block_compare(ours, ref, mean_tol, block_tol, block_frac):
+def block_compare(ours, ref, mean_tol, block_tol, block_frac,
+                  label="golden"):
     """tests/test_golden.py _compare: image mean and 16x16 block means."""
     r, o = ref[..., :3], ours[..., :3]
     mean_rel = abs(o.mean() - r.mean()) / max(r.mean(), 1e-6)
@@ -361,10 +386,10 @@ def block_compare(ours, ref, mean_tol, block_tol, block_frac):
     rel = np.abs(ob.mean((1, 3, 4)) - rb.mean((1, 3, 4))) / np.maximum(
         rb.mean((1, 3, 4)), 0.05)
     frac = float((rel < block_tol).mean())
-    log(f"golden: mean rel {mean_rel:.5f} (< {mean_tol}), blocks within "
+    log(f"{label}: mean rel {mean_rel:.5f} (< {mean_tol}), blocks within "
         f"{block_tol}: {frac:.3f} (>= {block_frac}), worst {rel.max():.4f}")
     if not (mean_rel < mean_tol and frac >= block_frac):
-        raise AssertionError("golden comparison failed")
+        raise AssertionError(f"{label} comparison failed")
 
 
 def golden_check(device, size):
@@ -470,8 +495,12 @@ def _rgb_cot(samples):
 
 
 def _leaves(theta):
+    """[(name, tensor)] of a parameter dict, the medium's dict included."""
     out = []
     for k in sorted(theta):
+        if isinstance(theta[k], dict):
+            out += [(f"{k}.{s}", v) for s, v in sorted(theta[k].items())]
+            continue
         vals = theta[k] if isinstance(theta[k], list) else [theta[k]]
         out += [(f"{k}[{i}]", v) for i, v in enumerate(vals) if v is not None]
     return out
@@ -481,7 +510,8 @@ def device_busy(label, fn, wall_s, top=5):
     """Run fn once under torch.profiler (the card's activity only) and log
     the card's busy time -- the sum of its kernels' and copies' device time
     -- as a share of wall_s, the wall time of the same call untraced; the
-    host dispatching the round's small operations takes the rest."""
+    host dispatching the round's small operations takes the rest.  Returns
+    the number of kernels and copies."""
     import torch
 
     with torch.profiler.profile(
@@ -503,6 +533,7 @@ def device_busy(label, fn, wall_s, top=5):
                              if "walk_kernel" in e.key]:
         log(f"    {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f} ms"
             f" x{e.count}")
+    return sum(e.count for e in events)
 
 
 def training_path(spp):
@@ -512,10 +543,9 @@ def training_path(spp):
     from nart_tpu_torch import cluster_accel as ca, grad, render, scene
     from nart_tpu_torch.integrators import path
 
-    # the path integrator never reads the camera's medium, and its
-    # parameters are not trainable before the volume integrator is ported
-    sc = dataclasses.replace(
-        scene.load_scene(MACBETH, asset_root=MACBETH_DIR), medium=None)
+    # the camera's placeholder medium is a trainable leaf the path
+    # integrator never reads: its gradient is zero
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
     params = render.load_sessions(MACBETH, {"spp": spp})[0]
     w, h = params.image_width, params.image_height
     acc = ca.build_accel(sc.tri_v.numpy(), params.accel)
@@ -565,7 +595,6 @@ def training_path(spp):
         raise AssertionError("replay and forward disagree on rays or rounds")
     device_busy("forward work queue", lambda: path.trace_balanced(
         sc.to(DEVICE), acc.to(DEVICE), samples, params, w, h), dt_f)
-    device_busy("fwd+bwd", run, dt)
     for k, g in _leaves(grads):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"gradient leaf {k} is not finite")
@@ -635,8 +664,284 @@ def card_against_cpu():
         raise AssertionError(f"replay {g_ad} vs finite difference {g_fd}")
 
 
+def modes_path(size):
+    """Phase 8: returns the K1/K2 launches of the "spp" and "regen" runs."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, film, render, scene
+
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    w, h, spp = size
+    films, means, counts = {}, {}, {}
+    for mode in ("balanced", "spp", "regen"):
+        params = render.resolve_params(
+            {}, dict(image_width=w, image_height=h, spp=spp, wavefront=mode))
+        sess = render.RenderSession(sc, params, DEVICE)
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        films[mode] = sess.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[mode] = {k: ca.launch_counts[k] for k in KERNELS[:2]}
+        img = film.finalize(films[mode], w, h, sess.filter_bounds)
+        means[mode] = float(img[..., :3].mean())
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{mode}: the image is not finite")
+        log(f"mode {mode}: macbeth {w}x{h} {spp} spp in {dt:.3f} s, "
+            f"{sess.stats}, image mean {means[mode]:.6f}, launches "
+            f"{counts[mode]}")
+        if min(counts[mode].values()) <= 0:
+            raise AssertionError(f"{mode}: K1 and K2 not both launched")
+    if not torch.allclose(films["regen"], films["spp"], rtol=1e-5,
+                          atol=1e-6):
+        worst = float((films["regen"] - films["spp"]).abs().max())
+        raise AssertionError(f"regen film != spp film (max diff {worst})")
+    log("regen film == spp film within rtol 1e-5 / atol 1e-6 (bit-equal: "
+        f"{bool(torch.equal(films['regen'], films['spp']))})")
+    for mode in ("spp", "regen"):
+        rel = abs(means[mode] - means["balanced"]) / means["balanced"]
+        if not rel < 0.03:
+            raise AssertionError(f"{mode} mean {means[mode]} vs balanced "
+                                 f"{means['balanced']}: {rel:.4f} apart")
+    return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS[:2]}
+
+
+def volume_scene_file(tmp):
+    """A copy of volume_blob.json that names this checkout's blob.vol."""
+    with open(VOLUME) as f:
+        doc = json.load(f)
+    doc["camera"]["medium"]["filePath"] = os.path.join(
+        os.path.dirname(VOLUME), "blob.vol")
+    path = os.path.join(tmp, "volume_blob.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def volume_session(path, overrides=None):
+    from nart_tpu_torch import render
+
+    params, sess = next(render.render_scene_file(path, overrides,
+                                                  device=DEVICE))
+    if sess.scene.medium is None:
+        raise AssertionError("blob.vol was not loaded: no medium")
+    return params, sess
+
+
+def _no_traversal(label, counts):
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched a traversal kernel: {counts}")
+
+
+def volume_golden(path):
+    """Phase 9."""
+    from nart_tpu_torch import cluster_accel as ca, exr
+
+    params, sess = volume_session(path)
+    ca.reset_launch_counts()
+    ours = sess.image().cpu().numpy()
+    _no_traversal("the volume golden", ca.launch_counts)
+    log(f"volume golden render {params.image_width}x{params.image_height} "
+        f"{params.spp} spp: {sess.stats}")
+    ref = exr.read(VOLUME_GOLDEN)
+    if ref.shape != ours.shape:
+        raise AssertionError(f"golden shape {ref.shape} vs {ours.shape}")
+    block_compare(ours, ref, 0.02, 0.05, 0.95, label="volume golden")
+
+
+def window_busy(label, run, count):
+    """device_busy over a window of `count` rounds: run() re-runs them from
+    a kept carry, once untraced and once under the profiler.  Profiling a
+    whole volume run (hundreds of thousands of small kernels) takes
+    minutes; the window's rounds are the same work as the others'."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = device_busy(label, run, wall)
+    log(f"    {kernels / count:.0f} kernels and copies a round, "
+        f"{1e3 * wall / count:.3f} ms a round untraced")
+
+
+def volume_forward(path, spp, window):
+    """Phase 10: returns the launch counts of the timed run."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, exr, film, render
+    from nart_tpu_torch.integrators import volume
+
+    params, sess = volume_session(
+        path, {"image_width": 1280, "image_height": 720, "spp": spp})
+    log(f"volume forward: volume_blob.json {params.image_width}x"
+        f"{params.image_height} at {params.spp} spp (the scene's own session "
+        f"has 32 spp; cut to {params.spp} for the smoke's time)")
+    t0 = time.perf_counter()
+    sess.render()
+    torch.cuda.synchronize()
+    log(f"warm run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = sess.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(ca.launch_counts)
+    rays, rounds = sess.stats["rays"], sess.stats["rounds"]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"timed run {dt:.4f} s, {rounds} rounds "
+        f"({1e3 * dt / rounds:.3f} ms a round), {rays} segment starts, "
+        f"{rays / dt / 1e6:.4f} Mrays/s, peak device memory {peak:.1f} MiB, "
+        f"launches {counts}")
+    _no_traversal("the volume forward", counts)
+    img = film.finalize(buf, params.image_width, params.image_height,
+                        sess.filter_bounds)
+    with tempfile.TemporaryDirectory() as tmp:
+        back = exr.read(sess.write_exr(os.path.join(tmp, "blob"), img=img))
+    mean = float(img[..., :3].mean())
+    if not (bool(torch.isfinite(img).all()) and mean > 0.0
+            and back.shape == tuple(img.shape)):
+        raise AssertionError(f"volume image not finite with nonzero mean "
+                             f"({mean}) or its EXR changed shape")
+    log(f"image {tuple(img.shape)} finite, mean {mean:.6f}; EXR written")
+
+    samples = render.image_samples(sess.render_w, sess.render_h,
+                                   sess.total_w, params.spp, DEVICE)
+    core, step_round, n = volume._static_machine(
+        sess.scene, samples, params, sess.render_w, 0, params.lanes)
+    items = samples.shape[0] * samples.shape[1]
+    log(f"static machine: {n} lanes, {-(-items // n)} items a lane")
+    first, count = window
+    for _ in range(first):
+        core = step_round(core)[0]
+
+    def run():
+        c = core
+        for _ in range(count):
+            if not bool(c[0].alive.any()):
+                break
+            c = step_round(c)[0]
+
+    window_busy(f"volume forward, rounds {first}-{first + count - 1}", run,
+                count)
+    return counts
+
+
+def volume_training(path, spp, window):
+    """Phase 11: returns the launch counts of the timed fwd+bwd run."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, grad, render
+    from nart_tpu_torch.integrators import volume
+
+    params, sess = volume_session(
+        path, {"image_width": 1280, "image_height": 720, "spp": spp})
+    w, h = params.image_width, params.image_height
+    sc = sess.scene
+    samples = _image_samples(params, DEVICE)
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sc)
+    log(f"volume training path: volume_blob.json {w}x{h}, one chunk of {spp}"
+        " spp, cot = 1 on RGB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    la, rays_f, rounds_f = volume.trace_vol_static(sc, None, samples, params,
+                                                   w, h)
+    want = float(la[..., :3].double().sum() + cot[..., 3].double().sum())
+    torch.cuda.synchronize()
+    dt_f = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, rays, rounds = grad.radiance_weighted_loss_and_grad(
+        sc, theta, None, samples, cot, params, w, h)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(ca.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"forward alone {dt_f:.4f} s ({rounds_f} rounds); fwd+bwd "
+        f"{dt:.4f} s, {rounds} rounds, {rays} segment starts (one "
+        f"forward's), {rays / dt / 1e6:.4f} Mrays/s fwd+bwd, fwd+bwd / fwd "
+        f"= {dt / dt_f:.3f}, peak device memory {peak:.1f} MiB, launches "
+        f"{counts}; loss {float(loss):.6f} vs forward {want:.6f}")
+    _no_traversal("the volume fwd+bwd", counts)
+    if not (np.isfinite(float(loss))
+            and abs(float(loss) - want) <= 1e-4 * abs(want)):
+        raise AssertionError(f"loss {float(loss)} != forward sum {want}")
+    if (rays, rounds) != (rays_f, rounds_f):
+        raise AssertionError("replay and forward disagree on rays or rounds")
+    for k, g in _leaves(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient leaf {k} is not finite")
+    med = {k: float(g.abs().sum()) for k, g in _leaves(grads)
+           if k.startswith("medium.")}
+    log("medium gradient |sum|: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in med.items()))
+    if len(med) != 4 or not all(v > 0.0 for v in med.values()):
+        raise AssertionError(f"a medium gradient is missing or zero: {med}")
+
+    # the busy share over a window of the replay's backward rounds
+    leaves = grad._as_leaves(theta, DEVICE)
+    replay = volume._VolReplay(volume._static_machine,
+                               grad.put_params(sc, leaves), samples, cot,
+                               params, w, 0, params.lanes)
+    replay.forward()
+    saved = replay.saved
+    g = torch.ones((), device=DEVICE)
+    first, count = window
+
+    def run():
+        # the backward pass walks the window's rounds, last to first
+        replay.saved = saved[first:first + count]
+        replay.backward(g)
+
+    window_busy(f"volume replay backward, rounds {first}-{first + count - 1}",
+                run, count)
+    return counts
+
+
+def volume_card_against_cpu(size):
+    """Phase 12."""
+    import torch
+
+    from nart_tpu_torch import grad, render, testing
+
+    w, h, spp = size
+    dens = np.linspace(0.3, 1.0, 64, dtype=np.float32).reshape(4, 4, 4)
+    sc = testing.medium_scene(0.4, 0.8, (0.5, 0.5, 0.5), density=dens)
+    params = render.RenderParams(image_width=w, image_height=h, spp=spp,
+                                 bounces=16, integrator="volume")
+    samples = _image_samples(params, "cpu")
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sc)
+    # 256 work slots for 2,048 items: rounds with respawns
+    args = (sc, theta, None, samples, cot, params, w, h, 0, 256)
+    loss_k, grads_k, rays_k, rounds_k = grad.radiance_weighted_loss_and_grad(
+        *args)
+    loss_c, grads_c, rays_c, rounds_c = grad.radiance_weighted_loss_and_grad(
+        *args, device="cpu")
+    worst = 0.0
+    for (k, gk), (_, gc) in zip(_leaves(grads_k), _leaves(grads_c)):
+        gk = gk.cpu()
+        if not torch.allclose(gk, gc, rtol=1e-3, atol=1e-5):
+            raise AssertionError(
+                f"volume gradient leaf {k}: card {gk.flatten()[:4]} vs CPU "
+                f"{gc.flatten()[:4]}")
+        worst = max(worst, float((gk - gc).abs().max()))
+    log(f"volume card vs CPU gradients: loss {float(loss_k):.6f} vs "
+        f"{float(loss_c):.6f}, rounds {rounds_k} / {rounds_c}, segment "
+        f"starts {rays_k} / {rays_c}, every leaf within rtol 1e-3 / atol "
+        f"1e-5 (max abs diff {worst:.3g}); d/d sigma_a "
+        f"{float(grads_k['medium']['sigma_a']):.6f}")
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
+# (first round, rounds) of the volume phases' profiled windows
+VOLUME_WINDOW = (40, 20)
 
 
 def main():
@@ -676,9 +981,20 @@ def main():
         counts[k] = counts_tool[k]
     counts_train = phase("training path", training_path, 4)
     phase("card against CPU", card_against_cpu)
+    counts_modes = phase("spp and regen modes", modes_path, (128, 72, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        vol = volume_scene_file(tmp)
+        phase("volume golden", volume_golden, vol)
+        counts_vol = phase("volume forward", volume_forward, vol, 8,
+                           VOLUME_WINDOW)
+        counts_vol_train = phase("volume training path", volume_training,
+                                 vol, 4, VOLUME_WINDOW)
+    phase("volume card against CPU", volume_card_against_cpu, (32, 32, 2))
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],
+                    launches_modes=counts_modes.get(k, 0),
+                    launches_volume=counts_vol[k] + counts_vol_train[k],
                     **records[k])
                for k in KERNELS]
     log(json.dumps({"kernels": kernels}))

@@ -26,11 +26,18 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
   materials.py      per-hit BSDF descriptors, half textures (materials.py)
   lights.py         disk / ring / env / distant lights, packed area tables
                     (lights.py)
+  media.py          density grids, packed 8-corner cell lookups, the
+                    medium's slab clip (media.py)
   film.py           Gaussian filter splatting (film.py)
   integrators/      path integrator: balanced work queue, lockstep trace,
-                    detached-sampling estimator and the path replay
-                    trace_balanced_loss (integrators/path.py)
-  render.py         sessions, parameter resolution, EXR output (render.py)
+                    per-pixel sample regeneration, detached-sampling
+                    estimator and the path replay trace_balanced_loss
+                    (integrators/path.py); volume integrator: delta
+                    tracking, lockstep trace / trace_diff, the work queue
+                    and the static assignment, their replays
+                    (integrators/volume.py; no traversal kernel)
+  render.py         sessions, parameter resolution, the "balanced",
+                    "regen" and "spp" modes, EXR output (render.py)
   grad.py           trainable parameters, loss_and_grad,
                     radiance_weighted_loss_and_grad (grad.py)
   kernel_stats.py   traversal counters per ray and the tool that prints

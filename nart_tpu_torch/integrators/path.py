@@ -8,7 +8,8 @@ nested-dielectric list update -> Russian roulette] on the whole wavefront
 with masked lanes, then lanes whose path ended pull the next (pixel,
 sample) work item.  The round loop is a Python loop; the per-item radiance
 is written with ``index_add_``.  ``trace`` is the lockstep wavefront (one
-bounce per round, no respawn).
+bounce per round, no respawn), ``trace_regen`` the per-pixel sample
+regeneration of the "regen" mode.
 
 Gradients: ``make_bounce(differentiable=True)`` is the detached-sampling
 estimator, and ``trace_balanced_loss`` differentiates the work queue by
@@ -587,6 +588,80 @@ def trace(scene, accel, o, d, state, params, differentiable=False):
     return paths.l, paths.alpha, paths.state, int(paths.rays)
 
 
+def _respawn(p: Paths, respawn, o, d, state):
+    """Lanes in `respawn` start a fresh path on (o, d) with `state`."""
+    rm = respawn[:, None]
+    return Paths(
+        o=torch.where(rm, o, p.o),
+        d=torch.where(rm, d, p.d),
+        state=state,
+        beta=torch.where(rm, 1.0, p.beta),
+        l=torch.where(rm, 0.0, p.l),
+        alpha=torch.where(respawn, 0.0, p.alpha),
+        alive=p.alive | respawn,
+        flags=torch.where(respawn, 0, p.flags),
+        eta_sampled=torch.where(respawn, 1.0, p.eta_sampled),
+        alpha_tweak=torch.where(respawn, 1.0, p.alpha_tweak),
+        t_lim=torch.where(respawn, INF, p.t_lim),
+        rays=p.rays,
+        lst=_isect_list_reset(p.lst, respawn),
+    )
+
+
+def trace_regen(scene, accel, px, py, samples, state, params):
+    """Sample regeneration: every lane owns a pixel and runs the chunk's
+    samples back to back on the pixel's own stream; when sample s ends its
+    radiance goes to slot (s, lane) and the lane starts sample s + 1 in the
+    same round.  The draws happen in the sequential renderer's per-pixel
+    order (Latin square first, drawn by the caller; then each sample's path
+    draws), so each sample's radiance is the same bits as trace()'s in the
+    per-sample loop.
+
+    Args:
+      px, py: (N,) lane pixel coords.
+      samples: (spp_chunk, N, 2) Latin-square jitters of this chunk.
+      state: (N,) int64 RNG states, past the Latin-square draws.
+    Returns (la (spp_chunk, N, 4), state, rays).  Splatting la sample by
+    sample (film.splat_grid) gives the per-sample loop's film.
+    """
+    n, spp_chunk = px.shape[0], samples.shape[0]
+    dev = px.device
+    bounce_body = make_bounce(scene, accel, params)
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def cast(jit):
+        return camera.cast_rays(scene.cam_to_world, scene.fov,
+                                params.image_width, params.image_height,
+                                px, py, jit)
+
+    paths = _paths_init(*cast(samples[0]), state)
+    bounce = torch.zeros(n, dtype=torch.int64, device=dev)
+    samp = torch.zeros(n, dtype=torch.int64, device=dev)
+    # rows past spp_chunk * n take the other lanes' zeros
+    la_out = torch.zeros(((spp_chunk + 1) * n, 4), device=dev)
+    while bool(paths.alive.any()):
+        was_alive = paths.alive
+        p = bounce_body(bounce, paths)
+        # the reference's `for bounce < bounces` ends a sample after its
+        # params.bounces'th iteration
+        bounce_next = torch.where(was_alive, bounce + 1, bounce)
+        alive = p.alive & (bounce_next < params.bounces)
+        dying = was_alive & ~alive
+        la = torch.cat([p.l, p.alpha[:, None]], dim=-1)
+        slot = torch.where(dying, samp * n, spp_chunk * n) + lane
+        la_out.index_add_(0, slot, torch.where(dying[:, None], la, 0.0))
+        # the pixel's next sample, on the same stream
+        nxt = samp + 1
+        respawn = dying & (nxt < spp_chunk)
+        samp = torch.where(dying, nxt, samp)
+        o_new, d_new = cast(samples[nxt.clamp(max=spp_chunk - 1), lane])
+        paths = _respawn(replace(p, alive=alive), respawn, o_new, d_new,
+                         p.state)
+        bounce = torch.where(respawn, 0, bounce_next)
+    return (la_out[:spp_chunk * n].reshape(spp_chunk, n, 4), paths.state,
+            int(paths.rays))
+
+
 def _next_pow2(v):
     return 1 << int(np.ceil(np.log2(max(int(v), 1))))
 
@@ -660,22 +735,8 @@ def _balanced_machine(scene, accel, samples, params, render_w, render_h,
         item = torch.where(dying, new_item, item)
 
         o_new, d_new, st_new = spawn(new_item)
-        rm = respawn[:, None]
-        paths = Paths(
-            o=torch.where(rm, o_new, p.o),
-            d=torch.where(rm, d_new, p.d),
-            state=torch.where(respawn, st_new, p.state),
-            beta=torch.where(rm, 1.0, p.beta),
-            l=torch.where(rm, 0.0, p.l),
-            alpha=torch.where(respawn, 0.0, p.alpha),
-            alive=alive | respawn,
-            flags=torch.where(respawn, 0, p.flags),
-            eta_sampled=torch.where(respawn, 1.0, p.eta_sampled),
-            alpha_tweak=torch.where(respawn, 1.0, p.alpha_tweak),
-            t_lim=torch.where(respawn, INF, p.t_lim),
-            rays=p.rays,
-            lst=_isect_list_reset(p.lst, respawn),
-        )
+        paths = _respawn(replace(p, alive=alive), respawn, o_new, d_new,
+                         torch.where(respawn, st_new, p.state))
         bounce = torch.where(respawn, 0, bounce_next)
         return (paths, bounce, item, head), dying, la, item_before
 
@@ -748,6 +809,14 @@ def _with_adjoint_leaves(p: Paths, vals):
                    lst=replace(p.lst, eta=vals[-1]))
 
 
+def scene_leaves(scene):
+    """The scene's distinct tensors that require grad, in field order."""
+    seen = {}
+    map_tensors(scene, lambda t: seen.setdefault(id(t), t)
+                if t.requires_grad else t)
+    return list(seen.values())
+
+
 class _BalancedReplay:
     """Path replay over the work queue: sum(cot * la) and its gradient
     with respect to the scene's tensors that require grad."""
@@ -759,10 +828,7 @@ class _BalancedReplay:
         self.total = samples.shape[0] * samples.shape[1]
         self.cot_flat = cot.reshape(self.total, 4)
         self.params = params
-        seen = {}
-        map_tensors(scene, lambda t: seen.setdefault(id(t), t)
-                    if t.requires_grad else t)
-        self.leaves = list(seen.values())
+        self.leaves = scene_leaves(scene)
         self.saved = []  # per round: (incoming carry, Hit, occ)
         self.rays = 0
 
@@ -829,8 +895,10 @@ class _BalancedReplay:
         return grads
 
 
-class _ReplayLoss(torch.autograd.Function):
-    """The replay as one differentiable function of the scene's leaves."""
+class ReplayLoss(torch.autograd.Function):
+    """A replay (an object with forward() -> loss and backward(g) -> the
+    leaves' gradients) as one differentiable function of the scene's
+    leaves."""
 
     @staticmethod
     def forward(ctx, replay, *leaves):
@@ -868,5 +936,5 @@ def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
     """
     replay = _BalancedReplay(scene, accel, samples, cot, params, render_w,
                              render_h, chunk_base, n_lanes)
-    loss = _ReplayLoss.apply(replay, *replay.leaves)
+    loss = ReplayLoss.apply(replay, *replay.leaves)
     return loss, replay.rays, 0, len(replay.saved)

@@ -58,6 +58,11 @@ def cosine_sample_hemisphere(u):
     return w, z * INV_PI
 
 
+def sample_exponential_decay(u, a):
+    """-ln(1-u)/a.  sampling.cpp:60-62."""
+    return -torch.log(1.0 - u) / a
+
+
 def latin_square(state, n_samples):
     """Latin-square stratified 2D image samples, one square per pixel lane.
 

@@ -17,6 +17,7 @@ from .scene import (
     MAT_LAMBERT,
     MAT_PLASTIC,
     LightData,
+    MediumData,
     SceneData,
 )
 
@@ -37,6 +38,27 @@ def env_scene(materials=("lambert",), tex_h=4, tex_w=8, intensity=2.0, **kw):
         le_const=torch.zeros(3), le_tex=_t(le_tex), env2d=None,
     )
     return dataclasses.replace(base, lights=[env])
+
+
+def medium_scene(sigma_a, sigma_s, le=(0.0, 0.0, 0.0), density=None,
+                 env=1.0):
+    """simple_scene(("lambert",)) in a medium filling [-1, 1]^3 (density
+    (4, 4, 4) ones unless given, majorant max density * (sigma_a +
+    sigma_s)), lit by a constant environment light of intensity env."""
+    dens = (np.ones((4, 4, 4), np.float32) if density is None
+            else np.asarray(density, np.float32))
+    medium = MediumData(
+        bounds_min=torch.full((3,), -1.0), bounds_max=torch.full((3,), 1.0),
+        sigma_a=torch.tensor(sigma_a, dtype=torch.float32),
+        sigma_s=torch.tensor(sigma_s, dtype=torch.float32),
+        le=torch.tensor(le, dtype=torch.float32), density=_t(dens),
+        sigma_maj=float(dens.max()) * (sigma_a + sigma_s))
+    env_light = LightData(
+        kind=LIGHT_ENV, xf=_t(np.eye(4, dtype=np.float32)), radius=0.0,
+        inner_radius=0.0, intensity=torch.tensor(env, dtype=torch.float32),
+        le_const=torch.ones(3), le_tex=None, env2d=None)
+    return dataclasses.replace(simple_scene(("lambert",)), lights=[env_light],
+                               medium=medium)
 
 
 def quad(center, size, axis=2, flip=False):

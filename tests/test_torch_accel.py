@@ -17,6 +17,7 @@ from nart_tpu import pallas_accel as jpa
 from nart_tpu.geometry import intersect_brute as j_brute
 from nart_tpu_torch import cluster_accel as tca
 from nart_tpu_torch import kernel_stats
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 ARRAYS = ("planes", "order", "aabb", "sc_aabb", "morder", "cl_lo", "cl_hi")
 META = ("n_clusters", "n_tris", "n_sc", "sc_size", "csize")

@@ -15,6 +15,7 @@ from nart_tpu import camera as jcam
 from nart_tpu import geometry as jgeo
 from nart_tpu_torch import camera as tcam
 from nart_tpu_torch import geometry as tgeo
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 
 def _random_tris(n, seed=0, scale=1.0):

@@ -29,6 +29,7 @@ from nart_tpu_torch import grad as tgrad
 from nart_tpu_torch import render as trender
 from nart_tpu_torch import scene as tscene
 from nart_tpu_torch.integrators import path as tpath
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 W = H = 8
 SPP = 2
@@ -124,21 +125,46 @@ def test_params_round_trip(name):
 
 
 def test_medium_and_volume_are_refused():
-    from nart_tpu_torch import testing as ttesting
+    """A scene with a medium: get_params / put_params / params_from_numpy
+    carry the medium's sigma_a, sigma_s, le and density leaf for leaf with
+    nart_tpu.grad, and both gradient entry points take the volume
+    integrator (the medium's leaves get finite, nonzero gradients)."""
+    from tests.test_volume import _env_scene, _medium
 
-    sc = ttesting.simple_scene(("lambert",))
-    with_medium = dataclasses.replace(sc, medium=object())
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tgrad.get_params(with_medium)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tgrad.params_from_numpy({"medium": {}})
+    dens = np.linspace(0.3, 1.0, 64, dtype=np.float32).reshape(4, 4, 4)
+    js = dataclasses.replace(_env_scene(0.4, 0.8, med_le=(0.5, 0.5, 0.5)),
+                             medium=_medium(0.4, 0.8, (0.5, 0.5, 0.5),
+                                            density=dens))
+    ts, _ = _torch_side(js)
+    theta_j = jax.tree_util.tree_map(
+        np.asarray, jgrad.get_params(jax.tree_util.tree_map(jnp.asarray, js)))
+    carried = tgrad.params_from_numpy(theta_j)
+    own = tgrad.get_params(ts)
+    assert set(carried) == set(own) == set(theta_j)
+    assert set(own["medium"]) == set(theta_j["medium"]) == {
+        "sigma_a", "sigma_s", "le", "density"}
+    for k in own["medium"]:
+        a, b = carried["medium"][k].numpy(), own["medium"][k].numpy()
+        assert a.dtype == np.float32 and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+        np.testing.assert_array_equal(a, theta_j["medium"][k], err_msg=k)
+    doubled = tgrad._map_params(lambda x: x * 2.0, carried)
+    back = tgrad.get_params(tgrad.put_params(ts, doubled))["medium"]
+    for k, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), 2.0 * own["medium"][k],
+                                      err_msg=k)
+    assert "medium" not in tgrad.get_params(
+        dataclasses.replace(ts, medium=None))
+
     vol = _params(trender, integrator="volume")
-    with pytest.raises(NotImplementedError):
-        tgrad.loss_and_grad(sc, vol, W, H, SPP, torch.sum, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tgrad.radiance_weighted_loss_and_grad(
-            sc, tgrad.get_params(sc), None, torch.from_numpy(_samples()),
-            torch.from_numpy(_cot()), vol, W, H, device="cpu")
+    _, grads = tgrad.loss_and_grad(ts, vol, W, H, SPP, torch.sum,
+                                   device="cpu")
+    _, grads_w, _, _ = tgrad.radiance_weighted_loss_and_grad(
+        ts, own, None, torch.from_numpy(_samples()), torch.from_numpy(_cot()),
+        vol, W, H, device="cpu")
+    for g in (grads, grads_w):
+        for k, v in g["medium"].items():
+            assert torch.isfinite(v).all() and v.abs().sum() > 0, k
 
 
 @pytest.mark.parametrize("name", ["lambert", "glossy", "env", "textured"])

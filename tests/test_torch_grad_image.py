@@ -22,6 +22,7 @@ from nart_tpu_torch import grad as tgrad
 from nart_tpu_torch import render as trender
 from nart_tpu_torch import scene as tscene
 from tests.test_torch_grad import SCENES, H, SPP, W, _assert_grads_match, _params
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["lambert", "glossy", "env"])

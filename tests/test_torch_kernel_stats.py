@@ -23,6 +23,7 @@ import torch
 from nart_tpu import pallas_accel as jpa
 from nart_tpu_torch import cluster_accel as tca
 from nart_tpu_torch import kernel_stats
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 F = np.float32
 NOISE = F(2.0 ** -22)

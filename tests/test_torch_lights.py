@@ -21,6 +21,7 @@ from nart_tpu.integrators import path as jpath
 from nart_tpu_torch import lights as tl
 from nart_tpu_torch import scene as tscene
 from tests.test_torch_shading import _close, _dirs
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
 

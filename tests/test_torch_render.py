@@ -33,6 +33,7 @@ from nart_tpu_torch import film as tfilm
 from nart_tpu_torch import render as trender
 from nart_tpu_torch import scene as tscene
 from nart_tpu_torch.integrators import path as tpath
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
 MACBETH = os.path.join(FIX, "macbeth.json")
@@ -185,7 +186,11 @@ def test_params_and_sessions_match():
 
 
 def test_session_writes_exr_and_rejects_unported_modes(tmp_path):
+    """A session writes its EXR; with the volume integrator "regen" runs
+    the "spp" loop (there is no per-pixel regeneration machine for
+    volumes, as in the JAX package): the same film bits."""
     from nart_tpu_torch import testing
+    from tests.test_volume import _env_scene
 
     sc = testing.simple_scene(("lambert",))
     p = trender.RenderParams(image_width=8, image_height=8, spp=1, bounces=2)
@@ -194,6 +199,15 @@ def test_session_writes_exr_and_rejects_unported_modes(tmp_path):
     img = texr.read(out)
     assert img.shape == (8, 8, 4) and np.isfinite(img).all()
     assert sess.stats["rays"] > 0 and sess.stats["rounds"] > 0
-    with pytest.raises(NotImplementedError):
-        trender.RenderSession(sc, dataclasses.replace(p, wavefront="spp"),
+    vol = tscene.from_numpy(dataclasses.asdict(
+        _env_scene(sigma_a=0.4, sigma_s=0.8, med_le=(0.5, 0.5, 0.5))))
+    films = {}
+    for mode in ("regen", "spp"):
+        q = dataclasses.replace(p, wavefront=mode, integrator="volume",
+                                spp=3, bounces=16)
+        films[mode] = trender.RenderSession(vol, q, "cpu").render()
+    assert torch.equal(films["regen"], films["spp"])
+    assert float(films["spp"][..., 3].sum()) > 0
+    with pytest.raises(ValueError):
+        trender.RenderSession(sc, dataclasses.replace(p, wavefront="queue"),
                               "cpu")

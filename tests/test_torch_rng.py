@@ -21,6 +21,7 @@ from nart_tpu.integrators import path as jpath
 from nart_tpu_torch import rng as trng
 from nart_tpu_torch import sampling as tsamp
 from nart_tpu_torch.integrators import path as tpath
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 EDGE_STATES = np.array(
     [0, 1, 7, 123456, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1], np.uint32)

@@ -18,6 +18,7 @@ from nart_tpu import exr as jexr
 from nart_tpu import scene as jscene
 from nart_tpu_torch import exr as texr
 from nart_tpu_torch import scene as tscene
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 HERE = os.path.dirname(__file__)
 FIX = os.path.join(HERE, "fixtures", "macbeth")

@@ -22,6 +22,7 @@ from nart_tpu import scene as jscene
 from nart_tpu_torch import bxdf as tb
 from nart_tpu_torch import materials as tm
 from nart_tpu_torch import scene as tscene
+from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
 RTOL, ATOL = 1e-5, 1e-6
