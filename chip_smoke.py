@@ -61,13 +61,37 @@ Phases (any failure raises and exits non-zero):
      gradients are finite and nonzero, no traversal kernel launched; the
      busy share over a window of the replay's backward rounds;
  12. volume gradients on the card against the CPU: medium_scene at 32x32,
-     2 spp: every leaf to rtol 1e-3 / atol 1e-5.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Needs the repository checkout (it imports
-nart_tpu_torch from beside this file); imports nothing of JAX.
+     2 spp: every leaf to rtol 1e-3 / atol 1e-5;
+ 13. (a) sharding in one process: macbeth at 1280x720, 2 spp, the virtual
+     ranks of Layout(4, 1) and Layout(2, 2) (sharding.render_shard) summed
+     against the one-process film (atol/rtol 1e-6), each rank's seconds and
+     rounds and the rounds' balance over the row ranks logged; macbeth
+     "regen" at 320x180, 2 spp, Layout(2, 2), the same check, and a second
+     run of its shards bit-equal to the first; volume_blob at 1280x720,
+     2 spp, Layout(4, 1), the same check;
+ 14. (b) two ranks sharing the card under gloo (NCCL refuses two ranks on
+     one GPU), spawned as `chip_smoke.py --rank R PORT DIR`:
+     render_sharded of macbeth at 2 spp against phase 13's one-process film
+     (1e-6), radiance_weighted_loss_and_grad_sharded of one 1-spp chunk at
+     1280x720 against the one-process call (loss rtol 1e-5, gradient rtol
+     1e-3 / atol 1e-5);
+ 15. (c) the CLI as a world of one under NCCL (--coordinator
+     127.0.0.1:PORT --numProcesses 1 --processId 0 -s 2 --timing) on
+     macbeth: its EXR equals RenderSession.write_exr's bit for bit; its
+     --timing lines are logged;
+ 16. (d) checkpoint and resume: macbeth 1280x720, 4 spp "balanced",
+     checkpoint_every=2, resumed in a new session from the first save, and
+     "regen" at 128x72, 2 spp, every 1: the films equal the uninterrupted
+     ones bit for bit; save and load seconds and the file size logged;
+ 17. (e) accel="bvh" (the plain lockstep LBVH walk) against the cluster
+     kernels: macbeth at 128x72, 1 spp, the images by test_golden's
+     _compare criteria (tight and golden), the wall times side by side.
+The line before the last is the kernels' JSON record (launches_sharded:
+phases 13-15); the last line is {"ok": true, "device": {...}}.  Needs the
+repository checkout (it imports nart_tpu_torch from beside this file);
+imports nothing of JAX.
 """
 
-import dataclasses
 import json
 import os
 import statistics
@@ -938,6 +962,339 @@ def volume_card_against_cpu(size):
         f"{float(grads_k['medium']['sigma_a']):.6f}")
 
 
+def _shard_rounds(label, stats, layout):
+    """Log the per-rank rounds of a layout and the balance over its row
+    ranks (a row rank's rounds summed over its sample slabs): mean / max
+    (the JAX package's measure) and max / mean."""
+    per_row = [sum(stats[r * layout.n_spp + j]["rounds"]
+                   for j in range(layout.n_spp)) for r in range(layout.n_row)]
+    mean = statistics.mean(per_row)
+    log(f"    {label}: rounds per rank {[st['rounds'] for st in stats]}; "
+        f"row ranks {per_row}: balance mean/max {mean / max(per_row):.4f}, "
+        f"max/mean {max(per_row) / mean:.4f}")
+
+
+def _close_films(label, got, want):
+    import torch
+
+    if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+        bad = ~torch.isclose(got, want, rtol=1e-6, atol=1e-6)
+        raise AssertionError(f"{label}: {int(bad.sum())} film values off, "
+                             f"max diff {float((got - want).abs().max())}")
+    log(f"    {label}: equal to the one-process film within atol/rtol 1e-6 "
+        f"(max diff {float((got - want).abs().max()):.3g}, bit-equal "
+        f"{bool(torch.equal(got, want))})")
+
+
+def _virtual_ranks(sess, layout, label):
+    """Every rank of a layout in turn (render_shard), the films summed:
+    returns (film, per-rank stats)."""
+    import torch
+
+    from nart_tpu_torch import sharding
+
+    film = torch.zeros((sess.total_h, sess.total_w, 5), device=DEVICE)
+    stats = []
+    for r in range(layout.world_size):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, st = sharding.render_shard(sess, layout, r)
+        torch.cuda.synchronize()
+        st["seconds"] = time.perf_counter() - t0
+        film += f
+        stats.append(st)
+    log(f"    {label}: seconds per rank "
+        f"{[round(st['seconds'], 3) for st in stats]}")
+    if any(st["rounds"] for st in stats):  # "spp"/"regen" count no rounds
+        _shard_rounds(label, stats, layout)
+    return film, stats
+
+
+def sharded_virtual(vol_path, spp):
+    """Phase 13 (a): returns the launch counts of the sharded renders and
+    the one-process macbeth film (phase 14's reference)."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, render, sharding
+
+    params, sess = next(render.render_scene_file(MACBETH, {"spp": spp},
+                                                  device=DEVICE))
+    t0 = time.perf_counter()
+    single = sess.render()
+    torch.cuda.synchronize()
+    log(f"sharded (virtual ranks, one process): macbeth {params.image_width}"
+        f"x{params.image_height} {spp} spp; one process {time.perf_counter() - t0:.3f} s, "
+        f"{sess.stats}")
+    counts = dict.fromkeys(KERNELS, 0)
+    for shape in ((4, 1), (2, 2)):
+        layout = sharding.Layout(*shape)
+        ca.reset_launch_counts()
+        film, _ = _virtual_ranks(sess, layout, f"macbeth {layout}")
+        for k in KERNELS:
+            counts[k] += ca.launch_counts[k]
+        _close_films(f"macbeth {layout}", film, single)
+    # "regen" shards: whole rows on the per-pixel streams, Layout(2, 2)
+    # counting as four row ranks; the strip splats add at distinct rows, so
+    # a second run gives the same bits
+    _, sess_r = next(render.render_scene_file(
+        MACBETH, {"spp": spp, "image_width": 320, "image_height": 180,
+                  "wavefront": "regen"}, device=DEVICE))
+    single_r = sess_r.render()
+    layout = sharding.Layout(2, 2)
+    label = f"macbeth 320x180 regen {layout}"
+    ca.reset_launch_counts()
+    film_r, _ = _virtual_ranks(sess_r, layout, label)
+    for k in KERNELS:
+        counts[k] += ca.launch_counts[k]
+    _close_films(label, film_r, single_r)
+    again = [sharding.render_shard(sess_r, layout, r)[0]
+             for r in range(layout.world_size)]
+    if not torch.equal(sum(again), film_r):
+        raise AssertionError("a second run of the regen shards differs")
+    log("    macbeth 320x180 regen: a second run of the shards is bit-equal")
+    params_v, sess_v = volume_session(vol_path, {"image_width": 1280,
+                                                 "image_height": 720,
+                                                 "spp": spp})
+    single_v = sess_v.render()
+    layout = sharding.Layout(4, 1)
+    ca.reset_launch_counts()
+    film_v, _ = _virtual_ranks(sess_v, layout, f"volume_blob {layout}")
+    _no_traversal("the sharded volume", ca.launch_counts)
+    _close_films(f"volume_blob {layout}", film_v, single_v)
+    if min(counts["closest_hit"], counts["any_hit"]) <= 0:
+        raise AssertionError(f"the sharded renders launched {counts}")
+    return counts, single
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grad_inputs(spp, device):
+    """macbeth at its 1280x720: scene, clusters, params, samples of one
+    chunk of spp samples, cot = 1 on RGB, theta."""
+    from nart_tpu_torch import cluster_accel as ca, grad, render, scene
+
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    params = render.load_sessions(MACBETH, {"spp": spp})[0]
+    acc = ca.build_accel(sc.tri_v.numpy(), params.accel)
+    samples = _image_samples(params, device)
+    return sc, acc, params, samples, _rgb_cot(samples), grad.get_params(sc)
+
+
+def rank_worker(rank, port, out_dir):
+    """One of phase 14's two ranks: gloo on the one card (NCCL refuses two
+    ranks on one GPU).  The sharded macbeth film (Layout(2, 1), 2 spp) and
+    the sharded gradient of one 1-spp chunk; writes rank<r>.npz."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from nart_tpu_torch import cluster_accel as ca, grad, render, sharding
+
+    dev = sharding.init_distributed(f"tcp://127.0.0.1:{port}", rank, 2,
+                                    backend="gloo", device="cuda:0")
+    layout = sharding.Layout(2, 1)
+    _, sess = next(render.render_scene_file(MACBETH, {"spp": 2}, device=dev))
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    film, stats = sharding.render_sharded(sess, layout)
+    torch.cuda.synchronize()
+    t_film = time.perf_counter() - t0
+    sc, acc, params, samples, cot, theta = _grad_inputs(1, dev)
+    w, h = params.image_width, params.image_height
+    t0 = time.perf_counter()
+    loss, grads, rays, rounds = sharding.radiance_weighted_loss_and_grad_sharded(
+        sc, theta, acc, samples, cot, params, w, h, layout, device=dev)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    flat = torch.cat([g.reshape(-1) for _, g in _leaves(grads)])
+    # the two collectives alone, on buffers of the same sizes
+    t_reduce = []
+    for n in (film.numel(), flat.numel()):
+        buf = torch.ones(n, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharding.all_reduce_sum(buf)
+        torch.cuda.synchronize()
+        t_reduce.append(time.perf_counter() - t0)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             film=film.cpu().numpy() if rank == 0 else np.zeros(0),
+             loss=float(loss), grads=flat.cpu().numpy(),
+             counts=np.array([ca.launch_counts[k] for k in KERNELS]),
+             rounds=np.array([stats["rounds"], rounds]),
+             seconds=np.array([t_film, t_grad] + t_reduce),
+             sizes=np.array([film.numel(), flat.numel()]))
+    torch.distributed.destroy_process_group()
+
+
+def two_ranks(single):
+    """Phase 14 (b): returns the two ranks' launch counts."""
+    import torch
+
+    from nart_tpu_torch import grad
+
+    log("two ranks on the one card under gloo (NCCL refuses two ranks on "
+        "one GPU): render_sharded of macbeth at 2 spp and "
+        "radiance_weighted_loss_and_grad_sharded of one 1-spp chunk, "
+        "Layout(2, 1)")
+    sc, acc, params, samples, cot, theta = _grad_inputs(1, DEVICE)
+    w, h = params.image_width, params.image_height
+    loss1, grads1, _, _ = grad.radiance_weighted_loss_and_grad(
+        sc, theta, acc, samples, cot, params, w, h)
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--rank", str(r), str(port), tmp])
+                 for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"the ranks exited with {rcs}")
+        out = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+               for r in range(2)]
+    for r, o in enumerate(out):
+        log(f"    rank {r}: film {o['seconds'][0]:.3f} s ({o['rounds'][0]} "
+            f"rounds), gradient {o['seconds'][1]:.3f} s ({o['rounds'][1]} "
+            f"rounds), launches {dict(zip(KERNELS, o['counts'].tolist()))}; "
+            f"all-reduce under gloo (through host memory) of the film's "
+            f"{4 * o['sizes'][0]} bytes {o['seconds'][2]:.4f} s, of the "
+            f"gradient's {4 * o['sizes'][1]} bytes {o['seconds'][3]:.4f} s")
+    _close_films("two ranks, gloo", torch.from_numpy(out[0]["film"]),
+                 single.cpu())
+    loss2 = out[0]["loss"]
+    if not (out[1]["loss"] == loss2
+            and abs(loss2 - float(loss1)) <= 1e-5 * abs(float(loss1))):
+        raise AssertionError(f"sharded loss {loss2} / {out[1]['loss']} vs "
+                             f"one process {float(loss1)}")
+    want = torch.cat([g.reshape(-1) for _, g in _leaves(grads1)]).cpu()
+    got = torch.from_numpy(out[0]["grads"])
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-5):
+        raise AssertionError("sharded gradient differs from one process's: "
+                             f"max diff {float((got - want).abs().max())}")
+    log(f"    loss {loss2:.6f} vs one process {float(loss1):.6f} (rtol 1e-5); "
+        f"{want.numel()} gradient values within rtol 1e-3 / atol 1e-5 (max "
+        f"diff {float((got - want).abs().max()):.3g})")
+    counts = {k: int(out[0]["counts"][i] + out[1]["counts"][i])
+              for i, k in enumerate(KERNELS)}
+    if min(counts["closest_hit"], counts["any_hit"]) <= 0:
+        raise AssertionError(f"the ranks launched {counts}")
+    return counts
+
+
+def cli_world_of_one(spp):
+    """Phase 15 (c): the CLI as a world of one under NCCL, in this process;
+    its EXR against RenderSession.write_exr's.  Returns its launch counts."""
+    import contextlib
+    import io
+
+    from nart_tpu_torch import cli, cluster_accel as ca, exr, render
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli")
+        err = io.StringIO()
+        ca.reset_launch_counts()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([MACBETH, out, "--coordinator",
+                           f"127.0.0.1:{_free_port()}", "--numProcesses", "1",
+                           "--processId", "0", "-s", str(spp), "--timing"])
+        counts = dict(ca.launch_counts)
+        for line in err.getvalue().splitlines():
+            log(f"    cli {line}")
+        if rc != 0:
+            raise AssertionError(f"the CLI returned {rc}")
+        _, sess = next(render.render_scene_file(MACBETH, {"spp": spp},
+                                                 device=DEVICE))
+        want = exr.read(sess.write_exr(os.path.join(tmp, "session")))
+        got = exr.read(out + ".exr")
+    if not np.array_equal(got, want):
+        raise AssertionError("the CLI's EXR differs from write_exr's: max "
+                             f"diff {np.abs(got - want).max()}")
+    log(f"    the CLI's EXR {got.shape} equals RenderSession.write_exr's bit "
+        f"for bit; launches {counts}")
+    if min(counts["closest_hit"], counts["any_hit"]) <= 0:
+        raise AssertionError(f"the CLI launched {counts}")
+    return counts
+
+
+def checkpoint_resume():
+    """Phase 16 (d)."""
+    import torch
+
+    from nart_tpu_torch import checkpoint, render
+
+    cases = (("balanced", {"spp": 4}, 2),
+             ("regen", {"spp": 2, "image_width": 128, "image_height": 72,
+                        "wavefront": "regen"}, 1))
+    for label, overrides, every in cases:
+        params, sess = next(render.render_scene_file(MACBETH, overrides,
+                                                      device=DEVICE))
+        full = sess.render()
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck.npz")
+            # after the render the file holds its first save: no save is
+            # made at the last sample
+            render.RenderSession(sess.scene, params, DEVICE).render(
+                checkpoint_path=ck, checkpoint_every=every)
+            t0 = time.perf_counter()
+            film, state, done = checkpoint.load(ck, params)
+            t_load = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint.save(os.path.join(tmp, "again.npz"), film, state, done,
+                            params)
+            t_save = time.perf_counter() - t0
+            size = os.path.getsize(ck)
+            resumed = render.RenderSession(sess.scene, params, DEVICE).render(
+                checkpoint_path=ck, resume=True)
+        if done != every or not torch.equal(resumed, full):
+            raise AssertionError(f"{label}: resumed from {done} spp, film "
+                                 "differs from the uninterrupted one")
+        log(f"checkpoint {label}: macbeth {params.image_width}x"
+            f"{params.image_height} {params.spp} spp, saved at {done}: "
+            f"{size} bytes, save {t_save:.3f} s, load {t_load:.3f} s; the "
+            "resumed film equals the uninterrupted one bit for bit")
+
+
+def bvh_accel(size):
+    """Phase 17 (e)."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, render
+
+    w, h, spp = size
+    imgs, secs = {}, {}
+    for kind in ("cluster", "bvh"):
+        params, sess = next(render.render_scene_file(
+            MACBETH, dict(image_width=w, image_height=h, spp=spp,
+                          accel=kind), device=DEVICE))
+        ca.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sess.image()
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+        imgs[kind] = img.cpu().numpy()
+        log(f"accel {kind}: macbeth {w}x{h} {spp} spp in {secs[kind]:.3f} s, "
+            f"{sess.stats}, launches {dict(ca.launch_counts)}")
+        if kind == "bvh":
+            _no_traversal("the bvh render", ca.launch_counts)
+    if not np.isfinite(imgs["bvh"]).all():
+        raise AssertionError("the bvh image is not finite")
+    block_compare(imgs["bvh"], imgs["cluster"], 1e-3, 0.01, 0.95,
+                  label="bvh vs cluster (tight)")
+    block_compare(imgs["bvh"], imgs["cluster"], 0.03, 0.12, 0.95,
+                  label="bvh vs cluster (golden)")
+    log(f"bvh / cluster wall time {secs['bvh'] / secs['cluster']:.2f}x")
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -990,11 +1347,19 @@ def main():
         counts_vol_train = phase("volume training path", volume_training,
                                  vol, 4, VOLUME_WINDOW)
     phase("volume card against CPU", volume_card_against_cpu, (32, 32, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        counts_a, single = phase("sharded, virtual ranks", sharded_virtual,
+                                 volume_scene_file(tmp), 2)
+    counts_b = phase("two ranks, gloo", two_ranks, single)
+    counts_c = phase("CLI, NCCL world of one", cli_world_of_one, 2)
+    phase("checkpoint and resume", checkpoint_resume)
+    phase("bvh accel", bvh_accel, (128, 72, 1))
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],
                     launches_modes=counts_modes.get(k, 0),
                     launches_volume=counts_vol[k] + counts_vol_train[k],
+                    launches_sharded=counts_a[k] + counts_b[k] + counts_c[k],
                     **records[k])
                for k in KERNELS]
     log(json.dumps({"kernels": kernels}))
@@ -1004,4 +1369,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

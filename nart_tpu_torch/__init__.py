@@ -22,6 +22,8 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     (csrc/cluster_hit.cu) for CUDA tensors, plain torch
                     versions for CPU tensors (pallas_accel.py, accel.py's
                     kind policy, tools/kernel_stats.py's kernel)
+  bvh.py            LBVH build + plain lockstep walk, the "bvh" kind
+                    (accel.py)
   bxdf.py           5 BSDF lobes + aggregation (bxdf.py)
   materials.py      per-hit BSDF descriptors, half textures (materials.py)
   lights.py         disk / ring / env / distant lights, packed area tables
@@ -37,17 +39,25 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     and the static assignment, their replays
                     (integrators/volume.py; no traversal kernel)
   render.py         sessions, parameter resolution, the "balanced",
-                    "regen" and "spp" modes, EXR output (render.py)
+                    "regen" and "spp" modes over the grid or a shard's
+                    rows, checkpoint/resume, EXR output (render.py)
+  checkpoint.py     film + RNG-state NPZ checkpoints (checkpoint.py)
   grad.py           trainable parameters, loss_and_grad,
                     radiance_weighted_loss_and_grad (grad.py)
+  sharding.py       torch.distributed: Layout (row ranks x sample slabs),
+                    striped-row shards, film and gradient all-reduce
+                    (sharding.py)
+  cli.py            flag-compatible CLI, one process or one per card:
+                    python -m nart_tpu_torch.cli (cli.py)
   kernel_stats.py   traversal counters per ray and the tool that prints
                     them: python -m nart_tpu_torch.kernel_stats
                     (tools/kernel_stats.py)
 
 Entry points (RenderSession, render_scene_file, grad.loss_and_grad,
-grad.radiance_weighted_loss_and_grad, kernel_stats.main) run on the card
-unless the caller names a device, and raise where there is none
-(resolve_device); the tests name "cpu".
+grad.radiance_weighted_loss_and_grad, kernel_stats.main, cli.main) run on
+the card unless the caller names a device, and raise where
+there is none (resolve_device); a distributed rank's card is
+cuda:{LOCAL_RANK} (sharding.init_distributed); the tests name "cpu".
 """
 
 import torch

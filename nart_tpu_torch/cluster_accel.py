@@ -553,12 +553,13 @@ def intersect_clusters_any(o, d, t_min, t_max, accel: ClusterAccel):
 # Accel-kind policy (accel.py)
 # ---------------------------------------------------------------------------
 
-ACCEL_KINDS = ("auto", "brute", "cluster")
+ACCEL_KINDS = ("auto", "brute", "bvh", "cluster")
 
 
 def resolve_accel_kind(kind: str) -> str:
     """'auto' -> 'cluster' (the kernels on CUDA, their plain versions on
-    the CPU); 'brute' is the plain geometry.intersect_brute scan."""
+    the CPU); 'brute' is the plain geometry.intersect_brute scan, 'bvh' the
+    plain lockstep LBVH walk (bvh.py)."""
     if kind not in ACCEL_KINDS:
         raise ValueError(f"accel must be one of {ACCEL_KINDS} (got {kind!r})")
     return "cluster" if kind == "auto" else kind
@@ -566,6 +567,11 @@ def resolve_accel_kind(kind: str) -> str:
 
 def build_accel(tri_v, kind: str):
     """The acceleration structure of a resolved kind (None for brute)."""
-    if resolve_accel_kind(kind) == "cluster":
+    kind = resolve_accel_kind(kind)
+    if kind == "cluster":
         return build_clusters(np.asarray(tri_v))
+    if kind == "bvh":
+        from .bvh import build_bvh
+
+        return build_bvh(np.asarray(tri_v))
     return None

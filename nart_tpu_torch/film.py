@@ -50,12 +50,13 @@ def _tap_weight(sx, sy, x0, y0, x1, y1, dx, dy, fw, table):
 
 
 def splat_windows(jitter, l_alpha, filter_width, table, render_w, render_h,
-                  filter_bounds):
+                  filter_bounds, real_mask=None):
     """Tap-weight + overlap-add splat of one sample per grid lane.
 
     Lane i is pixel (i % render_w, i // render_w); its sample sits at pixel +
     filter_bounds + jitter.  Returns the (render_h + K, render_w + K, 5)
-    accumulator, K = 2 * filter_bounds + 1."""
+    accumulator, K = 2 * filter_bounds + 1.  real_mask ((N,) bool) zeroes
+    the weights of the lanes where it is False (a shard's filler lanes)."""
     fw = float(np.float32(filter_width))
     k = 2 * filter_bounds + 1
     sx, sy, x0, y0, x1, y1 = _sample_window(jitter, filter_width,
@@ -65,6 +66,8 @@ def splat_windows(jitter, l_alpha, filter_width, table, render_w, render_h,
     for dy in range(k):
         for dx in range(k):
             w = _tap_weight(sx, sy, x0, y0, x1, y1, dx, dy, fw, table)
+            if real_mask is not None:
+                w = torch.where(real_mask, w, 0.0)
             img = torch.cat([l_alpha * w[..., None], w[..., None]], dim=-1)
             acc[dy : dy + render_h, dx : dx + render_w] += img.reshape(
                 render_h, render_w, 5)

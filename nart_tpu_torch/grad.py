@@ -98,6 +98,20 @@ def _param_list(theta):
     return out
 
 
+def flatten_leaves(theta):
+    """Every tensor of a parameter (or gradient) dict, flattened and
+    concatenated in _map_params's order into one 1-D tensor."""
+    return torch.cat([x.reshape(-1) for x in _param_list(theta)])
+
+
+def unflatten_like(flat, theta):
+    """flatten_leaves's inverse: flat cut into a dict of theta's layout
+    (views of flat)."""
+    leaves = _param_list(theta)
+    parts = iter(flat.split([x.numel() for x in leaves]))
+    return _map_params(lambda x: next(parts).view_as(x), theta)
+
+
 def params_from_numpy(theta):
     """The port's parameter dict from one of numpy arrays with the same
     keys (for example the JAX package's ``get_params`` result)."""
@@ -166,7 +180,9 @@ def _balanced_loss_fn(params):
 
 def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
                                     params, width, height, chunk_base=0,
-                                    lanes=0, n_rounds=None, device=None):
+                                    lanes=0, n_rounds=None, device=None,
+                                    pix_offset=0, n_pix_total=None,
+                                    row_map=None):
     """Value and gradient of sum(cot * per-sample radiance) over the
     balanced work queue, by path replay (path.trace_balanced_loss, or
     volume.trace_vol_static_loss for the volume integrator).
@@ -176,7 +192,9 @@ def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
     render.  ``n_rounds`` is accepted and ignored: the JAX package measures
     and caches a static round count for its compiled loop, this loop ends
     when no lane is alive.  Everything is moved to ``device`` (the card
-    unless one is named).
+    unless one is named).  pix_offset, n_pix_total and row_map place a
+    shard's items in the global grid of the replays (path.item_pixels):
+    samples and cot then cover the shard's pixels only.
 
     Returns (loss, grads, rays, n_rounds): grads has theta's layout, rays
     is one forward's algorithmic count, n_rounds the measured round count.
@@ -185,9 +203,12 @@ def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
     theta = _as_leaves(theta, dev)
     scn = put_params(scene.to(dev), theta)
     accel = None if accel is None else accel.to(dev)
+    if row_map is not None:
+        row_map = row_map.to(dev)
     loss, rays, _, rounds = _balanced_loss_fn(params)(
         scn, accel, samples.to(dev), cot.to(dev), params, width, height,
-        chunk_base=chunk_base, n_lanes=lanes)
+        chunk_base=chunk_base, n_lanes=lanes, pix_offset=pix_offset,
+        n_pix_total=n_pix_total, row_map=row_map)
     return loss.detach(), _grads_of(loss, theta), rays, rounds
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import bxdf, camera, rng
+from ..bvh import intersect_bvh
 from ..cluster_accel import (
     intersect_clusters,
     intersect_clusters_any,
@@ -299,12 +300,16 @@ def _sorted_query(query, key, o, d, t_min, t_max):
 def _make_queries(scene, accel, params):
     """(isect, occluded) for the resolved accel kind."""
     kind = resolve_accel_kind(params.accel)
-    if kind == "brute":
+    if kind in ("brute", "bvh"):
         tri_v = scene.tri_v
 
         def isect(o, d, t_min, t_max):
+            if kind == "bvh":
+                return intersect_bvh(o, d, t_min, t_max, accel)
             return intersect_brute(o, d, t_min, t_max, tri_v, chunk=256)
 
+        # no any-hit walk of its own: occlusion is the closest hit's
+        # validity, as in the JAX package
         def occluded(o, d, t_min, t_max):
             return isect(o, d, t_min, t_max).valid
 
@@ -686,29 +691,51 @@ def auto_lanes(total):
     return min(n, 1 << 19, _next_pow2(total))
 
 
+def item_pixels(render_w, pix_offset=0, row_map=None):
+    """lp -> (px, py, global pixel id) for the local pixel index lp of a
+    shard's items (the sharding arguments of the work-queue machines).
+
+    Local items cover the pixels from global id pix_offset on, or, with
+    row_map ((local_rows,) int64 tensor), local row r is global image row
+    row_map[r] and pix_offset is ignored.  The defaults map lp to itself."""
+    def pixels(lp):
+        if row_map is None:
+            pix = lp + pix_offset
+            return pix % render_w, pix // render_w, pix
+        px = lp % render_w
+        py = row_map[lp // render_w]
+        return px, py, py * render_w + px
+
+    return pixels
+
+
 def _balanced_machine(scene, accel, samples, params, render_w, render_h,
-                      chunk_base, n_lanes, differentiable=False, queries=None):
+                      chunk_base, n_lanes, differentiable=False, queries=None,
+                      pix_offset=0, n_pix_total=None, row_map=None):
     """Work-queue machinery: returns (core0, step) where step(core) ->
     (core', dying, la, item_before).  differentiable and queries go to
-    make_bounce."""
+    make_bounce; pix_offset, n_pix_total and row_map place a shard's items
+    in the global grid (item_pixels): an item's stream is seeded by its
+    global id (chunk_base + s) * n_pix_total + pix, so the result does not
+    depend on how the items are split."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or auto_lanes(total)
+    n_pix_total = n_pix if n_pix_total is None else n_pix_total
     dev = samples.device
     bounce_body = make_bounce(scene, accel, params, differentiable, queries)
     samples_flat = samples.reshape(total, 2)
+    pixels = item_pixels(render_w, pix_offset, row_map)
 
     def spawn(item):
         it = item.clamp(0, total - 1)
         jit = samples_flat[it]
         s = it // n_pix
-        pix = it % n_pix
-        px = pix % render_w
-        py = pix // render_w
+        px, py, pix = pixels(it % n_pix)
         o, d = camera.cast_rays(scene.cam_to_world, scene.fov,
                                 params.image_width, params.image_height,
                                 px, py, jit)
-        gid = ((chunk_base + s) * n_pix + pix) & rng.MASK32
+        gid = ((chunk_base + s) * n_pix_total + pix) & rng.MASK32
         return o, d, _path_stream_seed(gid)
 
     item0 = torch.arange(n, dtype=torch.int64, device=dev)
@@ -744,21 +771,27 @@ def _balanced_machine(scene, accel, samples, params, render_w, render_h,
 
 
 def trace_balanced(scene, accel, samples, params, render_w, render_h,
-                   chunk_base=0, n_lanes=0):
+                   chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
+                   row_map=None):
     """Work-queue wavefront: lanes pull (pixel, sample) items on death.
 
     Args:
       samples: (spp_chunk, P, 2) per-pixel Latin-square jitters, P =
-        render_w * render_h (row-major pixel grid).
+        render_w * render_h (row-major pixel grid), or a shard's P pixels.
       chunk_base: first global sample index of this chunk.
       n_lanes: work slots; 0 = auto_lanes(spp_chunk * P).
+      pix_offset, n_pix_total, row_map: a shard's place in the global grid
+        of n_pix_total pixels (see item_pixels); the defaults are the whole
+        grid.
     Returns (la (spp_chunk, P, 4) per-sample RGBA radiance, rays, rounds):
     rays is the algorithmic ray count (int), rounds the round count.
     """
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     core, step = _balanced_machine(scene, accel, samples, params, render_w,
-                                   render_h, chunk_base, n_lanes)
+                                   render_h, chunk_base, n_lanes,
+                                   pix_offset=pix_offset,
+                                   n_pix_total=n_pix_total, row_map=row_map)
     n = core[1].shape[0]
     # finished items add their radiance once; other lanes add zeros to
     # distinct rows past the end, so no per-round host sync is needed
@@ -822,9 +855,10 @@ class _BalancedReplay:
     with respect to the scene's tensors that require grad."""
 
     def __init__(self, scene, accel, samples, cot, params, render_w,
-                 render_h, chunk_base, n_lanes):
+                 render_h, chunk_base, n_lanes, shard):
         self.scene, self.accel, self.samples = scene, accel, samples
         self.machine_args = (params, render_w, render_h, chunk_base, n_lanes)
+        self.shard = shard  # pix_offset, n_pix_total, row_map
         self.total = samples.shape[0] * samples.shape[1]
         self.cot_flat = cot.reshape(self.total, 4)
         self.params = params
@@ -844,7 +878,8 @@ class _BalancedReplay:
                                              self.params))
             core, step = _balanced_machine(
                 self.scene, self.accel, self.samples, *self.machine_args,
-                differentiable=True, queries=(tape.isect, tape.occluded))
+                differentiable=True, queries=(tape.isect, tape.occluded),
+                **self.shard)
             loss = torch.zeros((), device=self.samples.device)
             while bool(core[0].alive.any()):
                 core_in = core
@@ -866,7 +901,8 @@ class _BalancedReplay:
             scene = map_tensors(self.scene, lambda t: swap.get(id(t), t))
             _, step = _balanced_machine(
                 scene, self.accel, self.samples, *self.machine_args,
-                differentiable=True, queries=(tape.isect, tape.occluded))
+                differentiable=True, queries=(tape.isect, tape.occluded),
+                **self.shard)
             grads = [None] * len(proxies)
             adjoint = None  # of the carry after the round at hand
             for core_in, hit, occ in reversed(self.saved):
@@ -912,7 +948,8 @@ class ReplayLoss(torch.autograd.Function):
 
 
 def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
-                        render_h, n_rounds=None, chunk_base=0, n_lanes=0):
+                        render_h, n_rounds=None, chunk_base=0, n_lanes=0,
+                        pix_offset=0, n_pix_total=None, row_map=None):
     """Differentiable balanced wavefront: scalar loss = sum(cot * la),
     with gradients by path replay.
 
@@ -931,10 +968,14 @@ def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
       cot: (spp_chunk, P, 4) cotangent of the per-sample radiance.
       n_rounds: accepted and ignored.  The JAX package needs a static trip
         count for reverse mode; here the loop ends when no lane is alive.
+      pix_offset, n_pix_total, row_map: a shard's place in the global grid,
+        as for trace_balanced.
     Returns (loss, rays, unfinished, rounds): unfinished is always 0, rays
     is one forward's algorithmic count, rounds the measured round count.
     """
     replay = _BalancedReplay(scene, accel, samples, cot, params, render_w,
-                             render_h, chunk_base, n_lanes)
+                             render_h, chunk_base, n_lanes,
+                             dict(pix_offset=pix_offset,
+                                  n_pix_total=n_pix_total, row_map=row_map))
     loss = ReplayLoss.apply(replay, *replay.leaves)
     return loss, replay.rays, 0, len(replay.saved)

@@ -48,6 +48,7 @@ from .path import (
     _nearest_light,
     _next_pow2,
     _path_stream_seed,
+    item_pixels,
     scene_leaves,
 )
 
@@ -255,33 +256,41 @@ def vol_lanes(total):
     return min(n, 1 << 19, _next_pow2(total))
 
 
-def _no_medium_la(scene, samples, params, render_w):
+def _no_medium_la(scene, samples, params, render_w, pix_offset=0,
+                  n_pix_total=None, row_map=None):
     """No medium on the camera: every item escapes to the light pass.
-    Returns (la (spp_chunk, P, 4), rays, rounds = 0)."""
+    Returns (la (spp_chunk, P, 4), rays, rounds = 0).  The shard arguments
+    place the pixels (n_pix_total goes unused: nothing draws)."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
-    pix = torch.arange(n_pix, dtype=torch.int64, device=samples.device)
+    px, py, _ = item_pixels(render_w, pix_offset, row_map)(
+        torch.arange(n_pix, dtype=torch.int64, device=samples.device))
     out = []
     for jit in samples:
         o, d = camera.cast_rays(scene.cam_to_world, scene.fov,
                                 params.image_width, params.image_height,
-                                pix % render_w, pix // render_w, jit)
+                                px, py, jit)
         le = _no_medium(scene, o, d)
         out.append(torch.cat([le, torch.ones_like(le[:, :1])], dim=-1))
     return torch.stack(out), spp_chunk * n_pix, 0
 
 
-def _camera_spawn(scene, params, samples, render_w, chunk_base):
+def _camera_spawn(scene, params, samples, render_w, chunk_base,
+                  pix_offset=0, n_pix_total=None, row_map=None):
     """spawn(item, jitter) -> (o, d, RNG state) of (pixel, sample) items:
-    the camera ray and the item's stream, seeded by its global id."""
+    the camera ray and the item's stream, seeded by its global id
+    (chunk_base + s) * n_pix_total + pix; pix_offset, n_pix_total and
+    row_map place a shard's items in the global grid (path.item_pixels)."""
     n_pix = samples.shape[1]
+    n_pix_total = n_pix if n_pix_total is None else n_pix_total
+    pixels = item_pixels(render_w, pix_offset, row_map)
 
     def spawn(item, jit):
         s = item // n_pix
-        pix = item % n_pix
+        px, py, pix = pixels(item % n_pix)
         o, d = camera.cast_rays(scene.cam_to_world, scene.fov,
                                 params.image_width, params.image_height,
-                                pix % render_w, pix // render_w, jit)
-        gid = ((chunk_base + s) * n_pix + pix) & rng.MASK32
+                                px, py, jit)
+        gid = ((chunk_base + s) * n_pix_total + pix) & rng.MASK32
         return o, d, _path_stream_seed(gid)
 
     return spawn
@@ -317,18 +326,21 @@ def _respawn(vs, respawn, o, d, state):
     )
 
 
-def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes):
+def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes,
+                   **shard):
     """The work queue (volume analogue of path._balanced_machine).
 
     Returns (core0, step_round, n): step_round(core) -> (core', died, l,
     item, segment starts), where l is the radiance of the lanes whose walk
-    ended this round and item the item each lane carried into it."""
+    ended this round and item the item each lane carried into it.  shard:
+    pix_offset, n_pix_total, row_map (_camera_spawn)."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or vol_lanes(total)
     dev = samples.device
     samples_flat = samples.reshape(total, 2)
-    cam = _camera_spawn(scene, params, samples, render_w, chunk_base)
+    cam = _camera_spawn(scene, params, samples, render_w, chunk_base,
+                        **shard)
 
     def spawn(item):
         it = item.clamp(0, total - 1)
@@ -356,7 +368,8 @@ def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes):
     return core0, step_round, n
 
 
-def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes):
+def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes,
+                    **shard):
     """Static strided assignment: lane i owns items {i, i+n, i+2n, ...}
     (the `local`-th of them is item local * n + i).  The same interface as
     _queue_machine; an item keeps its global stream, so its radiance is
@@ -370,7 +383,8 @@ def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes):
         [samples.reshape(total, 2),
          torch.zeros((ipl * n - total, 2), device=dev)]).reshape(ipl, n, 2)
     lane = torch.arange(n, dtype=torch.int64, device=dev)
-    cam = _camera_spawn(scene, params, samples, render_w, chunk_base)
+    cam = _camera_spawn(scene, params, samples, render_w, chunk_base,
+                        **shard)
 
     def spawn(local):
         item = local * n + lane
@@ -401,14 +415,14 @@ def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes):
 
 
 def _run_machine(machine, scene, samples, params, render_w, chunk_base,
-                 n_lanes):
+                 n_lanes, **shard):
     """Forward pass of a machine: (la (spp_chunk, P, 4), rays, rounds)."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     if scene.medium is None:
-        return _no_medium_la(scene, samples, params, render_w)
+        return _no_medium_la(scene, samples, params, render_w, **shard)
     core, step_round, n = machine(scene, samples, params, render_w,
-                                  chunk_base, n_lanes)
+                                  chunk_base, n_lanes, **shard)
     rows = -(-total // n) * n
     # finished items add their radiance once; other lanes add zeros to
     # distinct rows past the end (no host sync per round)
@@ -428,28 +442,34 @@ def _run_machine(machine, scene, samples, params, render_w, chunk_base,
 
 
 def trace_balanced(scene, accel, samples, params, render_w, render_h,
-                   chunk_base=0, n_lanes=0):
+                   chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
+                   row_map=None):
     """Work-queue volume wavefront (path.trace_balanced's contract).
 
     Args:
       samples: (spp_chunk, P, 2) Latin-square jitters, P = render_w *
-        render_h.
+        render_h, or a shard's P pixels.
       chunk_base: first global sample index of this chunk.
       n_lanes: work slots; 0 = vol_lanes(spp_chunk * P).
+      pix_offset, n_pix_total, row_map: a shard's place in the global grid
+        (path.item_pixels).
     Returns (la (spp_chunk, P, 4), rays (segment starts), rounds).  Each
     item's stream is seeded by its global (sample, pixel) id, so results do
     not depend on the chunk size or the lane count; the reference's
     per-pixel stream layout belongs to the lockstep mode."""
     return _run_machine(_queue_machine, scene, samples, params, render_w,
-                        chunk_base, n_lanes)
+                        chunk_base, n_lanes, pix_offset=pix_offset,
+                        n_pix_total=n_pix_total, row_map=row_map)
 
 
 def trace_vol_static(scene, accel, samples, params, render_w, render_h,
-                     chunk_base=0, n_lanes=0):
+                     chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
+                     row_map=None):
     """Static-assignment volume wavefront: trace_balanced's contract and
     per-item results, without the queue's prefix sum.  The render route."""
     return _run_machine(_static_machine, scene, samples, params, render_w,
-                        chunk_base, n_lanes)
+                        chunk_base, n_lanes, pix_offset=pix_offset,
+                        n_pix_total=n_pix_total, row_map=row_map)
 
 
 class _VolReplay:
@@ -457,9 +477,10 @@ class _VolReplay:
     with respect to the scene's tensors that require grad."""
 
     def __init__(self, machine, scene, samples, cot, params, render_w,
-                 chunk_base, n_lanes):
+                 chunk_base, n_lanes, **shard):
         self.machine, self.scene = machine, scene
         self.args = (samples, params, render_w, chunk_base, n_lanes)
+        self.shard = shard  # pix_offset, n_pix_total, row_map
         self.total = samples.shape[0] * samples.shape[1]
         self.cot_flat = cot.reshape(self.total, 4)
         self.leaves = scene_leaves(scene)
@@ -476,7 +497,8 @@ class _VolReplay:
         """The rounds without a graph, keeping each round's incoming carry;
         returns the loss (a detached scalar)."""
         with torch.no_grad():
-            core, step_round, _ = self.machine(self.scene, *self.args)
+            core, step_round, _ = self.machine(self.scene, *self.args,
+                                               **self.shard)
             loss = torch.zeros((), device=self.cot_flat.device)
             rays = torch.zeros((), dtype=torch.int64, device=loss.device)
             while (len(self.saved) < MAX_STEPS
@@ -497,7 +519,7 @@ class _VolReplay:
             proxies = [x.detach().requires_grad_() for x in self.leaves]
             swap = {id(x): p for x, p in zip(self.leaves, proxies)}
             scene = map_tensors(self.scene, lambda t: swap.get(id(t), t))
-            _, step_round, _ = self.machine(scene, *self.args)
+            _, step_round, _ = self.machine(scene, *self.args, **self.shard)
             grads = [None] * len(proxies)
             adjoint = None  # of (beta, l_out) after the round at hand
             for core_in in reversed(self.saved):
@@ -529,18 +551,19 @@ class _VolReplay:
 
 
 def _replay_loss(machine, scene, samples, cot, params, render_w, chunk_base,
-                 n_lanes):
+                 n_lanes, **shard):
     if scene.medium is None:
-        la, rays, _ = _no_medium_la(scene, samples, params, render_w)
+        la, rays, _ = _no_medium_la(scene, samples, params, render_w, **shard)
         return (cot * la).sum(), rays, 0, 0
     replay = _VolReplay(machine, scene, samples, cot, params, render_w,
-                        chunk_base, n_lanes)
+                        chunk_base, n_lanes, **shard)
     loss = ReplayLoss.apply(replay, *replay.leaves)
     return loss, replay.rays, 0, len(replay.saved)
 
 
 def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
-                        render_h, n_rounds=None, chunk_base=0, n_lanes=0):
+                        render_h, n_rounds=None, chunk_base=0, n_lanes=0,
+                        pix_offset=0, n_pix_total=None, row_map=None):
     """Differentiable work-queue wavefront: loss = sum(cot * la), with
     gradients by path replay (path.trace_balanced_loss's contract).
 
@@ -548,14 +571,18 @@ def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
     incoming carry (O(lanes) per round); the backward pass re-runs them in
     reverse with the graph on.  cot: (spp_chunk, P, 4).  n_rounds is
     accepted and ignored (the loop ends when no lane is alive).  Returns
-    (loss, rays, unfinished = 0, rounds)."""
+    (loss, rays, unfinished = 0, rounds).  pix_offset, n_pix_total and
+    row_map place a shard's items in the global grid (trace_balanced)."""
     return _replay_loss(_queue_machine, scene, samples, cot, params,
-                        render_w, chunk_base, n_lanes)
+                        render_w, chunk_base, n_lanes, pix_offset=pix_offset,
+                        n_pix_total=n_pix_total, row_map=row_map)
 
 
 def trace_vol_static_loss(scene, accel, samples, cot, params, render_w,
-                          render_h, n_rounds=None, chunk_base=0, n_lanes=0):
+                          render_h, n_rounds=None, chunk_base=0, n_lanes=0,
+                          pix_offset=0, n_pix_total=None, row_map=None):
     """The replay counterpart of trace_vol_static (trace_balanced_loss's
     contract): the gradient route of grad.py."""
     return _replay_loss(_static_machine, scene, samples, cot, params,
-                        render_w, chunk_base, n_lanes)
+                        render_w, chunk_base, n_lanes, pix_offset=pix_offset,
+                        n_pix_total=n_pix_total, row_map=row_map)

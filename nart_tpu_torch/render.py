@@ -20,19 +20,24 @@ Wavefront modes (``RenderParams.wavefront``), as in the JAX package:
     "spp" loop;
   * "spp" -- one lockstep wavefront per sample (path.trace, volume.trace).
 The per-pixel RNG states after the Latin square carry across chunks and
-passes.
+passes; with the film they are the checkpoint (checkpoint.py) from which a
+render resumes bit for bit.  ``RenderSession.trace_chunk`` runs the mode's
+tracer on one chunk of samples of any set of whole rows: the session's
+grid, or a shard's strips (sharding.py).
 """
 
 from __future__ import annotations
 
 import json
+import os
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import camera, exr, film, resolve_device, rng, sampling
+from . import camera, checkpoint, exr, film, resolve_device, rng, sampling
 from .cluster_accel import build_accel, resolve_accel_kind
 from .integrators import path as path_integrator
 from .integrators import volume as volume_integrator
@@ -128,6 +133,28 @@ def image_samples(width, height, total_w, spp, device):
     return pixel_streams(width, height, total_w, spp, device)[0]
 
 
+def trace_mode(params):
+    """The tracing loop a session runs: the wavefront mode, except that
+    "regen" with the volume integrator runs the "spp" loop (there is no
+    per-pixel regeneration machine for volumes)."""
+    if params.wavefront == "regen" and params.integrator == "volume":
+        return "spp"
+    return params.wavefront
+
+
+def chunk_size(params, checkpoint_every=0):
+    """Samples per chunk of RenderSession.render: 1 in the "spp" loop; else
+    the checkpoint granularity wins (chunk boundaries must meet the saves
+    for a bit-identical resume), then spp_chunk, then min(spp, 32)."""
+    if trace_mode(params) == "spp":
+        return 1
+    if checkpoint_every:
+        return min(checkpoint_every, params.spp)
+    if params.spp_chunk:
+        return min(params.spp_chunk, params.spp)
+    return min(params.spp, 32)
+
+
 class RenderSession:
     """One render: scene + params on a device (the card unless one is
     named, see resolve_device) -> film -> EXR."""
@@ -154,16 +181,25 @@ class RenderSession:
             self.accel = None if accel is None else accel.to(self.device)
         self.stats = {}
 
-    def render(self):
+    def render(self, progress=False, checkpoint_path=None, checkpoint_every=0,
+               resume=False):
         """The raw film (totalH, totalW, 5) on the session's device.
 
         Per-pixel streams are seeded y * totalWidth + x (render.cpp:81-82)
         and draw the Latin-square image samples.  "balanced" and "regen"
-        trace one chunk of samples at a time and splat it sample by sample;
-        "spp" (and "regen" with the volume integrator) traces and splats
-        one sample at a time.  ``self.stats`` gets the algorithmic ray count
-        and the round count (the volume integrator counts walk segments;
-        rounds are the machine's rounds in "balanced", else 0)."""
+        trace one chunk of samples at a time (chunk_size) and splat it
+        sample by sample; "spp" (and "regen" with the volume integrator)
+        traces and splats one sample at a time.  ``self.stats`` gets the
+        algorithmic ray count and the round count (the volume integrator
+        counts walk segments; rounds are the machine's rounds in
+        "balanced", else 0) of the samples traced by this call.
+
+        progress prints the percentage done to stderr after each chunk
+        (the reference's logger, render.cpp:138-149).  With checkpoint_path
+        and checkpoint_every, the film and the per-pixel RNG states are
+        saved after every checkpoint_every samples (not after the last);
+        resume=True starts from the saved state when the file exists, and
+        the finished film is the same bits as an uninterrupted render's."""
         p = self.params
         dev = self.device
         n = self.render_w * self.render_h
@@ -172,41 +208,63 @@ class RenderSession:
         pix = torch.arange(n, dtype=torch.int64, device=dev)
         px, py = pix % self.render_w, pix // self.render_w
         buf = torch.zeros((self.total_h, self.total_w, 5), device=dev)
+        start = 0
+        if resume and checkpoint_path and os.path.exists(
+                checkpoint.file_of(checkpoint_path)):
+            f0, s0, start = checkpoint.load(checkpoint_path, p)
+            buf = torch.from_numpy(f0).to(dev)
+            state = torch.from_numpy(s0.astype(np.int64)).to(dev)
         table = film.filter_table(dev)
-        volume = p.integrator == "volume"
-        mode = p.wavefront
-        if mode == "regen" and volume:
-            mode = "spp"  # no per-pixel regeneration machine for volumes
-        chunk = 1
-        if mode != "spp":
-            chunk = min(p.spp_chunk, p.spp) if p.spp_chunk else min(p.spp, 32)
+        every = checkpoint_every if checkpoint_path else 0
+        chunk = chunk_size(p, every)
         rays = rounds = 0
-        for i in range(0, p.spp, chunk):
+        for i in range(start, p.spp, chunk):
             j = min(i + chunk, p.spp)
-            if mode == "balanced":
-                tracer = (volume_integrator.trace_vol_static if volume
-                          else path_integrator.trace_balanced)
-                la, r, k = tracer(self.scene, self.accel, samples[i:j], p,
-                                  self.render_w, self.render_h, chunk_base=i,
-                                  n_lanes=p.lanes)
-                rounds += k
-            elif mode == "regen":
-                la, state, r = path_integrator.trace_regen(
-                    self.scene, self.accel, px, py, samples[i:j], state, p)
-            else:
-                o, d = camera.cast_rays(
-                    self.scene.cam_to_world, self.scene.fov, p.image_width,
-                    p.image_height, px, py, samples[i])
-                tracer = volume_integrator.trace if volume else (
-                    path_integrator.trace)
-                l, a, state, r = tracer(self.scene, self.accel, o, d, state,
-                                        p)
-                la = torch.cat([l, a[:, None]], dim=-1)[None]
+            la, state, r, k = self.trace_chunk(samples[i:j], state, i, px, py)
             film.splat_grid(buf, samples[i:j], la, p.filter_width, table,
                             self.render_w, self.render_h, self.filter_bounds)
             rays += r
+            rounds += k
+            if progress:
+                print(f"\r{int(j * 100 / p.spp)}%", end="", file=sys.stderr,
+                      flush=True)
+            if every and j % every == 0 and j < p.spp:
+                checkpoint.save(checkpoint_path, buf, state, j, p)
+        if progress:
+            print("\r100%", file=sys.stderr, flush=True)
         self.stats = {"rays": rays, "rounds": rounds}
         return buf
+
+    def trace_chunk(self, samples, state, chunk_base, px, py, row_map=None):
+        """Trace a chunk of samples (S, N, 2) of the lanes px, py (N,) --
+        whole rows, row-major: the render grid, or the rows of row_map (a
+        shard's strips, whose items keep their global ids) -- with the
+        tracer of the session's mode; chunk_base is the chunk's first
+        sample and S is 1 in the "spp" loop.  state: the lanes' per-pixel
+        RNG states past the Latin square, which "regen" and "spp" advance.
+        Returns (la (S, N, 4), state, rays, rounds)."""
+        p = self.params
+        mode = trace_mode(p)
+        volume = p.integrator == "volume"
+        if mode == "balanced":
+            tracer = (volume_integrator.trace_vol_static if volume
+                      else path_integrator.trace_balanced)
+            la, r, k = tracer(self.scene, self.accel, samples, p,
+                              self.render_w, px.shape[0] // self.render_w,
+                              chunk_base=chunk_base, n_lanes=p.lanes,
+                              n_pix_total=self.render_w * self.render_h,
+                              row_map=row_map)
+            return la, state, r, k
+        if mode == "regen":
+            la, state, r = path_integrator.trace_regen(
+                self.scene, self.accel, px, py, samples, state, p)
+            return la, state, r, 0
+        o, d = camera.cast_rays(self.scene.cam_to_world, self.scene.fov,
+                                p.image_width, p.image_height, px, py,
+                                samples[0])
+        tracer = volume_integrator.trace if volume else path_integrator.trace
+        l, a, state, r = tracer(self.scene, self.accel, o, d, state, p)
+        return torch.cat([l, a[:, None]], dim=-1)[None], state, r, 0
 
     def image(self):
         """Final normalised RGBA image (H, W, 4) tensor."""

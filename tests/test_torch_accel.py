@@ -179,5 +179,8 @@ def test_cpu_tensors_take_the_plain_path():
 def test_accel_kind_policy():
     assert tca.resolve_accel_kind("auto") == "cluster"
     assert tca.resolve_accel_kind("brute") == "brute"
+    assert tca.resolve_accel_kind("bvh") == "bvh"
+    assert tca.ACCEL_KINDS == ("auto", "brute", "bvh", "cluster")
+    # "pallas" is the JAX package's name: the CLI maps it to "cluster"
     with pytest.raises(ValueError):
         tca.resolve_accel_kind("pallas")
