@@ -85,14 +85,33 @@ Phases (any failure raises and exits non-zero):
      ones bit for bit; save and load seconds and the file size logged;
  17. (e) accel="bvh" (the plain lockstep LBVH walk) against the cluster
      kernels: macbeth at 128x72, 1 spp, the images by test_golden's
-     _compare criteria (tight and golden), the wall times side by side.
+     _compare criteria (tight and golden), the wall times side by side;
+ 18. the bench as a user runs it: `python -m nart_tpu_torch.bench` in a
+     subprocess at NART_BENCH_SIZE=128, NART_BENCH_SPP=4, once in each
+     mode (fwd, fwdbwd): its last line parses with the five keys and a
+     finite positive value; the launches it reports (its "# ... launches"
+     lines, over its timed runs) are the kernels' launches_bench;
+ 19. the cornell golden through the kernels (tests/golden/cornell.json with
+     tests/fixtures/macbeth's meshes): 64x64, 8 spp, 6 bounces against
+     cornell_64x64_8spp.exr with test_cornell_golden's criteria (mean rel
+     < 0.02, >= 90% of blocks within 0.1), and 128x128, 64 spp against
+     cornell_128x128_64spp.exr with the _64spp criteria (0.015, 0.05,
+     95%);
+ 20. no stream synchronisation inside a path round: path.trace_balanced,
+     after a warm call, under torch.cuda.set_sync_debug_mode("warn") with
+     warnings "always", on macbeth (1280x720, 1 spp; an environment light)
+     and on testing.distant_scene (128x128, 1 spp; a disk and a distant
+     light): from the first round on, exactly rounds + 1 synchronising
+     calls, each on the loop's alive.any() or its final int(rays); the
+     set-up's are logged.
 The line before the last is the kernels' JSON record (launches_sharded:
-phases 13-15); the last line is {"ok": true, "device": {...}}.  Needs the
-repository checkout (it imports nart_tpu_torch from beside this file);
-imports nothing of JAX.
+phases 13-15, launches_bench: phase 18); the last line is {"ok": true,
+"device": {...}}.  Needs the repository checkout (it imports nart_tpu_torch
+from beside this file); imports nothing of JAX.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -109,6 +128,7 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "macbeth_96x96_8spp.exr")
 VOLUME = os.path.join(HERE, "tests", "golden", "volume_blob.json")
 VOLUME_GOLDEN = os.path.join(HERE, "tests", "golden",
                              "volume_blob_96x96_32spp.exr")
+CORNELL = os.path.join(HERE, "tests", "golden", "cornell.json")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 DEVICE = "cuda"  # every phase runs on the card
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
@@ -730,26 +750,17 @@ def modes_path(size):
     return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS[:2]}
 
 
-def volume_scene_file(tmp):
-    """A copy of volume_blob.json that names this checkout's blob.vol."""
-    with open(VOLUME) as f:
-        doc = json.load(f)
-    doc["camera"]["medium"]["filePath"] = os.path.join(
-        os.path.dirname(VOLUME), "blob.vol")
-    path = os.path.join(tmp, "volume_blob.json")
-    with open(path, "w") as f:
-        json.dump(doc, f)
-    return path
-
-
-def volume_session(path, overrides=None):
+def volume_session(overrides=None):
+    """volume_blob.json's session, its blob.vol read from this checkout
+    (bench_configs.load_scene_doc)."""
     from nart_tpu_torch import render
+    from nart_tpu_torch.bench_configs import load_scene_doc
 
-    params, sess = next(render.render_scene_file(path, overrides,
-                                                  device=DEVICE))
-    if sess.scene.medium is None:
+    scene = load_scene_doc(VOLUME, os.path.dirname(VOLUME))
+    if scene.medium is None:
         raise AssertionError("blob.vol was not loaded: no medium")
-    return params, sess
+    (params,) = render.load_sessions(VOLUME, overrides)
+    return params, render.RenderSession(scene, params, DEVICE)
 
 
 def _no_traversal(label, counts):
@@ -757,11 +768,11 @@ def _no_traversal(label, counts):
         raise AssertionError(f"{label} launched a traversal kernel: {counts}")
 
 
-def volume_golden(path):
+def volume_golden():
     """Phase 9."""
     from nart_tpu_torch import cluster_accel as ca, exr
 
-    params, sess = volume_session(path)
+    params, sess = volume_session()
     ca.reset_launch_counts()
     ours = sess.image().cpu().numpy()
     _no_traversal("the volume golden", ca.launch_counts)
@@ -790,7 +801,7 @@ def window_busy(label, run, count):
         f"{1e3 * wall / count:.3f} ms a round untraced")
 
 
-def volume_forward(path, spp, window):
+def volume_forward(spp, window):
     """Phase 10: returns the launch counts of the timed run."""
     import torch
 
@@ -798,7 +809,7 @@ def volume_forward(path, spp, window):
     from nart_tpu_torch.integrators import volume
 
     params, sess = volume_session(
-        path, {"image_width": 1280, "image_height": 720, "spp": spp})
+        {"image_width": 1280, "image_height": 720, "spp": spp})
     log(f"volume forward: volume_blob.json {params.image_width}x"
         f"{params.image_height} at {params.spp} spp (the scene's own session "
         f"has 32 spp; cut to {params.spp} for the smoke's time)")
@@ -853,7 +864,7 @@ def volume_forward(path, spp, window):
     return counts
 
 
-def volume_training(path, spp, window):
+def volume_training(spp, window):
     """Phase 11: returns the launch counts of the timed fwd+bwd run."""
     import torch
 
@@ -861,7 +872,7 @@ def volume_training(path, spp, window):
     from nart_tpu_torch.integrators import volume
 
     params, sess = volume_session(
-        path, {"image_width": 1280, "image_height": 720, "spp": spp})
+        {"image_width": 1280, "image_height": 720, "spp": spp})
     w, h = params.image_width, params.image_height
     sc = sess.scene
     samples = _image_samples(params, DEVICE)
@@ -1010,7 +1021,7 @@ def _virtual_ranks(sess, layout, label):
     return film, stats
 
 
-def sharded_virtual(vol_path, spp):
+def sharded_virtual(spp):
     """Phase 13 (a): returns the launch counts of the sharded renders and
     the one-process macbeth film (phase 14's reference)."""
     import torch
@@ -1052,9 +1063,8 @@ def sharded_virtual(vol_path, spp):
     if not torch.equal(sum(again), film_r):
         raise AssertionError("a second run of the regen shards differs")
     log("    macbeth 320x180 regen: a second run of the shards is bit-equal")
-    params_v, sess_v = volume_session(vol_path, {"image_width": 1280,
-                                                 "image_height": 720,
-                                                 "spp": spp})
+    params_v, sess_v = volume_session({"image_width": 1280,
+                                       "image_height": 720, "spp": spp})
     single_v = sess_v.render()
     layout = sharding.Layout(4, 1)
     ca.reset_launch_counts()
@@ -1295,6 +1305,168 @@ def bvh_accel(size):
     log(f"bvh / cluster wall time {secs['bvh'] / secs['cluster']:.2f}x")
 
 
+def bench_subprocess(size, spp):
+    """Phase 18: `python -m nart_tpu_torch.bench` in each mode; returns the
+    launches its timed runs reported, summed over both."""
+    counts = dict.fromkeys(KERNELS, 0)
+    for mode in ("fwd", "fwdbwd"):
+        env = dict(os.environ, NART_BENCH_SIZE=str(size),
+                   NART_BENCH_SPP=str(spp), NART_BENCH_MODE=mode)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nart_tpu_torch.bench"], cwd=HERE,
+            env=env, capture_output=True, text=True, timeout=600)
+        for line in proc.stderr.splitlines():
+            log(f"    bench {mode} {line}")
+        if proc.returncode:
+            raise AssertionError(f"bench {mode} exited {proc.returncode}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"    bench {mode} ({time.perf_counter() - t0:.1f} s with its "
+            f"start): {json.dumps(last)}")
+        keys = {"metric", "value", "unit", "vs_baseline", "device"}
+        if set(last) != keys:
+            raise AssertionError(f"bench {mode}: keys {sorted(last)}")
+        if not (math.isfinite(last["value"]) and last["value"] > 0.0):
+            raise AssertionError(f"bench {mode}: value {last['value']}")
+        for line in proc.stderr.splitlines():
+            if " launches: " in line:
+                grew = json.loads(line.split(" launches: ", 1)[1])
+                for k in KERNELS:
+                    counts[k] += grew[k]
+    if min(counts["closest_hit"], counts["any_hit"]) <= 0:
+        raise AssertionError(f"the bench launched {counts}")
+    return counts
+
+
+def cornell_golden():
+    """Phase 19: returns the launches of the two renders."""
+    from nart_tpu_torch import cluster_accel as ca, exr, render, scene
+
+    sc = scene.load_scene(CORNELL, asset_root=MACBETH_DIR)
+    counts = dict.fromkeys(KERNELS, 0)
+    for (w, h, spp), golden, tols in (
+            ((64, 64, 8), "cornell_64x64_8spp.exr", (0.02, 0.1, 0.9)),
+            ((128, 128, 64), "cornell_128x128_64spp.exr",
+             (0.015, 0.05, 0.95))):
+        params = render.resolve_params(
+            {}, dict(image_width=w, image_height=h, spp=spp, bounces=6))
+        sess = render.RenderSession(sc, params, DEVICE)
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        ours = sess.image().cpu().numpy()
+        grew = {k: ca.launch_counts[k] for k in KERNELS}
+        log(f"cornell {w}x{h} {spp} spp in {time.perf_counter() - t0:.3f} s: "
+            f"{sess.stats}, launches {grew}")
+        if min(grew["closest_hit"], grew["any_hit"]) <= 0:
+            raise AssertionError(f"kernels not launched by the render: {grew}")
+        for k in KERNELS:
+            counts[k] += grew[k]
+        ref = exr.read(os.path.join(os.path.dirname(CORNELL), golden))
+        if ref.shape != ours.shape:
+            raise AssertionError(f"golden shape {ref.shape} vs {ours.shape}")
+        block_compare(ours, ref, *tols, label=f"cornell golden {w}x{h} {spp} "
+                      "spp")
+    return counts
+
+
+def _sync_checked(label, sess, spp):
+    """path.trace_balanced of the session's image, once to warm up and once
+    under the sync debug mode.  The loop may synchronise only where it
+    reads the host: bool(alive.any()) before each round and after the last,
+    and int(rays) at the end.  A wrapper of the machine's step marks where
+    the rounds begin, so from there on exactly rounds + 1 synchronising
+    calls, on those two lines, are allowed; before it, the machine's set-up
+    (once per call) is counted and logged."""
+    import inspect
+    import warnings
+
+    import torch
+
+    from nart_tpu_torch import render
+    from nart_tpu_torch.integrators import path
+
+    p = sess.params
+    samples = render.image_samples(sess.render_w, sess.render_h,
+                                   sess.total_w, spp, DEVICE)
+
+    def trace():
+        return path.trace_balanced(sess.scene, sess.accel, samples, p,
+                                   sess.render_w, sess.render_h, 0, p.lanes)
+
+    trace()
+    torch.cuda.synchronize()
+    src, first = inspect.getsourcelines(path.trace_balanced)
+    line_of = {what: first + next(i for i, ln in enumerate(src) if what in ln)
+               for what in ("alive.any()", "int(core[0].rays)")}
+    real_machine = path._balanced_machine
+    started = []
+
+    def machine(*a, **k):
+        core, step = real_machine(*a, **k)
+
+        def marked(c):
+            if not started:
+                started.append(len(caught))
+            return step(c)
+        return core, marked
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        path._balanced_machine = machine
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, rays, rounds = trace()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            path._balanced_machine = real_machine
+
+    def synced(ws):
+        # the mode's own notice that it is a prototype is no synchronisation
+        return [w for w in ws
+                if "synchronizing CUDA operation" in str(w.message)]
+
+    def where(ws):
+        return [(os.path.basename(w.filename), w.lineno) for w in ws]
+
+    before, in_loop = synced(caught[:started[0]]), synced(caught[started[0]:])
+    allowed = {("path.py", ln) for ln in line_of.values()}
+    strays = [w for w, at in zip(in_loop, where(in_loop)) if at not in allowed]
+    for w in strays:
+        log(f"    synchronised in the loop: {w.filename}:{w.lineno}: "
+            f"{w.message}")
+    at = where(before + in_loop)
+    n_alive = at.count(("path.py", line_of["alive.any()"]))
+    n_rays = at.count(("path.py", line_of["int(core[0].rays)"]))
+    log(f"sync check: {label} {sess.render_w}x{sess.render_h} {spp} spp, "
+        f"{rounds} rounds, {rays} rays: {len(before)} synchronising calls "
+        f"before the first round ({sorted(set(where(before)))}), "
+        f"{len(in_loop)} from it on; alive.any() {n_alive}, int(rays) "
+        f"{n_rays}")
+    if strays:
+        raise AssertionError(f"{label}: {len(strays)} synchronising calls in "
+                             "the loop besides alive.any() and int(rays)")
+    if not (len(in_loop) == rounds + 1 and n_alive == rounds + 1
+            and n_rays == 1):
+        raise AssertionError(
+            f"{label}: {len(in_loop)} synchronising calls from the first "
+            f"round on, alive.any() {n_alive}, int(rays) {n_rays}; want "
+            f"{rounds + 1}, {rounds + 1}, 1 (rounds {rounds})")
+
+
+def round_sync_check(spp):
+    """Phase 20: path.trace_balanced under the sync debug mode, on macbeth
+    (an environment light) and on a scene with a distant light."""
+    from nart_tpu_torch import render, testing
+
+    _, sess = next(render.render_scene_file(MACBETH, {"spp": spp},
+                                            device=DEVICE))
+    _sync_checked("macbeth", sess, spp)
+    params = render.RenderParams(image_width=128, image_height=128, spp=spp,
+                                 bounces=6)
+    sess = render.RenderSession(testing.distant_scene(), params, DEVICE)
+    _sync_checked("distant light", sess, spp)
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -1339,27 +1511,27 @@ def main():
     counts_train = phase("training path", training_path, 4)
     phase("card against CPU", card_against_cpu)
     counts_modes = phase("spp and regen modes", modes_path, (128, 72, 2))
-    with tempfile.TemporaryDirectory() as tmp:
-        vol = volume_scene_file(tmp)
-        phase("volume golden", volume_golden, vol)
-        counts_vol = phase("volume forward", volume_forward, vol, 8,
-                           VOLUME_WINDOW)
-        counts_vol_train = phase("volume training path", volume_training,
-                                 vol, 4, VOLUME_WINDOW)
+    phase("volume golden", volume_golden)
+    counts_vol = phase("volume forward", volume_forward, 8, VOLUME_WINDOW)
+    counts_vol_train = phase("volume training path", volume_training, 4,
+                             VOLUME_WINDOW)
     phase("volume card against CPU", volume_card_against_cpu, (32, 32, 2))
-    with tempfile.TemporaryDirectory() as tmp:
-        counts_a, single = phase("sharded, virtual ranks", sharded_virtual,
-                                 volume_scene_file(tmp), 2)
+    counts_a, single = phase("sharded, virtual ranks", sharded_virtual, 2)
     counts_b = phase("two ranks, gloo", two_ranks, single)
     counts_c = phase("CLI, NCCL world of one", cli_world_of_one, 2)
     phase("checkpoint and resume", checkpoint_resume)
     phase("bvh accel", bvh_accel, (128, 72, 1))
+    counts_bench = phase("bench subprocess", bench_subprocess, 128, 4)
+    counts_cornell = phase("cornell golden", cornell_golden)
+    phase("round sync check", round_sync_check, 1)
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],
                     launches_modes=counts_modes.get(k, 0),
                     launches_volume=counts_vol[k] + counts_vol_train[k],
                     launches_sharded=counts_a[k] + counts_b[k] + counts_c[k],
+                    launches_bench=counts_bench[k],
+                    launches_cornell=counts_cornell[k],
                     **records[k])
                for k in KERNELS]
     log(json.dumps({"kernels": kernels}))

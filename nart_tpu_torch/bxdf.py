@@ -190,7 +190,10 @@ def _vndf_sample(wo, alpha, u2, flip_lower=False):
     t1 = torch.stack([wo_h[..., 1], -wo_h[..., 0], torch.zeros_like(alpha)],
                      dim=-1)
     vertical = (wo[..., 0] == 0.0) & (wo[..., 1] == 0.0)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device=wo.device).expand(t1.shape)
+    # made on the device: a host-built constant is a copy that synchronises
+    # the stream, and this runs every round
+    x_axis = torch.zeros_like(t1)
+    x_axis[..., 0].fill_(1.0)
     t1 = _normalize(torch.where(vertical[..., None], x_axis, t1))
     t2 = _normalize(torch.linalg.cross(t1, wo_h))
 
@@ -402,7 +405,8 @@ def specdiel_sample(desc, wo, u2, eta_outer, prev_flags):
     sin_o = _safe_sqrt(1.0 - cos_o * cos_o)
     sin_i = _safe_div(eta_o, eta_i) * sin_o
     tir = sin_i >= 1.0
-    n = torch.tensor([0.0, 0.0, 1.0], device=wo.device).expand(wo.shape)
+    n = torch.zeros_like(wo)  # the normal, made on the device (as x_axis)
+    n[..., 2].fill_(1.0)
     b = n * cos_o[..., None]
     a = wo - b
     c = -a * _safe_div(eta_o, eta_i)[..., None]

@@ -103,8 +103,6 @@ def _overrides(args):
             "filter_width", "roughening_factor", "accel", "wavefront",
             "lanes")
     out = {k: getattr(args, k) for k in keys if getattr(args, k) is not None}
-    if out.get("accel") == "pallas":
-        out["accel"] = "cluster"
     if args.sort_rays:
         out["sort_rays"] = True
     return out

@@ -558,11 +558,16 @@ ACCEL_KINDS = ("auto", "brute", "bvh", "cluster")
 
 def resolve_accel_kind(kind: str) -> str:
     """'auto' -> 'cluster' (the kernels on CUDA, their plain versions on
-    the CPU); 'brute' is the plain geometry.intersect_brute scan, 'bvh' the
-    plain lockstep LBVH walk (bvh.py)."""
+    the CPU), and so does 'pallas', the JAX package's name for the cluster
+    kernels (in a session JSON, RenderParams or the CLI alike); 'brute' is
+    the plain geometry.intersect_brute scan, 'bvh' the plain lockstep LBVH
+    walk (bvh.py)."""
+    if kind in ("auto", "pallas"):
+        return "cluster"
     if kind not in ACCEL_KINDS:
-        raise ValueError(f"accel must be one of {ACCEL_KINDS} (got {kind!r})")
-    return "cluster" if kind == "auto" else kind
+        raise ValueError(f"accel must be one of {ACCEL_KINDS} or 'pallas' "
+                         f"(got {kind!r})")
+    return kind
 
 
 def build_accel(tri_v, kind: str):

@@ -54,7 +54,13 @@ class LightEval(NamedTuple):
 
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """A float32 3-vector filled on like's device: a distant light's sample
+    makes one every round, and a host-built one is a copy that synchronises
+    the stream."""
+    out = torch.zeros(3, device=like.device)
+    for i, x in enumerate(v):
+        out[i:i + 1].fill_(x)
+    return out
 
 
 def _xform_point(xf, p):

@@ -55,7 +55,9 @@ class RenderParams:
     filter_width: float = 1.0
     roughening_factor: float = 0.0
     # extensions (not part of the reference's JSON schema)
-    accel: str = "auto"  # "auto" (= "cluster") | "cluster" | "brute"
+    # "auto" (= "cluster") | "cluster" | "brute" | "bvh"; "pallas" is the JAX
+    # package's name of "cluster" (cluster_accel.resolve_accel_kind)
+    accel: str = "auto"
     # MIS strategy toggles (reference compile-time BSDF_SAMPLING /
     # LIGHT_SAMPLING, pathintegrator.cpp:3-4)
     mis_bsdf: bool = True

@@ -11,6 +11,7 @@ import torch
 
 from .scene import (
     LIGHT_DISK,
+    LIGHT_DISTANT,
     LIGHT_ENV,
     MAT_GLASS,
     MAT_GLOSSY,
@@ -139,3 +140,12 @@ def simple_scene(materials=("lambert",), light_z=3.0, light_r=0.8,
         n_meshes=m,
         n_tris=2 * m,
     )
+
+
+def distant_scene(materials=("lambert", "glass")):
+    """simple_scene lit by a distant light (shining down -z) as well."""
+    base = simple_scene(materials)
+    sun = LightData(kind=LIGHT_DISTANT, xf=torch.eye(4), radius=0.0,
+                    inner_radius=0.0, intensity=torch.tensor(1.0),
+                    le_const=torch.ones(3), le_tex=None, env2d=None)
+    return dataclasses.replace(base, lights=base.lights + [sun])

@@ -181,6 +181,7 @@ def test_accel_kind_policy():
     assert tca.resolve_accel_kind("brute") == "brute"
     assert tca.resolve_accel_kind("bvh") == "bvh"
     assert tca.ACCEL_KINDS == ("auto", "brute", "bvh", "cluster")
-    # "pallas" is the JAX package's name: the CLI maps it to "cluster"
+    # "pallas" is the JAX package's name of the cluster kernels
+    assert tca.resolve_accel_kind("pallas") == "cluster"
     with pytest.raises(ValueError):
-        tca.resolve_accel_kind("pallas")
+        tca.resolve_accel_kind("kdtree")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from nart_tpu_torch import cli, exr, render
+from nart_tpu_torch.cluster_accel import resolve_accel_kind
 from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 HERE = os.path.dirname(__file__)
@@ -86,9 +87,8 @@ def test_jax_flags_run_unchanged():
         ["s.json", "o", "--accel", "pallas", "--platform", "gpu",
          "--coordinator", "h:1", "--numProcesses", "2", "--processId", "1",
          "--devices", "2", "--profile", "d", "--timing", "--assetRoot", "a"])
-    assert cli._overrides(args)["accel"] == "cluster"
-    assert render.RenderParams(accel=cli._overrides(args)["accel"]).accel \
-        == "cluster"
+    accel = render.RenderParams(accel=cli._overrides(args)["accel"]).accel
+    assert resolve_accel_kind(accel) == "cluster"
     assert cli._PLATFORMS[args.platform] == "cuda"
     assert (args.num_processes, args.process_id, args.devices) == (2, 1, 2)
 

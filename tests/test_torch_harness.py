@@ -9,7 +9,8 @@ torch.sqrt on a few elements first (MKL's first vmsSqrt made on the main
 thread alone) prevents it, as does one intra-op thread, with which no
 worker computes anything.  A test that holds values computed by torch to
 1e-5 against the JAX package can meet it, so every tests/test_torch_*.py
-module that imports JAX takes this fixture:
+module that imports JAX takes this fixture (and so do the long CPU-only
+modules, which one thread runs far faster beside xdist's other workers):
 
     from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
