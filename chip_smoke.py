@@ -25,7 +25,10 @@ Phases (any failure raises and exits non-zero):
      reader) with test_macbeth_golden's criteria;
   5. forward main path: render_scene_file on macbeth.json at its own
      1280x720 with spp cut from 256 to 8 (to fit the smoke's time): one
-     warm run, one timed run with launch counters reset just before it;
+     warm run (it captures the session's k-round CUDA graph), one timed
+     run with launch counters reset just before it: K1 and K2 launched
+     once in every round the card ran (the rounds past the end of the last
+     replay, fewer than k, included), one capture for both runs;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
@@ -35,8 +38,9 @@ Phases (any failure raises and exits non-zero):
      sum(la[..., :3]) (rtol 1e-4), every gradient leaf must be finite, the
      albedo, texture and env-map gradients nonzero, and the closest-hit
      and any-hit kernels launched exactly `rounds` times each: the
-     backward pass launches none.  Then the forward queue once more under
-     torch.profiler: the card's busy share;
+     backward pass launches none (the replay runs on the per-round loop).
+     Then the forward queue alone, twice on one kept machine (the first
+     call captures its graph);
   7. gradients through the kernels against the same call on the CPU
      (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
      1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
@@ -52,9 +56,10 @@ Phases (any failure raises and exits non-zero):
      and assert that the medium was loaded;
  10. volume forward at full width: volume_blob at 1280x720 with spp cut
      from 32 to 8: one warm run, one timed run (rounds, segment starts,
-     Mrays/s, peak memory), EXR finite with a nonzero mean, no traversal
-     kernel launched; the card's busy share under torch.profiler over a
-     window of the static machine's rounds;
+     Mrays/s, peak memory; the static machine graphed), EXR finite with a
+     nonzero mean, no traversal kernel launched; the card's busy share
+     under torch.profiler over a window of the static machine's rounds on
+     the per-round loop;
  11. volume fwd+bwd at full width: radiance_weighted_loss_and_grad on
      volume_blob 1280x720, one chunk of 4 spp, cot = 1 on RGB: the loss
      equals the forward's sum(la[..., :3]) (rtol 1e-4), the medium's
@@ -97,13 +102,27 @@ Phases (any failure raises and exits non-zero):
      < 0.02, >= 90% of blocks within 0.1), and 128x128, 64 spp against
      cornell_128x128_64spp.exr with the _64spp criteria (0.015, 0.05,
      95%);
- 20. no stream synchronisation inside a path round: path.trace_balanced,
-     after a warm call, under torch.cuda.set_sync_debug_mode("warn") with
-     warnings "always", on macbeth (1280x720, 1 spp; an environment light)
-     and on testing.distant_scene (128x128, 1 spp; a disk and a distant
-     light): from the first round on, exactly rounds + 1 synchronising
-     calls, each on the loop's alive.any() or its final int(rays); the
-     set-up's are logged.
+ 20. one stream synchronisation per k rounds: the graphed
+     path.trace_balanced, after a call that captured its machine's graph,
+     under torch.cuda.set_sync_debug_mode("warn") with warnings "always",
+     on macbeth (1280x720, 1 spp; an environment light) and on
+     testing.distant_scene (128x128, 1 spp; a disk and a distant light),
+     and the graphed volume.trace_vol_static on volume_blob (1280x720, 1
+     spp): from the first replay on, exactly ceil(rounds / k) reads of the
+     runner's alive flag and the end's two reads (rays, rounds), nothing
+     else; the set-up's are logged;
+ 21. graphed rounds: simple_glass (the bench's scene) 512x512 @ 16 spp,
+     macbeth 1280x720 @ 8 spp and volume_blob 1280x720 @ 8 spp rendered
+     through the session's k-round CUDA graph (twice: the first render
+     captures) and on the per-round loop (RenderSession(per_round=True)):
+     the films the same bits, equal rays and rounds, one capture, K1/K2
+     launched once per round run; logged: each route's wall s, rounds run
+     and ms a round, peak MiB, capture + instantiate s, the card's busy
+     share of the graphed forward under torch.profiler (which traces the
+     kernels of a replayed graph one by one); volume_blob 96x96 @ 32 spp in
+     8 chunks of 4: one capture for all, the per-round loop's film; k = 4,
+     8 and 16 on macbeth: one session each, their renders in turns, the
+     median of 3 each after a warm one.
 The line before the last is the kernels' JSON record (launches_sharded:
 phases 13-15, launches_bench: phase 18); the last line is {"ok": true,
 "device": {...}}.  Needs the repository checkout (it imports nart_tpu_torch
@@ -462,6 +481,7 @@ def main_path(overrides):
     import torch
 
     from nart_tpu_torch import cluster_accel as ca, exr, film, render
+    from nart_tpu_torch import rounds as rounds_mod
 
     params, sess = next(render.render_scene_file(MACBETH, overrides))
     log(f"main path: macbeth.json {params.image_width}x{params.image_height}"
@@ -475,14 +495,26 @@ def main_path(overrides):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ca.reset_launch_counts()
+    before = machine_totals(sess.machines)
     t0 = time.perf_counter()
     buf = sess.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(ca.launch_counts)
+    after = machine_totals(sess.machines)
+    ran = after["rounds_run"] - before["rounds_run"]
     rays, rounds = sess.stats["rays"], sess.stats["rounds"]
     log(f"timed run {dt:.4f} s, {rounds} rounds, {rays} rays (algorithmic), "
-        f"{rays / dt / 1e6:.4f} Mrays/s, launches {counts}")
+        f"{rays / dt / 1e6:.4f} Mrays/s, launches {counts}; "
+        f"{after['replays'] - before['replays']} replays of the session's "
+        f"one graph ({after}), {ran} rounds run on the card")
+    # the traversal kernels run once in every round the card runs, the
+    # rounds past the end of the last replay (< k) included
+    if not (counts["closest_hit"] == counts["any_hit"] == ran
+            and rounds <= ran < rounds + rounds_mod.ROUNDS_PER_CHECK
+            and after["captures"] == 1):
+        raise AssertionError(f"launches {counts}, {ran} rounds run, "
+                             f"{rounds} rounds, {after}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
         "MiB")
     img = film.finalize(buf, params.image_width, params.image_height,
@@ -550,34 +582,52 @@ def _leaves(theta):
     return out
 
 
+def machine_totals(machines):
+    """Sums over kept work-queue machines (RenderSession.machines, or the
+    dict passed as trace_balanced's machines): graphs captured, capture
+    seconds (warm-up round excluded), replays, and rounds the card ran,
+    live and past the end."""
+    runners = [m.runner for m in machines.values()]
+    return {"captures": sum(r.captures for r in runners),
+            "capture_s": round(sum(r.capture_s for r in runners), 4),
+            "replays": sum(r.replays for r in runners),
+            "rounds_run": sum(r.rounds_run for r in runners)}
+
+
 def device_busy(label, fn, wall_s, top=5):
     """Run fn once under torch.profiler (the card's activity only) and log
     the card's busy time -- the sum of its kernels' and copies' device time
     -- as a share of wall_s, the wall time of the same call untraced; the
-    host dispatching the round's small operations takes the rest.  Returns
-    the number of kernels and copies."""
+    host dispatching the round's small operations takes the rest.  Kernels
+    replayed from a CUDA graph are traced one by one, as launched ones are.
+    The profiler's raw events are summed by name (key_averages takes ~50
+    us an event, minutes for a forward's million kernels).  Returns (the
+    number of kernels and copies, the busy share)."""
     import torch
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    by_name = {}  # name -> [device ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    count = sum(n for _, n in by_name.values())
     if not busy_ms > 0.0:
         raise AssertionError(f"{label}: the profiler saw no device time")
-    log(f"device busy, {label}: {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in events)} kernels and copies = "
-        f"{100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
+    log(f"device busy, {label}: {busy_ms:.3f} ms in {count} kernels and "
+        f"copies = {100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
         f"{wall_s:.4f} s")
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     # the heaviest, and the traversal kernels wherever they rank
-    for e in events[:top] + [e for e in events[top:]
-                             if "walk_kernel" in e.key]:
-        log(f"    {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f} ms"
-            f" x{e.count}")
-    return sum(e.count for e in events)
+    for name, (ns, n) in ranked[:top] + [kv for kv in ranked[top:]
+                                         if "walk_kernel" in kv[0]]:
+        log(f"    {name[:60]:60s} {ns / 1e6:10.3f} ms x{n}")
+    return count, busy_ms / (1e3 * wall_s)
 
 
 def training_path(spp):
@@ -622,23 +672,32 @@ def training_path(spp):
             f"launches {counts} != rounds {rounds}: the backward pass must "
             "launch no traversal kernel")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    la, rays_f, rounds_f = path.trace_balanced(
-        sc.to(DEVICE), acc.to(DEVICE), samples, params, w, h)
-    want = float(la[..., :3].sum())
-    torch.cuda.synchronize()
-    dt_f = time.perf_counter() - t0
-    log(f"forward work queue alone {dt_f:.4f} s ({rounds_f} rounds): "
-        f"fwd+bwd / fwd = {dt / dt_f:.3f}; loss {float(loss):.6f} vs "
-        f"sum(la rgb) {want:.6f}")
+    # the forward alone, as a session runs it: its machine kept, the
+    # k-round graph captured by the first call and replayed by the next
+    machines = {}
+
+    sc_d, acc_d = sc.to(DEVICE), acc.to(DEVICE)
+
+    def forward():
+        return path.trace_balanced(sc_d, acc_d, samples, params, w, h,
+                                   machines=machines)
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        la, rays_f, rounds_f = forward()
+        want = float(la[..., :3].sum())
+        torch.cuda.synchronize()
+        dt_f = time.perf_counter() - t0
+        log(f"forward work queue alone {dt_f:.4f} s ({rounds_f} rounds, "
+            f"{machine_totals(machines)})")
+    log(f"fwd+bwd / graphed fwd = {dt / dt_f:.3f}; loss {float(loss):.6f} "
+        f"vs sum(la rgb) {want:.6f}")
     if not (np.isfinite(float(loss))
             and abs(float(loss) - want) <= 1e-4 * abs(want)):
         raise AssertionError(f"loss {float(loss)} != forward sum {want}")
     if (rays_f, rounds_f) != (rays, rounds):
         raise AssertionError("replay and forward disagree on rays or rounds")
-    device_busy("forward work queue", lambda: path.trace_balanced(
-        sc.to(DEVICE), acc.to(DEVICE), samples, params, w, h), dt_f)
     for k, g in _leaves(grads):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"gradient leaf {k} is not finite")
@@ -750,7 +809,7 @@ def modes_path(size):
     return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS[:2]}
 
 
-def volume_session(overrides=None):
+def volume_session(overrides=None, per_round=False):
     """volume_blob.json's session, its blob.vol read from this checkout
     (bench_configs.load_scene_doc)."""
     from nart_tpu_torch import render
@@ -760,7 +819,7 @@ def volume_session(overrides=None):
     if scene.medium is None:
         raise AssertionError("blob.vol was not loaded: no medium")
     (params,) = render.load_sessions(VOLUME, overrides)
-    return params, render.RenderSession(scene, params, DEVICE)
+    return params, render.RenderSession(scene, params, DEVICE, per_round)
 
 
 def _no_traversal(label, counts):
@@ -796,7 +855,7 @@ def window_busy(label, run, count):
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = device_busy(label, run, wall)
+    kernels, _ = device_busy(label, run, wall)
     log(f"    {kernels / count:.0f} kernels and copies a round, "
         f"{1e3 * wall / count:.3f} ms a round untraced")
 
@@ -829,7 +888,7 @@ def volume_forward(spp, window):
     log(f"timed run {dt:.4f} s, {rounds} rounds "
         f"({1e3 * dt / rounds:.3f} ms a round), {rays} segment starts, "
         f"{rays / dt / 1e6:.4f} Mrays/s, peak device memory {peak:.1f} MiB, "
-        f"launches {counts}")
+        f"launches {counts}; the session's machine {machine_totals(sess.machines)}")
     _no_traversal("the volume forward", counts)
     img = film.finalize(buf, params.image_width, params.image_height,
                         sess.filter_bounds)
@@ -859,8 +918,8 @@ def volume_forward(spp, window):
                 break
             c = step_round(c)[0]
 
-    window_busy(f"volume forward, rounds {first}-{first + count - 1}", run,
-                count)
+    window_busy(f"volume per-round loop, rounds {first}-{first + count - 1}",
+                run, count)
     return counts
 
 
@@ -1369,102 +1428,284 @@ def cornell_golden():
     return counts
 
 
-def _sync_checked(label, sess, spp):
-    """path.trace_balanced of the session's image, once to warm up and once
-    under the sync debug mode.  The loop may synchronise only where it
-    reads the host: bool(alive.any()) before each round and after the last,
-    and int(rays) at the end.  A wrapper of the machine's step marks where
-    the rounds begin, so from there on exactly rounds + 1 synchronising
-    calls, on those two lines, are allowed; before it, the machine's set-up
-    (once per call) is counted and logged."""
+def _line_of(fn, text):
+    """(file name, line) of the first line of fn's source holding text."""
     import inspect
+
+    src, first = inspect.getsourcelines(fn)
+    at = first + next(i for i, ln in enumerate(src) if text in ln)
+    return os.path.basename(inspect.getsourcefile(fn)), at
+
+
+def _sync_checked(label, trace, end_reads):
+    """trace(machines) -> (la, rays, rounds), once to capture the k-round
+    graph into a kept machine and once more under the sync debug mode.
+    From the first replay on, the machine may synchronise only where the
+    host reads the device: the runner's alive flag after each replay
+    (ceil(rounds / k) times) and the end's rays and rounds (end_reads, the
+    (file, line) of that read).  What comes before the first replay (the
+    chunk's set-up and the flag read before it) is counted and logged."""
     import warnings
 
     import torch
 
-    from nart_tpu_torch import render
-    from nart_tpu_torch.integrators import path
+    from nart_tpu_torch import rounds
 
-    p = sess.params
-    samples = render.image_samples(sess.render_w, sess.render_h,
-                                   sess.total_w, spp, DEVICE)
-
-    def trace():
-        return path.trace_balanced(sess.scene, sess.accel, samples, p,
-                                   sess.render_w, sess.render_h, 0, p.lanes)
-
-    trace()
+    machines = {}
+    trace(machines)
     torch.cuda.synchronize()
-    src, first = inspect.getsourcelines(path.trace_balanced)
-    line_of = {what: first + next(i for i, ln in enumerate(src) if what in ln)
-               for what in ("alive.any()", "int(core[0].rays)")}
-    real_machine = path._balanced_machine
+    flag_read = _line_of(rounds.RoundRunner._run_graphed,
+                         "while bool(self.flag)")
+    real_replay = torch.cuda.CUDAGraph.replay
     started = []
 
-    def machine(*a, **k):
-        core, step = real_machine(*a, **k)
-
-        def marked(c):
-            if not started:
-                started.append(len(caught))
-            return step(c)
-        return core, marked
+    def replay(graph):
+        if not started:
+            started.append(len(caught))
+        return real_replay(graph)
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        path._balanced_machine = machine
+        torch.cuda.CUDAGraph.replay = replay
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _, rays, rounds = trace()
+            _, rays, n_rounds = trace(machines)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-            path._balanced_machine = real_machine
-
-    def synced(ws):
-        # the mode's own notice that it is a prototype is no synchronisation
-        return [w for w in ws
-                if "synchronizing CUDA operation" in str(w.message)]
+            torch.cuda.CUDAGraph.replay = real_replay
 
     def where(ws):
-        return [(os.path.basename(w.filename), w.lineno) for w in ws]
+        # the mode's own notice that it is a prototype is no synchronisation
+        return [(os.path.basename(w.filename), w.lineno) for w in ws
+                if "synchronizing CUDA operation" in str(w.message)]
 
-    before, in_loop = synced(caught[:started[0]]), synced(caught[started[0]:])
-    allowed = {("path.py", ln) for ln in line_of.values()}
-    strays = [w for w, at in zip(in_loop, where(in_loop)) if at not in allowed]
-    for w in strays:
-        log(f"    synchronised in the loop: {w.filename}:{w.lineno}: "
-            f"{w.message}")
-    at = where(before + in_loop)
-    n_alive = at.count(("path.py", line_of["alive.any()"]))
-    n_rays = at.count(("path.py", line_of["int(core[0].rays)"]))
-    log(f"sync check: {label} {sess.render_w}x{sess.render_h} {spp} spp, "
-        f"{rounds} rounds, {rays} rays: {len(before)} synchronising calls "
-        f"before the first round ({sorted(set(where(before)))}), "
-        f"{len(in_loop)} from it on; alive.any() {n_alive}, int(rays) "
-        f"{n_rays}")
-    if strays:
-        raise AssertionError(f"{label}: {len(strays)} synchronising calls in "
-                             "the loop besides alive.any() and int(rays)")
-    if not (len(in_loop) == rounds + 1 and n_alive == rounds + 1
-            and n_rays == 1):
+    if not started:
+        raise AssertionError(f"{label}: no graph was replayed")
+    before, in_loop = where(caught[:started[0]]), where(caught[started[0]:])
+    k = rounds.ROUNDS_PER_CHECK
+    n_flag, n_end = in_loop.count(flag_read), in_loop.count(end_reads)
+    strays = [at for at in in_loop if at not in (flag_read, end_reads)]
+    log(f"sync check: {label}, {n_rounds} rounds, {rays} rays, k = {k}: "
+        f"{len(before)} synchronising calls before the first replay "
+        f"({sorted(set(before))}), {len(in_loop)} from it on: the alive flag "
+        f"{n_flag}, the end's reads {n_end}, elsewhere {strays}; "
+        f"{machine_totals(machines)}")
+    if strays or n_flag != -(-n_rounds // k) or n_end != 2:
         raise AssertionError(
-            f"{label}: {len(in_loop)} synchronising calls from the first "
-            f"round on, alive.any() {n_alive}, int(rays) {n_rays}; want "
-            f"{rounds + 1}, {rounds + 1}, 1 (rounds {rounds})")
+            f"{label}: from the first replay on {len(in_loop)} synchronising "
+            f"calls, the flag {n_flag}, the end {n_end}, elsewhere {strays}; "
+            f"want ceil({n_rounds} / {k}), 2 and none")
 
 
 def round_sync_check(spp):
-    """Phase 20: path.trace_balanced under the sync debug mode, on macbeth
-    (an environment light) and on a scene with a distant light."""
+    """Phase 20: the graphed path.trace_balanced under the sync debug mode,
+    on macbeth (an environment light) and on a scene with a distant light,
+    and the volume's static machine (volume.trace_vol_static) on
+    volume_blob."""
     from nart_tpu_torch import render, testing
+    from nart_tpu_torch.integrators import path, volume
 
+    def path_trace(sess):
+        p = sess.params
+        samples = render.image_samples(sess.render_w, sess.render_h,
+                                       sess.total_w, spp, DEVICE)
+        return lambda machines: path.trace_balanced(
+            sess.scene, sess.accel, samples, p, sess.render_w,
+            sess.render_h, 0, p.lanes, machines=machines)
+
+    path_end = _line_of(path._BalancedForward.__call__, "int(rounds)")
     _, sess = next(render.render_scene_file(MACBETH, {"spp": spp},
                                             device=DEVICE))
-    _sync_checked("macbeth", sess, spp)
+    _sync_checked(f"macbeth {sess.render_w}x{sess.render_h} {spp} spp",
+                  path_trace(sess), path_end)
     params = render.RenderParams(image_width=128, image_height=128, spp=spp,
                                  bounces=6)
     sess = render.RenderSession(testing.distant_scene(), params, DEVICE)
-    _sync_checked("distant light", sess, spp)
+    _sync_checked(f"distant light 128x128 {spp} spp", path_trace(sess),
+                  path_end)
+    params, sess = volume_session({"image_width": 1280, "image_height": 720,
+                                   "spp": spp})
+    samples = render.image_samples(sess.render_w, sess.render_h,
+                                   sess.total_w, spp, DEVICE)
+    _sync_checked(
+        f"volume_blob static machine 1280x720 {spp} spp",
+        lambda machines: volume.trace_vol_static(
+            sess.scene, None, samples, params, sess.render_w, sess.render_h,
+            0, params.lanes, machines=machines),
+        _line_of(volume._VolForward.__call__, "int(rounds)"))
+
+
+def _graphed_against_per_round(label, make, traversal):
+    """One cell of phase 21: make(per_round) -> a session.  The graphed
+    session renders twice (the first call captures), the per-round loop
+    once; the films must be the same bits, with the same rays and rounds.
+    Returns the cell's record."""
+    import gc
+
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, rounds
+
+    def timed(sess):
+        torch.cuda.reset_peak_memory_stats()
+        ca.reset_launch_counts()
+        before = machine_totals(sess.machines)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = sess.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = machine_totals(sess.machines)
+        return film, {"wall_s": wall, "stats": dict(sess.stats),
+                      "launches": {k: ca.launch_counts[k]
+                                   for k in KERNELS[:2]},
+                      "rounds_run": after["rounds_run"] - before["rounds_run"],
+                      "replays": after["replays"] - before["replays"],
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                      "peak_reserved_mib":
+                          torch.cuda.max_memory_reserved() / 2**20}
+
+    def cached_mib():
+        # what the caching allocator keeps once its free blocks are
+        # released: live tensors and graph pools
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2**20
+
+    base = cached_mib()
+    sess = make(False)
+    _, first = timed(sess)
+    film_g, g = timed(sess)
+    g["held_mib"] = cached_mib() - base
+    g["first_wall_s"] = first["wall_s"]
+    g.update({k: v for k, v in machine_totals(sess.machines).items()
+              if k.startswith("capture")})
+    _, g["busy"] = device_busy(f"{label}, graphed forward", sess.render,
+                               g["wall_s"])
+    del sess
+    base = cached_mib()
+    sess = make(True)
+    film_e, e = timed(sess)
+    e["held_mib"] = cached_mib() - base
+    del sess
+    rounds_ = g["stats"]["rounds"]
+    for name, r in (("graphed", g), ("per-round loop", e)):
+        log(f"    {label}, {name}: {r['wall_s']:.4f} s, {r['stats']}, "
+            f"{r['rounds_run']} rounds run ({1e3 * r['wall_s'] / r['rounds_run']:.3f}"
+            f" ms each), {r['replays']} replays, peak {r['peak_mib']:.1f} MiB "
+            f"allocated / {r['peak_reserved_mib']:.1f} MiB reserved, the "
+            f"session holding {r['held_mib']:.1f} MiB after it (graph pool, "
+            f"buffers, scene), launches {r['launches']}")
+    log(f"    {label}: k = {rounds.ROUNDS_PER_CHECK}; first graphed render "
+        f"{g['first_wall_s']:.4f} s, of it capture + instantiate "
+        f"{g['capture_s']:.4f} s ({g['captures']} capture); per-round / "
+        f"graphed wall {e['wall_s'] / g['wall_s']:.3f}x; busy "
+        f"{100 * g['busy']:.2f}% of the graphed forward")
+    if not torch.equal(film_g, film_e):
+        raise AssertionError(f"{label}: the graphed film differs from the "
+                             "per-round loop's")
+    if g["stats"] != e["stats"] or g["captures"] != 1:
+        raise AssertionError(f"{label}: {g['stats']} vs {e['stats']}, "
+                             f"{g['captures']} captures")
+    want = ((g["rounds_run"], e["rounds_run"]) if traversal else (0, 0))
+    for r, n in zip((g, e), want):
+        if set(r["launches"].values()) != {n}:
+            raise AssertionError(f"{label}: launches {r['launches']}, want "
+                                 f"{n} each")
+    if not (e["rounds_run"] == rounds_
+            and rounds_ <= g["rounds_run"] < rounds_ + rounds.ROUNDS_PER_CHECK):
+        raise AssertionError(f"{label}: rounds run {g['rounds_run']} / "
+                             f"{e['rounds_run']}, rounds {rounds_}")
+    return {"graphed": g, "per_round": e}
+
+
+def graphed_rounds():
+    """Phase 21: the forward machines as CUDA graphs of k rounds against the
+    per-round loop, on the bench's simple_glass 512x512 @ 16 spp, macbeth
+    1280x720 @ 8 spp and volume_blob 1280x720 @ 8 spp; one capture for the
+    eight chunks of volume_blob 96x96 @ 32 spp in chunks of 4; then k = 4,
+    8 and 16 on macbeth (k_sweep)."""
+    import torch
+
+    from nart_tpu_torch import bench, render, scene
+
+    name, glass = bench.bench_scene()
+    macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    (p_mac,) = render.load_sessions(MACBETH, {"spp": 8})[:1]
+    p_glass = render.RenderParams(image_width=512, image_height=512, spp=16,
+                                  bounces=10, filter_width=2.0,
+                                  roughening_factor=0.2)
+    records = {
+        f"{name} 512x512 @ 16 spp": _graphed_against_per_round(
+            f"{name} 512x512 @ 16 spp",
+            lambda per_round: render.RenderSession(glass, p_glass, DEVICE,
+                                                   per_round), True),
+        "macbeth 1280x720 @ 8 spp": _graphed_against_per_round(
+            "macbeth 1280x720 @ 8 spp",
+            lambda per_round: render.RenderSession(macbeth, p_mac, DEVICE,
+                                                   per_round), True),
+        "volume_blob 1280x720 @ 8 spp": _graphed_against_per_round(
+            "volume_blob 1280x720 @ 8 spp",
+            lambda per_round: volume_session(
+                {"image_width": 1280, "image_height": 720, "spp": 8},
+                per_round)[1], False),
+    }
+    # a render of many chunks of one shape replays one capture
+    films, totals = [], {}
+    for per_round in (False, True):
+        params, sess = volume_session({"spp_chunk": 4}, per_round)
+        films.append(sess.render())
+        totals[per_round] = machine_totals(sess.machines)
+    chunks = -(-params.spp // 4)
+    log(f"    volume_blob {params.image_width}x{params.image_height} @ "
+        f"{params.spp} spp in {chunks} chunks of 4: graphed {totals[False]}, "
+        f"per-round loop {totals[True]}; films equal: {torch.equal(*films)}")
+    if totals[False]["captures"] != 1 or chunks < 2:
+        raise AssertionError("the chunks of one shape did not share one "
+                             "capture")
+    if not torch.equal(*films):
+        raise AssertionError("many chunks: the graphed film differs from "
+                             "the per-round loop's")
+    k_sweep(macbeth, p_mac)
+    return records
+
+
+def k_sweep(scene, params):
+    """Phase 21's k = 4, 8, 16 (checks, one host read each, against rounds
+    past the end): one session a k, each captured with its k, then their
+    renders in turns (4, 8, 16, 16, 8, 4, 4, 8, 16), so that the host's
+    drift falls on every k alike."""
+    import torch
+
+    from nart_tpu_torch import render, rounds
+
+    default = rounds.ROUNDS_PER_CHECK
+    sessions = {}
+    try:
+        for k in (4, 8, 16):
+            rounds.ROUNDS_PER_CHECK = k
+            sessions[k] = render.RenderSession(scene, params, DEVICE)
+            sessions[k].render()
+    finally:
+        rounds.ROUNDS_PER_CHECK = default
+    walls = {k: [] for k in sessions}
+    for order in ((4, 8, 16), (16, 8, 4), (4, 8, 16)):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sessions[k].render()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    for k, sess in sessions.items():
+        t = machine_totals(sess.machines)
+        log(f"    k = {k}: macbeth 1280x720 @ 8 spp, median "
+            f"{statistics.median(walls[k]):.4f} s of "
+            f"{[round(x, 4) for x in walls[k]]}, {sess.stats['rounds']} "
+            f"rounds, capture {t['capture_s']} s, {t['rounds_run']} rounds "
+            "run over the 4 renders")
+    log(f"    k sweep (median s): "
+        f"{ {k: statistics.median(w) for k, w in walls.items()} }; the "
+        f"package's k = {default}")
 
 
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
@@ -1524,6 +1765,7 @@ def main():
     counts_bench = phase("bench subprocess", bench_subprocess, 128, 4)
     counts_cornell = phase("cornell golden", cornell_golden)
     phase("round sync check", round_sync_check, 1)
+    phase("graphed rounds", graphed_rounds)
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],

@@ -38,6 +38,10 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     tracking, lockstep trace / trace_diff, the work queue
                     and the static assignment, their replays
                     (integrators/volume.py; no traversal kernel)
+  rounds.py         the round runner: a work-queue machine's rounds, k to
+                    a host check, one CUDA graph on the card (the
+                    machines' lax.while_loop and render.py's
+                    _trace_balanced_jit cache)
   render.py         sessions, parameter resolution, the "balanced",
                     "regen" and "spp" modes over the grid or a shard's
                     rows, checkpoint/resume, EXR output (render.py)

@@ -6,7 +6,9 @@ runs [light pass -> closest-hit query -> material resolve -> MIS direct
 lighting (both strategies, one batched any-hit shadow query) -> scatter ->
 nested-dielectric list update -> Russian roulette] on the whole wavefront
 with masked lanes, then lanes whose path ended pull the next (pixel,
-sample) work item.  The round loop is a Python loop; the per-item radiance
+sample) work item.  The rounds run through ``rounds.RoundRunner``: on the
+card k rounds to each host check, captured once per chunk shape into one
+CUDA graph; on the CPU the same schedule eagerly.  The per-item radiance
 is written with ``index_add_``.  ``trace`` is the lockstep wavefront (one
 bounce per round, no respawn), ``trace_regen`` the per-pixel sample
 regeneration of the "regen" mode.
@@ -48,6 +50,7 @@ from ..lights import (
     pack_area_lights,
 )
 from ..materials import make_bsdf, pack_tex_half
+from ..rounds import RoundRunner
 from ..scene import map_tensors
 
 SHADOW_BIAS = float(np.float32(0.001))  # pathintegrator.h:36
@@ -585,6 +588,7 @@ def trace(scene, accel, o, d, state, params, differentiable=False):
     bounce_body = make_bounce(scene, accel, params, differentiable)
     paths = _paths_init(o, d, state)
     bounce = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    # the "spp" mode's loop: one host check a bounce, never a CUDA graph
     for _ in range(params.bounces):
         if not bool(paths.alive.any()):
             break
@@ -644,6 +648,7 @@ def trace_regen(scene, accel, px, py, samples, state, params):
     samp = torch.zeros(n, dtype=torch.int64, device=dev)
     # rows past spp_chunk * n take the other lanes' zeros
     la_out = torch.zeros(((spp_chunk + 1) * n, 4), device=dev)
+    # the "regen" mode stays on the per-round loop (no CUDA graph)
     while bool(paths.alive.any()):
         was_alive = paths.alive
         p = bounce_body(bounce, paths)
@@ -709,15 +714,27 @@ def item_pixels(render_w, pix_offset=0, row_map=None):
     return pixels
 
 
-def _balanced_machine(scene, accel, samples, params, render_w, render_h,
-                      chunk_base, n_lanes, differentiable=False, queries=None,
-                      pix_offset=0, n_pix_total=None, row_map=None):
-    """Work-queue machinery: returns (core0, step) where step(core) ->
-    (core', dying, la, item_before).  differentiable and queries go to
-    make_bounce; pix_offset, n_pix_total and row_map place a shard's items
-    in the global grid (item_pixels): an item's stream is seeded by its
-    global id (chunk_base + s) * n_pix_total + pix, so the result does not
-    depend on how the items are split."""
+def _chunk_base_tensor(chunk_base, device):
+    """chunk_base as a () int64 tensor on device (a tensor is taken as it
+    is: a machine kept across chunks reads the chunk's base from it)."""
+    if torch.is_tensor(chunk_base):
+        return chunk_base
+    return torch.full((), chunk_base, dtype=torch.int64, device=device)
+
+
+def _balanced_parts(scene, accel, samples, params, render_w, render_h,
+                    chunk_base, n_lanes, differentiable=False, queries=None,
+                    pix_offset=0, n_pix_total=None, row_map=None):
+    """Work-queue machinery: returns (init, step), where init() -> core0
+    reads samples, chunk_base (an int or a () int64 tensor) and row_map as
+    they are when it is called, and step(core) -> (core', dying, la,
+    item_before) reads them as they are when it runs; so a machine kept
+    across chunks serves each chunk whose samples and base are copied into
+    those tensors.  differentiable and queries go to make_bounce;
+    pix_offset, n_pix_total and row_map place a shard's items in the
+    global grid (item_pixels): an item's stream is seeded by its global id
+    (chunk_base + s) * n_pix_total + pix, so the result does not depend on
+    how the items are split."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or auto_lanes(total)
@@ -726,6 +743,7 @@ def _balanced_machine(scene, accel, samples, params, render_w, render_h,
     bounce_body = make_bounce(scene, accel, params, differentiable, queries)
     samples_flat = samples.reshape(total, 2)
     pixels = item_pixels(render_w, pix_offset, row_map)
+    chunk_base = _chunk_base_tensor(chunk_base, dev)
 
     def spawn(item):
         it = item.clamp(0, total - 1)
@@ -738,11 +756,12 @@ def _balanced_machine(scene, accel, samples, params, render_w, render_h,
         gid = ((chunk_base + s) * n_pix_total + pix) & rng.MASK32
         return o, d, _path_stream_seed(gid)
 
-    item0 = torch.arange(n, dtype=torch.int64, device=dev)
-    o0, d0, st0 = spawn(item0)
-    paths0 = replace(_paths_init(o0, d0, st0), alive=item0 < total)
-    core0 = (paths0, torch.zeros(n, dtype=torch.int64, device=dev), item0,
-             torch.tensor(min(n, total), dtype=torch.int64, device=dev))
+    def init():
+        item0 = torch.arange(n, dtype=torch.int64, device=dev)
+        o0, d0, st0 = spawn(item0)
+        paths0 = replace(_paths_init(o0, d0, st0), alive=item0 < total)
+        return (paths0, torch.zeros(n, dtype=torch.int64, device=dev), item0,
+                torch.full((), min(n, total), dtype=torch.int64, device=dev))
 
     def step(core):
         paths, bounce, item, head = core
@@ -767,12 +786,70 @@ def _balanced_machine(scene, accel, samples, params, render_w, render_h,
         bounce = torch.where(respawn, 0, bounce_next)
         return (paths, bounce, item, head), dying, la, item_before
 
-    return core0, step
+    return init, step
+
+
+def _balanced_machine(*args, **kwargs):
+    """_balanced_parts' machine with its first carry made: (core0, step)."""
+    init, step = _balanced_parts(*args, **kwargs)
+    return init(), step
+
+
+class _BalancedForward:
+    """trace_balanced's machine for one chunk shape, kept across calls (see
+    trace_balanced): the samples, chunk_base and row_map buffers that each
+    call copies its own into, the radiance rows, and the round runner
+    (with its CUDA graph, on the card).  The finished items add their
+    radiance once; other lanes add zeros to distinct rows past the end, so
+    no round reads the host."""
+
+    def __init__(self, scene, accel, shape, params, render_w, render_h,
+                 n_lanes, pix_offset, n_pix_total, row_map_shape, device,
+                 per_round):
+        spp_chunk, n_pix = shape
+        self.total = total = spp_chunk * n_pix
+        self.samples = torch.zeros((spp_chunk, n_pix, 2), device=device)
+        self.chunk_base = torch.zeros((), dtype=torch.int64, device=device)
+        self.row_map = (None if row_map_shape is None else torch.zeros(
+            row_map_shape, dtype=torch.int64, device=device))
+        self.init, step = _balanced_parts(
+            scene, accel, self.samples, params, render_w, render_h,
+            self.chunk_base, n_lanes, pix_offset=pix_offset,
+            n_pix_total=n_pix_total, row_map=self.row_map)
+        n = n_lanes or auto_lanes(total)
+        self.la_out = la_out = torch.zeros((total + n, 4), device=device)
+        lane = torch.arange(n, device=device)
+
+        # round_fn holds no reference to self: a cycle through the runner
+        # would leave the graph to the cyclic collector (rounds.py)
+        def round_fn(core):
+            core, dying, la, item = step(core)
+            la_out.index_add_(0, torch.where(dying, item, total + lane),
+                              torch.where(dying[:, None], la, 0.0))
+            return core
+
+        # the "bvh" walk synchronises in its own loop and "brute" is the
+        # plain scan: both stay on the per-round loop, as does a caller
+        # that asks for it; every other route captures on the card
+        graph = (not per_round
+                 and resolve_accel_kind(params.accel) == "cluster")
+        self.runner = RoundRunner(round_fn, k=None if graph else 1,
+                                  graph=graph)
+
+    def __call__(self, samples, chunk_base, row_map):
+        self.samples.copy_(samples)
+        self.chunk_base.fill_(chunk_base)
+        if row_map is not None:
+            self.row_map.copy_(row_map)
+        self.la_out.zero_()
+        core, rounds = self.runner.run(self.init())
+        la = self.la_out[:self.total].reshape(self.samples.shape[:2] + (4,))
+        return la.clone(), int(core[0].rays), int(rounds)  # the end's reads
 
 
 def trace_balanced(scene, accel, samples, params, render_w, render_h,
                    chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
-                   row_map=None):
+                   row_map=None, machines=None, per_round=False):
     """Work-queue wavefront: lanes pull (pixel, sample) items on death.
 
     Args:
@@ -783,28 +860,28 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
       pix_offset, n_pix_total, row_map: a shard's place in the global grid
         of n_pix_total pixels (see item_pixels); the defaults are the whole
         grid.
+      machines: a dict that keeps one machine per chunk shape across calls
+        of one scene, accel and params (RenderSession's): on the card each
+        machine's k-round CUDA graph is captured once and serves every
+        chunk of that shape, the counterpart of _trace_balanced_jit's
+        cache.  None: a machine (and a capture) for this call alone.
+      per_round: run the per-round loop (one round per host check, no
+        graph) instead: the reference of the graphed route's tests.
+    The rounds run through rounds.RoundRunner: on the card k to each host
+    check in one CUDA graph, on the CPU the same schedule eagerly.
     Returns (la (spp_chunk, P, 4) per-sample RGBA radiance, rays, rounds):
     rays is the algorithmic ray count (int), rounds the round count.
     """
-    spp_chunk, n_pix = samples.shape[0], samples.shape[1]
-    total = spp_chunk * n_pix
-    core, step = _balanced_machine(scene, accel, samples, params, render_w,
-                                   render_h, chunk_base, n_lanes,
-                                   pix_offset=pix_offset,
-                                   n_pix_total=n_pix_total, row_map=row_map)
-    n = core[1].shape[0]
-    # finished items add their radiance once; other lanes add zeros to
-    # distinct rows past the end, so no per-round host sync is needed
-    la_out = torch.zeros((total + n, 4), device=samples.device)
-    lane = torch.arange(n, device=samples.device)
-    rounds = 0
-    while bool(core[0].alive.any()):
-        core, dying, la, item = step(core)
-        tgt = torch.where(dying, item, total + lane)
-        la_out.index_add_(0, tgt, torch.where(dying[:, None], la, 0.0))
-        rounds += 1
-    return (la_out[:total].reshape(spp_chunk, n_pix, 4),
-            int(core[0].rays), rounds)
+    key = ("path", tuple(samples.shape[:2]), render_w, render_h, n_lanes,
+           pix_offset, n_pix_total,
+           None if row_map is None else tuple(row_map.shape), per_round)
+    machines = {} if machines is None else machines
+    machine = machines.get(key)
+    if machine is None:
+        machine = machines[key] = _BalancedForward(
+            scene, accel, key[1], params, render_w, render_h, n_lanes,
+            pix_offset, n_pix_total, key[7], samples.device, per_round)
+    return machine(samples, chunk_base, row_map)
 
 
 class _QueryTape:
@@ -881,6 +958,8 @@ class _BalancedReplay:
                 differentiable=True, queries=(tape.isect, tape.occluded),
                 **self.shard)
             loss = torch.zeros((), device=self.samples.device)
+            # the replay keeps each round's carry: its forward and backward
+            # passes stay on the per-round loop (no CUDA graph)
             while bool(core[0].alive.any()):
                 core_in = core
                 core, dying, la, item = step(core)

@@ -41,9 +41,11 @@ import torch
 from .. import camera, rng
 from ..media import clip_to_aabb, medium_properties_cells, pack_density_cells
 from ..sampling import sample_exponential_decay, uniform_sample_sphere
+from ..rounds import RoundRunner
 from ..scene import map_tensors
 from .path import (
     ReplayLoss,
+    _chunk_base_tensor,
     _light_partition,
     _nearest_light,
     _next_pow2,
@@ -278,11 +280,14 @@ def _camera_spawn(scene, params, samples, render_w, chunk_base,
                   pix_offset=0, n_pix_total=None, row_map=None):
     """spawn(item, jitter) -> (o, d, RNG state) of (pixel, sample) items:
     the camera ray and the item's stream, seeded by its global id
-    (chunk_base + s) * n_pix_total + pix; pix_offset, n_pix_total and
-    row_map place a shard's items in the global grid (path.item_pixels)."""
+    (chunk_base + s) * n_pix_total + pix, chunk_base read from a () int64
+    tensor when spawn runs (_chunk_base_tensor); pix_offset, n_pix_total
+    and row_map place a shard's items in the global grid
+    (path.item_pixels)."""
     n_pix = samples.shape[1]
     n_pix_total = n_pix if n_pix_total is None else n_pix_total
     pixels = item_pixels(render_w, pix_offset, row_map)
+    chunk_base = _chunk_base_tensor(chunk_base, samples.device)
 
     def spawn(item, jit):
         s = item // n_pix
@@ -326,14 +331,16 @@ def _respawn(vs, respawn, o, d, state):
     )
 
 
-def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes,
-                   **shard):
-    """The work queue (volume analogue of path._balanced_machine).
+def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
+                 **shard):
+    """The work queue (volume analogue of path._balanced_parts).
 
-    Returns (core0, step_round, n): step_round(core) -> (core', died, l,
-    item, segment starts), where l is the radiance of the lanes whose walk
-    ended this round and item the item each lane carried into it.  shard:
-    pix_offset, n_pix_total, row_map (_camera_spawn)."""
+    Returns (init, step_round, n): init() -> core0, and step_round(core)
+    -> (core', died, l, item, segment starts), where l is the radiance of
+    the lanes whose walk ended this round and item the item each lane
+    carried into it.  Both read samples and chunk_base (an int or a ()
+    int64 tensor) as they are when they run.  shard: pix_offset,
+    n_pix_total, row_map (_camera_spawn)."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or vol_lanes(total)
@@ -346,9 +353,12 @@ def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes,
         it = item.clamp(0, total - 1)
         return cam(it, samples_flat[it])
 
-    item0 = torch.arange(n, dtype=torch.int64, device=dev)
-    vs0 = replace(_vol_state(*spawn(item0)), alive=item0 < total)
-    core0 = (vs0, item0, torch.tensor(min(n, total), device=dev))
+    def init():
+        item0 = torch.arange(n, dtype=torch.int64, device=dev)
+        vs0 = replace(_vol_state(*spawn(item0)), alive=item0 < total)
+        return (vs0, item0,
+                torch.full((), min(n, total), dtype=torch.int64, device=dev))
+
     step, finish = _make_vol_step(scene, params,
                                   _light_partition(scene.lights, dev),
                                   defer_light=True)
@@ -365,23 +375,21 @@ def _queue_machine(scene, samples, params, render_w, chunk_base, n_lanes,
         core = (vs, torch.where(died, new_item, item), head + dy.sum())
         return core, died, l_done, item, seg
 
-    return core0, step_round, n
+    return init, step_round, n
 
 
-def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes,
-                    **shard):
+def _static_parts(scene, samples, params, render_w, chunk_base, n_lanes,
+                  **shard):
     """Static strided assignment: lane i owns items {i, i+n, i+2n, ...}
     (the `local`-th of them is item local * n + i).  The same interface as
-    _queue_machine; an item keeps its global stream, so its radiance is
-    the same bits as the queue's."""
+    _queue_parts (init() lays the samples out by lane); an item keeps its
+    global stream, so its radiance is the same bits as the queue's."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or vol_lanes(total)
     dev = samples.device
     ipl = -(-total // n)  # items per lane
-    samples_ipl = torch.cat(
-        [samples.reshape(total, 2),
-         torch.zeros((ipl * n - total, 2), device=dev)]).reshape(ipl, n, 2)
+    samples_ipl = torch.zeros((ipl, n, 2), device=dev)
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     cam = _camera_spawn(scene, params, samples, render_w, chunk_base,
                         **shard)
@@ -392,9 +400,12 @@ def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes,
                        samples_ipl[local.clamp(0, ipl - 1), lane])
         return o, d, st, item < total
 
-    local0 = torch.zeros(n, dtype=torch.int64, device=dev)
-    o0, d0, st0, live0 = spawn(local0)
-    core0 = (replace(_vol_state(o0, d0, st0), alive=live0), local0)
+    def init():
+        samples_ipl.view(-1, 2)[:total] = samples.reshape(total, 2)
+        local0 = torch.zeros(n, dtype=torch.int64, device=dev)
+        o0, d0, st0, live0 = spawn(local0)
+        return (replace(_vol_state(o0, d0, st0), alive=live0), local0)
+
     step, finish = _make_vol_step(scene, params,
                                   _light_partition(scene.lights, dev),
                                   defer_light=True)
@@ -411,39 +422,96 @@ def _static_machine(scene, samples, params, render_w, chunk_base, n_lanes,
         core = (vs, torch.where(died, nxt, local))
         return core, died, l_done, local * n + lane, seg
 
-    return core0, step_round, n
+    return init, step_round, n
 
 
-def _run_machine(machine, scene, samples, params, render_w, chunk_base,
-                 n_lanes, **shard):
-    """Forward pass of a machine: (la (spp_chunk, P, 4), rays, rounds)."""
-    spp_chunk, n_pix = samples.shape[0], samples.shape[1]
-    total = spp_chunk * n_pix
+def _made(parts):
+    """A machine with its first carry made: (core0, step_round, n)."""
+    def machine(*args, **kwargs):
+        init, step_round, n = parts(*args, **kwargs)
+        return init(), step_round, n
+
+    return machine
+
+
+_queue_machine = _made(_queue_parts)
+_static_machine = _made(_static_parts)
+
+
+class _VolForward:
+    """A volume machine's forward for one chunk shape, kept across calls
+    (path._BalancedForward's counterpart): samples, chunk_base and row_map
+    buffers, the radiance rows, the segment count and the round runner,
+    whose rounds are gated by MAX_STEPS on the device."""
+
+    def __init__(self, parts, scene, shape, params, render_w, n_lanes,
+                 pix_offset, n_pix_total, row_map_shape, device, per_round):
+        spp_chunk, n_pix = shape
+        self.total = total = spp_chunk * n_pix
+        self.samples = torch.zeros((spp_chunk, n_pix, 2), device=device)
+        self.chunk_base = torch.zeros((), dtype=torch.int64, device=device)
+        self.row_map = (None if row_map_shape is None else torch.zeros(
+            row_map_shape, dtype=torch.int64, device=device))
+        self.init, step_round, n = parts(
+            scene, self.samples, params, render_w, self.chunk_base, n_lanes,
+            pix_offset=pix_offset, n_pix_total=n_pix_total,
+            row_map=self.row_map)
+        rows = -(-total // n) * n
+        # finished items add their radiance once; other lanes add zeros to
+        # distinct rows past the end (no host read in a round)
+        self.la_out = la_out = torch.zeros((rows + n, 3), device=device)
+        self.rays = rays = torch.zeros((), dtype=torch.int64, device=device)
+        lane = torch.arange(n, device=device)
+
+        def round_fn(core):  # no reference to self (path._BalancedForward)
+            core, died, l_done, item, seg = step_round(core)
+            la_out.index_add_(0, torch.where(died, item, rows + lane),
+                              torch.where(died[:, None], l_done, 0.0))
+            rays.add_(seg)
+            return core
+
+        self.runner = RoundRunner(round_fn, k=1 if per_round else None,
+                                  max_rounds=MAX_STEPS,
+                                  graph=not per_round)
+
+    def __call__(self, samples, chunk_base, row_map):
+        self.samples.copy_(samples)
+        self.chunk_base.fill_(chunk_base)
+        if row_map is not None:
+            self.row_map.copy_(row_map)
+        self.la_out.zero_()
+        self.rays.zero_()
+        _, rounds = self.runner.run(self.init())
+        la = self.la_out[:self.total]
+        la = torch.cat([la, torch.ones_like(la[:, :1])],
+                       dim=-1)  # alpha is 1 (reference parity)
+        la = la.reshape(self.samples.shape[:2] + (4,))
+        return la, int(self.rays), int(rounds)  # the end's reads
+
+
+def _run_machine(parts, scene, samples, params, render_w, chunk_base,
+                 n_lanes, machines=None, per_round=False, **shard):
+    """Forward pass of a machine: (la (spp_chunk, P, 4), rays, rounds).
+    machines and per_round as for path.trace_balanced: one kept machine
+    per (machine, chunk shape), captured once on the card."""
     if scene.medium is None:
         return _no_medium_la(scene, samples, params, render_w, **shard)
-    core, step_round, n = machine(scene, samples, params, render_w,
-                                  chunk_base, n_lanes, **shard)
-    rows = -(-total // n) * n
-    # finished items add their radiance once; other lanes add zeros to
-    # distinct rows past the end (no host sync per round)
-    la_out = torch.zeros((rows + n, 3), device=samples.device)
-    lane = torch.arange(n, device=samples.device)
-    rays = torch.zeros((), dtype=torch.int64, device=samples.device)
-    rounds = 0
-    while rounds < MAX_STEPS and bool(core[0].alive.any()):
-        core, died, l_done, item, seg = step_round(core)
-        la_out.index_add_(0, torch.where(died, item, rows + lane),
-                          torch.where(died[:, None], l_done, 0.0))
-        rays = rays + seg
-        rounds += 1
-    la = torch.cat([la_out[:total], torch.ones_like(la_out[:total, :1])],
-                   dim=-1)  # alpha is 1 (reference parity)
-    return la.reshape(spp_chunk, n_pix, 4), int(rays), rounds
+    row_map = shard.get("row_map")
+    key = (parts.__name__, tuple(samples.shape[:2]), render_w, n_lanes,
+           shard.get("pix_offset", 0), shard.get("n_pix_total"),
+           None if row_map is None else tuple(row_map.shape), per_round)
+    machines = {} if machines is None else machines
+    machine = machines.get(key)
+    if machine is None:
+        machine = machines[key] = _VolForward(
+            parts, scene, key[1], params, render_w, n_lanes, key[4], key[5],
+            key[6], samples.device, per_round)
+    return machine(samples, chunk_base, row_map)
 
 
 def trace_balanced(scene, accel, samples, params, render_w, render_h,
                    chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
-                   row_map=None):
+                   row_map=None, machines=None, per_round=False):
     """Work-queue volume wavefront (path.trace_balanced's contract).
 
     Args:
@@ -453,23 +521,27 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
       n_lanes: work slots; 0 = vol_lanes(spp_chunk * P).
       pix_offset, n_pix_total, row_map: a shard's place in the global grid
         (path.item_pixels).
+      machines, per_round: the kept machines and the per-round loop, as for
+        path.trace_balanced.
     Returns (la (spp_chunk, P, 4), rays (segment starts), rounds).  Each
     item's stream is seeded by its global (sample, pixel) id, so results do
     not depend on the chunk size or the lane count; the reference's
     per-pixel stream layout belongs to the lockstep mode."""
-    return _run_machine(_queue_machine, scene, samples, params, render_w,
-                        chunk_base, n_lanes, pix_offset=pix_offset,
-                        n_pix_total=n_pix_total, row_map=row_map)
+    return _run_machine(_queue_parts, scene, samples, params, render_w,
+                        chunk_base, n_lanes, machines, per_round,
+                        pix_offset=pix_offset, n_pix_total=n_pix_total,
+                        row_map=row_map)
 
 
 def trace_vol_static(scene, accel, samples, params, render_w, render_h,
                      chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
-                     row_map=None):
+                     row_map=None, machines=None, per_round=False):
     """Static-assignment volume wavefront: trace_balanced's contract and
     per-item results, without the queue's prefix sum.  The render route."""
-    return _run_machine(_static_machine, scene, samples, params, render_w,
-                        chunk_base, n_lanes, pix_offset=pix_offset,
-                        n_pix_total=n_pix_total, row_map=row_map)
+    return _run_machine(_static_parts, scene, samples, params, render_w,
+                        chunk_base, n_lanes, machines, per_round,
+                        pix_offset=pix_offset, n_pix_total=n_pix_total,
+                        row_map=row_map)
 
 
 class _VolReplay:
@@ -501,6 +573,8 @@ class _VolReplay:
                                                **self.shard)
             loss = torch.zeros((), device=self.cot_flat.device)
             rays = torch.zeros((), dtype=torch.int64, device=loss.device)
+            # the replay keeps each round's carry: its forward and backward
+            # passes stay on the per-round loop (no CUDA graph)
             while (len(self.saved) < MAX_STEPS
                    and bool(core[0].alive.any())):
                 self.saved.append(core)

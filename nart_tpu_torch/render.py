@@ -159,9 +159,20 @@ def chunk_size(params, checkpoint_every=0):
 
 class RenderSession:
     """One render: scene + params on a device (the card unless one is
-    named, see resolve_device) -> film -> EXR."""
+    named, see resolve_device) -> film -> EXR.
 
-    def __init__(self, scene: SceneData, params: RenderParams, device=None):
+    ``machines`` keeps the "balanced" mode's work-queue machine of each
+    chunk shape (path.trace_balanced, volume.trace_vol_static), the
+    counterpart of the JAX package's jit cache of _trace_balanced_jit: on
+    the card each machine's k-round CUDA graph is captured once, and every
+    chunk of that shape, of a render or of a shard's rows, replays it with
+    its own samples and chunk_base copied in.  The graphs and their memory
+    go with the session.  per_round=True runs the per-round loop instead
+    (one round per host check, no graph): the reference of the graphed
+    route's checks."""
+
+    def __init__(self, scene: SceneData, params: RenderParams, device=None,
+                 per_round=False):
         if params.integrator not in ("path", "volume"):
             raise ValueError(f"unknown integrator {params.integrator!r}")
         if params.wavefront not in ("balanced", "regen", "spp"):
@@ -181,6 +192,8 @@ class RenderSession:
             accel = build_accel(scene.tri_v.cpu().numpy(),
                                 resolve_accel_kind(params.accel))
             self.accel = None if accel is None else accel.to(self.device)
+        self.per_round = per_round
+        self.machines = {}
         self.stats = {}
 
     def render(self, progress=False, checkpoint_path=None, checkpoint_every=0,
@@ -255,8 +268,10 @@ class RenderSession:
                               self.render_w, px.shape[0] // self.render_w,
                               chunk_base=chunk_base, n_lanes=p.lanes,
                               n_pix_total=self.render_w * self.render_h,
-                              row_map=row_map)
+                              row_map=row_map, machines=self.machines,
+                              per_round=self.per_round)
             return la, state, r, k
+        # "regen" and "spp" stay on their per-round loops (no graph)
         if mode == "regen":
             la, state, r = path_integrator.trace_regen(
                 self.scene, self.accel, px, py, samples, state, p)
