@@ -33,18 +33,22 @@ Phases (any failure raises and exits non-zero):
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
   6. training path at full width: radiance_weighted_loss_and_grad on
-     macbeth 1280x720, one chunk of 4 spp, cot = 1 on RGB: one warm and
-     one timed run.  The loss must equal the forward work queue's
-     sum(la[..., :3]) (rtol 1e-4), every gradient leaf must be finite, the
-     albedo, texture and env-map gradients nonzero, and the closest-hit
-     and any-hit kernels launched exactly `rounds` times each: the
-     backward pass launches none (the replay runs on the per-round loop).
-     Then the forward queue alone, twice on one kept machine (the first
-     call captures its graph);
+     macbeth 1280x720, one chunk of 4 spp, cot = 1 on RGB, its replay
+     machine kept: one warm run (it measures the rounds and captures the
+     forward's and the backward's graphs) and one timed run.  The loss
+     must equal the forward work queue's sum(la[..., :3]) (rtol 1e-4),
+     every gradient leaf must be finite, the albedo, texture and env-map
+     gradients nonzero, and the closest-hit and any-hit kernels launched
+     once in every forward round the card ran (the live rounds plus fewer
+     than k past the end) and never in the backward (its graph captured no
+     launch).  Then the forward queue alone, twice on one kept machine
+     (the first call captures its graph);
   7. gradients through the kernels against the same call on the CPU
      (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
      1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
-     gathers' backward), and one central finite difference to 5%;
+     gathers' backward), K1 launched once in every round the measuring
+     and the replay's forwards ran, and one central finite difference to
+     5%;
   8. the "spp" and "regen" modes through the kernels: macbeth at 128x72,
      2 spp; the "regen" film equals the "spp" film (rtol 1e-5 / atol
      1e-6), both image means within 3% of the "balanced" image's;
@@ -61,10 +65,11 @@ Phases (any failure raises and exits non-zero):
      under torch.profiler over a window of the static machine's rounds on
      the per-round loop;
  11. volume fwd+bwd at full width: radiance_weighted_loss_and_grad on
-     volume_blob 1280x720, one chunk of 4 spp, cot = 1 on RGB: the loss
-     equals the forward's sum(la[..., :3]) (rtol 1e-4), the medium's
-     gradients are finite and nonzero, no traversal kernel launched; the
-     busy share over a window of the replay's backward rounds;
+     volume_blob 1280x720, one chunk of 4 spp, cot = 1 on RGB, timed after
+     a warm call on the same kept machine: the loss equals the forward's
+     sum(la[..., :3]) (rtol 1e-4), the medium's gradients are finite and
+     nonzero, no traversal kernel launched; the busy share over a window
+     of the per-round replay's backward rounds;
  12. volume gradients on the card against the CPU: medium_scene at 32x32,
      2 spp: every leaf to rtol 1e-3 / atol 1e-5;
  13. (a) sharding in one process: macbeth at 1280x720, 2 spp, the virtual
@@ -110,9 +115,13 @@ Phases (any failure raises and exits non-zero):
      and the graphed volume.trace_vol_static on volume_blob (1280x720, 1
      spp): from the first replay on, exactly ceil(rounds / k) reads of the
      runner's alive flag and the end's two reads (rays, rounds), nothing
-     else; the set-up's are logged;
+     else; the set-up's are logged; then radiance_weighted_loss_and_grad
+     (fwd+bwd) on kept replay machines, macbeth and volume_blob at
+     1280x720, 1 spp, the scene on the card: one flag read before the
+     first replay, ceil(rounds / k) after it, the end's one read, nothing
+     else (the backward's graph replays read nothing);
  21. graphed rounds: simple_glass (the bench's scene) 512x512 @ 16 spp,
-     macbeth 1280x720 @ 8 spp and volume_blob 1280x720 @ 8 spp rendered
+     macbeth 1280x720 @ 4 spp and volume_blob 1280x720 @ 4 spp rendered
      through the session's k-round CUDA graph (twice: the first render
      captures) and on the per-round loop (RenderSession(per_round=True)):
      the films the same bits, equal rays and rounds, one capture, K1/K2
@@ -123,6 +132,17 @@ Phases (any failure raises and exits non-zero):
      8 chunks of 4: one capture for all, the per-round loop's film; k = 4,
      8 and 16 on macbeth: one session each, their renders in turns, the
      median of 3 each after a warm one.
+ 22. graphed replay: radiance_weighted_loss_and_grad (fwd+bwd) of macbeth
+     1280x720 @ 4 spp, the bench's simple_glass 512x512 @ 16 spp (one
+     chunk) and volume_blob 1280x720 @ 4 spp on kept replay machines (a
+     warm call that measures the rounds and captures the forward's k-round
+     graph and the backward's round graph, then a timed call) against the
+     per-round replay (per_round=True) in the same process: the loss to
+     rtol 1e-6, every gradient leaf to rtol 1e-5 / atol 1e-7, equal rays
+     and rounds, K1/K2 launched once a forward round run on the graphed
+     route and once a round on the per-round one (none on the volume);
+     logged: each route's wall s and rate, rounds run and live, capture s,
+     peak and held MiB, the card's busy share of the graphed call.
 The line before the last is the kernels' JSON record (launches_sharded:
 phases 13-15, launches_bench: phase 18); the last line is {"ok": true,
 "device": {...}}.  Needs the repository checkout (it imports nart_tpu_torch
@@ -594,6 +614,28 @@ def machine_totals(machines):
             "rounds_run": sum(r.rounds_run for r in runners)}
 
 
+def replay_runner(machines):
+    """The runner of the one replay machine kept in machines."""
+    (machine,) = [m for k, m in machines.items()
+                  if k[0].endswith("_replay")]
+    return machine.runner
+
+
+def check_replay_launches(label, counts, rounds, ran, runner):
+    """A graphed fwd+bwd call's traversal launches: K1 and K2 once in every
+    round its forward ran on the card (the live rounds plus fewer than k
+    past the end, credited per replay), never in its backward (its graph
+    captured none)."""
+    if not (counts["closest_hit"] == counts["any_hit"] == ran
+            and rounds <= ran < rounds + runner.k
+            and runner.back_graph is not None
+            and not any(runner.back_launches.values())):
+        raise AssertionError(
+            f"{label}: launches {counts}, {ran} forward rounds run for "
+            f"{rounds} live, backward graph {runner.back_launches}: K1 and "
+            "K2 launch once a forward round run and never in the backward")
+
+
 def device_busy(label, fn, wall_s, top=5):
     """Run fn once under torch.profiler (the card's activity only) and log
     the card's busy time -- the sum of its kernels' and copies' device time
@@ -648,29 +690,31 @@ def training_path(spp):
     theta = grad.get_params(sc)
     log(f"training path: macbeth.json {w}x{h}, one chunk of {spp} spp, "
         "cot = 1 on RGB")
+    machines = {}  # the replay machine, kept as a training loop keeps it
 
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = grad.radiance_weighted_loss_and_grad(
-            sc, theta, acc, samples, cot, params, w, h)
+            sc, theta, acc, samples, cot, params, w, h, machines=machines)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
     _, dt = run()
-    log(f"warm run {dt:.3f} s")
+    log(f"warm run {dt:.3f} s (it measures the rounds and captures)")
+    runner = replay_runner(machines)
+    ran = runner.rounds_run
     torch.cuda.reset_peak_memory_stats()
     ca.reset_launch_counts()
     (loss, grads, rays, rounds), dt = run()
     counts = dict(ca.launch_counts)
+    ran = runner.rounds_run - ran
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"timed run fwd+bwd {dt:.4f} s, {rounds} rounds, {rays} rays "
-        f"(one forward's, algorithmic), {rays / dt / 1e6:.4f} Mrays/s "
-        f"fwd+bwd, launches {counts}, peak device memory {peak:.1f} MiB")
-    if not (counts["closest_hit"] == counts["any_hit"] == rounds):
-        raise AssertionError(
-            f"launches {counts} != rounds {rounds}: the backward pass must "
-            "launch no traversal kernel")
+    log(f"timed run fwd+bwd {dt:.4f} s, {rounds} rounds ({ran} run by the "
+        f"card), {rays} rays (one forward's, algorithmic), "
+        f"{rays / dt / 1e6:.4f} Mrays/s fwd+bwd, launches {counts}, peak "
+        f"device memory {peak:.1f} MiB")
+    check_replay_launches("training path", counts, rounds, ran, runner)
 
     # the forward alone, as a session runs it: its machine kept, the
     # k-round graph captured by the first call and replayed by the next
@@ -729,11 +773,16 @@ def card_against_cpu():
     # 256 work slots for 2,048 items: a dozen rounds with respawns
     args = (sc, theta, acc, samples, cot, params, 32, 32, 0, 256)
     before = dict(ca.launch_counts)
+    machines = {}
     loss_k, grads_k, rays_k, rounds_k = grad.radiance_weighted_loss_and_grad(
-        *args)
-    if ca.launch_counts["closest_hit"] - before["closest_hit"] != rounds_k:
+        *args, machines=machines)
+    # the forwards (the measuring one's and the replay's) launch K1 once in
+    # every round they run
+    ran = machine_totals(machines)["rounds_run"]
+    if (ca.launch_counts["closest_hit"] - before["closest_hit"] != ran
+            or ran < 2 * rounds_k):
         raise AssertionError("the card's gradient did not go through the "
-                             "closest-hit kernel once per round")
+                             "closest-hit kernel once per round run")
     loss_c, grads_c, rays_c, rounds_c = grad.radiance_weighted_loss_and_grad(
         *args, device="cpu")
     if (rays_k, rounds_k) != (rays_c, rounds_c):
@@ -946,18 +995,22 @@ def volume_training(spp, window):
     want = float(la[..., :3].double().sum() + cot[..., 3].double().sum())
     torch.cuda.synchronize()
     dt_f = time.perf_counter() - t0
+    machines = {}
+    grad.radiance_weighted_loss_and_grad(sc, theta, None, samples, cot,
+                                         params, w, h, machines=machines)
     torch.cuda.reset_peak_memory_stats()
     ca.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, grads, rays, rounds = grad.radiance_weighted_loss_and_grad(
-        sc, theta, None, samples, cot, params, w, h)
+        sc, theta, None, samples, cot, params, w, h, machines=machines)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(ca.launch_counts)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"forward alone {dt_f:.4f} s ({rounds_f} rounds); fwd+bwd "
-        f"{dt:.4f} s, {rounds} rounds, {rays} segment starts (one "
+    log(f"forward alone {dt_f:.4f} s ({rounds_f} rounds); fwd+bwd (after "
+        f"a warm call that captured) {dt:.4f} s, {rounds} rounds, {rays} "
+        f"segment starts (one "
         f"forward's), {rays / dt / 1e6:.4f} Mrays/s fwd+bwd, fwd+bwd / fwd "
         f"= {dt / dt_f:.3f}, peak device memory {peak:.1f} MiB, launches "
         f"{counts}; loss {float(loss):.6f} vs forward {want:.6f}")
@@ -977,7 +1030,8 @@ def volume_training(spp, window):
     if len(med) != 4 or not all(v > 0.0 for v in med.values()):
         raise AssertionError(f"a medium gradient is missing or zero: {med}")
 
-    # the busy share over a window of the replay's backward rounds
+    # the busy share over a window of the per-round replay's backward
+    # rounds (phase 22 measures the graphed replay's)
     leaves = grad._as_leaves(theta, DEVICE)
     replay = volume._VolReplay(volume._static_machine,
                                grad.put_params(sc, leaves), samples, cot,
@@ -1437,14 +1491,15 @@ def _line_of(fn, text):
     return os.path.basename(inspect.getsourcefile(fn)), at
 
 
-def _sync_checked(label, trace, end_reads):
+def _sync_checked(label, trace, end_reads, n_end=2, strict=False):
     """trace(machines) -> (la, rays, rounds), once to capture the k-round
     graph into a kept machine and once more under the sync debug mode.
     From the first replay on, the machine may synchronise only where the
     host reads the device: the runner's alive flag after each replay
-    (ceil(rounds / k) times) and the end's rays and rounds (end_reads, the
+    (ceil(rounds / k) times) and the end's n_end reads (end_reads, the
     (file, line) of that read).  What comes before the first replay (the
-    chunk's set-up and the flag read before it) is counted and logged."""
+    chunk's set-up and the flag read before it) is counted and logged;
+    strict: it must be that one flag read and nothing else."""
     import warnings
 
     import torch
@@ -1483,26 +1538,30 @@ def _sync_checked(label, trace, end_reads):
         raise AssertionError(f"{label}: no graph was replayed")
     before, in_loop = where(caught[:started[0]]), where(caught[started[0]:])
     k = rounds.ROUNDS_PER_CHECK
-    n_flag, n_end = in_loop.count(flag_read), in_loop.count(end_reads)
+    n_flag = in_loop.count(flag_read)
     strays = [at for at in in_loop if at not in (flag_read, end_reads)]
     log(f"sync check: {label}, {n_rounds} rounds, {rays} rays, k = {k}: "
         f"{len(before)} synchronising calls before the first replay "
         f"({sorted(set(before))}), {len(in_loop)} from it on: the alive flag "
-        f"{n_flag}, the end's reads {n_end}, elsewhere {strays}; "
-        f"{machine_totals(machines)}")
-    if strays or n_flag != -(-n_rounds // k) or n_end != 2:
+        f"{n_flag}, the end's reads {in_loop.count(end_reads)}, elsewhere "
+        f"{strays}; {machine_totals(machines)}")
+    if (strays or n_flag != -(-n_rounds // k) or in_loop.count(end_reads)
+            != n_end or (strict and before != [flag_read])):
         raise AssertionError(
             f"{label}: from the first replay on {len(in_loop)} synchronising "
-            f"calls, the flag {n_flag}, the end {n_end}, elsewhere {strays}; "
-            f"want ceil({n_rounds} / {k}), 2 and none")
+            f"calls, the flag {n_flag}, the end "
+            f"{in_loop.count(end_reads)}, elsewhere {strays}, before "
+            f"{before}; want ceil({n_rounds} / {k}), {n_end} and none"
+            + (", and one flag read before" if strict else ""))
 
 
 def round_sync_check(spp):
     """Phase 20: the graphed path.trace_balanced under the sync debug mode,
     on macbeth (an environment light) and on a scene with a distant light,
     and the volume's static machine (volume.trace_vol_static) on
-    volume_blob."""
-    from nart_tpu_torch import render, testing
+    volume_blob; then a path and a volume fwd+bwd call on kept replay
+    machines (grad.radiance_weighted_loss_and_grad)."""
+    from nart_tpu_torch import grad, render, replay, testing
     from nart_tpu_torch.integrators import path, volume
 
     def path_trace(sess):
@@ -1533,6 +1592,32 @@ def round_sync_check(spp):
             sess.scene, None, samples, params, sess.render_w, sess.render_h,
             0, params.lanes, machines=machines),
         _line_of(volume._VolForward.__call__, "int(rounds)"))
+
+    # fwd+bwd: the replay's forward reads its flag, its end reads rays,
+    # rounds and the capacity's cut in one transfer, its backward nothing;
+    # the scene, samples and cot already on the card
+    replay_end = _line_of(replay.ReplayMachine.forward, "end.tolist()")
+
+    def fwdbwd(scn, acc, samples, cot, params, w, h):
+        theta = grad.get_params(scn)
+
+        def trace(machines):
+            out = grad.radiance_weighted_loss_and_grad(
+                scn, theta, acc, samples, cot, params, w, h,
+                machines=machines)
+            return None, out[2], out[3]
+        return trace
+
+    sc, acc, p_mac, samples, cot, _ = _grad_inputs(spp, DEVICE)
+    _sync_checked(f"macbeth fwd+bwd 1280x720 {spp} spp",
+                  fwdbwd(sc.to(DEVICE), acc.to(DEVICE), samples, cot, p_mac,
+                         p_mac.image_width, p_mac.image_height),
+                  replay_end, n_end=1, strict=True)
+    samples = _image_samples(params, DEVICE)
+    _sync_checked(f"volume_blob fwd+bwd 1280x720 {spp} spp",
+                  fwdbwd(sess.scene, None, samples, _rgb_cot(samples), params,
+                         params.image_width, params.image_height),
+                  replay_end, n_end=1, strict=True)
 
 
 def _graphed_against_per_round(label, make, traversal):
@@ -1622,7 +1707,7 @@ def _graphed_against_per_round(label, make, traversal):
 def graphed_rounds():
     """Phase 21: the forward machines as CUDA graphs of k rounds against the
     per-round loop, on the bench's simple_glass 512x512 @ 16 spp, macbeth
-    1280x720 @ 8 spp and volume_blob 1280x720 @ 8 spp; one capture for the
+    1280x720 @ 4 spp and volume_blob 1280x720 @ 4 spp; one capture for the
     eight chunks of volume_blob 96x96 @ 32 spp in chunks of 4; then k = 4,
     8 and 16 on macbeth (k_sweep)."""
     import torch
@@ -1631,7 +1716,8 @@ def graphed_rounds():
 
     name, glass = bench.bench_scene()
     macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
-    (p_mac,) = render.load_sessions(MACBETH, {"spp": 8})[:1]
+    # 4 spp keeps this phase a small share of the script's run time
+    (p_mac,) = render.load_sessions(MACBETH, {"spp": 4})[:1]
     p_glass = render.RenderParams(image_width=512, image_height=512, spp=16,
                                   bounces=10, filter_width=2.0,
                                   roughening_factor=0.2)
@@ -1640,14 +1726,14 @@ def graphed_rounds():
             f"{name} 512x512 @ 16 spp",
             lambda per_round: render.RenderSession(glass, p_glass, DEVICE,
                                                    per_round), True),
-        "macbeth 1280x720 @ 8 spp": _graphed_against_per_round(
-            "macbeth 1280x720 @ 8 spp",
+        "macbeth 1280x720 @ 4 spp": _graphed_against_per_round(
+            "macbeth 1280x720 @ 4 spp",
             lambda per_round: render.RenderSession(macbeth, p_mac, DEVICE,
                                                    per_round), True),
-        "volume_blob 1280x720 @ 8 spp": _graphed_against_per_round(
-            "volume_blob 1280x720 @ 8 spp",
+        "volume_blob 1280x720 @ 4 spp": _graphed_against_per_round(
+            "volume_blob 1280x720 @ 4 spp",
             lambda per_round: volume_session(
-                {"image_width": 1280, "image_height": 720, "spp": 8},
+                {"image_width": 1280, "image_height": 720, "spp": 4},
                 per_round)[1], False),
     }
     # a render of many chunks of one shape replays one capture
@@ -1698,7 +1784,7 @@ def k_sweep(scene, params):
             walls[k].append(time.perf_counter() - t0)
     for k, sess in sessions.items():
         t = machine_totals(sess.machines)
-        log(f"    k = {k}: macbeth 1280x720 @ 8 spp, median "
+        log(f"    k = {k}: macbeth 1280x720 @ {params.spp} spp, median "
             f"{statistics.median(walls[k]):.4f} s of "
             f"{[round(x, 4) for x in walls[k]]}, {sess.stats['rounds']} "
             f"rounds, capture {t['capture_s']} s, {t['rounds_run']} rounds "
@@ -1706,6 +1792,136 @@ def k_sweep(scene, params):
     log(f"    k sweep (median s): "
         f"{ {k: statistics.median(w) for k, w in walls.items()} }; the "
         f"package's k = {default}")
+
+
+def _replay_cell(label, fn, traversal):
+    """One cell of phase 22: fn(per_round, machines) -> (loss, grads, rays,
+    rounds), one fwd+bwd chunk.  The graphed replay on kept machines (a
+    warm call that measures and captures, then a timed call) against the
+    per-round replay in the same process: the loss to rtol 1e-6, every
+    gradient leaf to rtol 1e-5 / atol 1e-7, equal rays and rounds, K1/K2
+    launched once a forward round run (none on the volume).  Returns the
+    cell's record."""
+    import gc
+
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, grad
+
+    def cached_mib():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2**20
+
+    def timed(per_round, machines):
+        torch.cuda.reset_peak_memory_stats()
+        ca.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(per_round, machines)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, {"wall_s": wall, "rays": out[2], "rounds": out[3],
+                     "launches": {k: ca.launch_counts[k]
+                                  for k in KERNELS[:2]},
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+    base = cached_mib()
+    machines = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(False, machines)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    runner = replay_runner(machines)
+    ran, back = runner.rounds_run, runner.back_rounds
+    out_g, g = timed(False, machines)
+    g.update(first_wall_s=first, rounds_run=runner.rounds_run - ran,
+             back_rounds=runner.back_rounds - back,
+             captures=runner.captures, capture_s=runner.capture_s,
+             replays=runner.replays, held_mib=cached_mib() - base)
+    if traversal:
+        check_replay_launches(label, g["launches"], g["rounds"],
+                              g["rounds_run"], runner)
+    _, g["busy"] = device_busy(f"{label}, graphed fwd+bwd",
+                               lambda: fn(False, machines), g["wall_s"])
+    del machines, runner
+    base = cached_mib()
+    out_e, e = timed(True, {})
+    e["held_mib"] = cached_mib() - base
+    a, b = grad.flatten_leaves(out_g[1]), grad.flatten_leaves(out_e[1])
+    close = torch.isclose(a, b, rtol=1e-5, atol=1e-7)
+    loss_g, loss_e = float(out_g[0]), float(out_e[0])
+    g["loss_rel"] = abs(loss_g - loss_e) / abs(loss_e)
+    g["grad_max_abs_diff"] = float((a - b).abs().max())
+    g["grad_outside"] = int((~close).sum())
+    for name, r in (("graphed", g), ("per-round", e)):
+        log(f"    {label}, {name}: {r['wall_s']:.4f} s, "
+            f"{r['rays'] / r['wall_s'] / 1e6:.4f} M/s fwd+bwd, "
+            f"{r['rounds']} rounds, peak {r['peak_mib']:.1f} MiB, held "
+            f"{r['held_mib']:.1f} MiB after it, launches {r['launches']}")
+    log(f"    {label}: graphed {g['rounds_run']} forward rounds run for "
+        f"{g['rounds']} live, {g['back_rounds']} backward rounds, "
+        f"{g['replays']} forward replays over both calls, "
+        f"{g['captures']} captures ({g['capture_s']:.4f} s; the first call "
+        f"{g['first_wall_s']:.4f} s); per-round / graphed wall "
+        f"{e['wall_s'] / g['wall_s']:.3f}x; busy {100 * g['busy']:.2f}% of "
+        f"the graphed fwd+bwd; loss {loss_g!r} vs {loss_e!r} (rel "
+        f"{g['loss_rel']:.3g}), gradient max abs diff "
+        f"{g['grad_max_abs_diff']:.3g} of {a.numel()} values, "
+        f"{g['grad_outside']} outside rtol 1e-5 / atol 1e-7")
+    if not (np.isfinite(loss_g) and g["loss_rel"] <= 1e-6
+            and bool(torch.isfinite(a).all()) and not g["grad_outside"]):
+        raise AssertionError(f"{label}: the graphed replay differs from the "
+                             "per-round replay")
+    if (g["rays"], g["rounds"]) != (e["rays"], e["rounds"]):
+        raise AssertionError(f"{label}: rays or rounds differ")
+    if g["back_rounds"] != g["rounds"] or g["captures"] != 2:
+        raise AssertionError(f"{label}: {g['back_rounds']} backward rounds, "
+                             f"{g['captures']} captures")
+    if traversal:
+        if set(e["launches"].values()) != {e["rounds"]}:
+            raise AssertionError(f"{label}: per-round launches "
+                                 f"{e['launches']}")
+    else:
+        _no_traversal(label, {**g["launches"], **e["launches"]})
+    return {"graphed": g, "per_round": e}
+
+
+def graphed_replay():
+    """Phase 22: the graphed replay (fwd+bwd) against the per-round replay
+    on macbeth 1280x720 @ 4 spp, the bench's simple_glass 512x512 @ 16 spp
+    (one chunk, as the bench runs it) and volume_blob 1280x720 @ 4 spp."""
+    from nart_tpu_torch import bench, grad, render
+
+    def call(scn, acc, params, chunk_spp=None):
+        w, h = params.image_width, params.image_height
+        samples = _image_samples(params, DEVICE)[:chunk_spp]
+        cot = _rgb_cot(samples)
+        theta = grad.get_params(scn)
+        return lambda per_round, machines: grad.radiance_weighted_loss_and_grad(
+            scn, theta, acc, samples, cot, params, w, h, machines=machines,
+            per_round=per_round)
+
+    sc, acc, p_mac, _, _, _ = _grad_inputs(4, "cpu")
+    name, glass = bench.bench_scene()
+    p_glass = render.RenderParams(image_width=512, image_height=512, spp=16,
+                                  bounces=10, filter_width=2.0,
+                                  roughening_factor=0.2)
+    sess = render.RenderSession(glass, p_glass, DEVICE)
+    p_vol, vol = volume_session({"image_width": 1280, "image_height": 720,
+                                 "spp": 4})
+    return {
+        "macbeth 1280x720 @ 4 spp": _replay_cell(
+            "macbeth 1280x720 @ 4 spp",
+            call(sc.to(DEVICE), acc.to(DEVICE), p_mac), True),
+        f"{name} 512x512 @ 16 spp": _replay_cell(
+            f"{name} 512x512 @ 16 spp",
+            call(sess.scene, sess.accel, p_glass, bench.CHUNK), True),
+        "volume_blob 1280x720 @ 4 spp": _replay_cell(
+            "volume_blob 1280x720 @ 4 spp",
+            call(vol.scene, None, p_vol), False),
+    }
 
 
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
@@ -1766,6 +1982,7 @@ def main():
     counts_cornell = phase("cornell golden", cornell_golden)
     phase("round sync check", round_sync_check, 1)
     phase("graphed rounds", graphed_rounds)
+    phase("graphed replay", graphed_replay)
 
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], launches_training=counts_train[k],

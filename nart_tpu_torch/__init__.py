@@ -41,7 +41,11 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
   rounds.py         the round runner: a work-queue machine's rounds, k to
                     a host check, one CUDA graph on the card (the
                     machines' lax.while_loop and render.py's
-                    _trace_balanced_jit cache)
+                    _trace_balanced_jit cache); the replay's runner, whose
+                    backward replays one captured round graph a round
+  replay.py         the path replay's kept fwd+bwd machine: per-round
+                    store, leaf tensors, forward and backward rounds
+                    (grad.py's _balanced_grad_jit)
   render.py         sessions, parameter resolution, the "balanced",
                     "regen" and "spp" modes over the grid or a shard's
                     rows, checkpoint/resume, EXR output (render.py)

@@ -96,7 +96,9 @@ def fwdbwd_run(sess, samples, cot, chunk=CHUNK):
     """One fwd+bwd pass over the session's image: `chunk` samples at a time
     through radiance_weighted_loss_and_grad (cot: one chunk's), the
     gradients summed over the chunks (the loss is a sum over samples, so the
-    sum is exact).  Returns (rays, rounds, grads): rays one forward's."""
+    sum is exact).  The replay machines are kept in the session's dict, so
+    the warm-up captures their graphs and the timed runs replay them.
+    Returns (rays, rounds, grads): rays one forward's."""
     p = sess.params
     theta = grad.get_params(sess.scene)
     rays = rounds = 0
@@ -105,7 +107,8 @@ def fwdbwd_run(sess, samples, cot, chunk=CHUNK):
         j = min(i + chunk, p.spp)
         _, g, r, k = grad.radiance_weighted_loss_and_grad(
             sess.scene, theta, sess.accel, samples[i:j], cot[:j - i], p,
-            p.image_width, p.image_height, chunk_base=i, device=sess.device)
+            p.image_width, p.image_height, chunk_base=i, device=sess.device,
+            machines=sess.machines)
         rays += r
         rounds += k
         flat = grad.flatten_leaves(g)

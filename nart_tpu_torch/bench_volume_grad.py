@@ -64,14 +64,17 @@ def lockstep(scene, size, spp, dev):
 
 
 def balanced(scene, size, spp, dev):
-    """The balanced replay on the image's Latin squares, cot 1 on RGB."""
+    """The balanced replay on the image's Latin squares, cot 1 on RGB; its
+    machines kept across the warm and the timed call."""
     params = volume_params(size, spp)
     samples = render.image_samples(
         size, size, size + 2 * int(np.ceil(params.filter_width)), spp, dev)
     cot = bench.rgb_cot(spp, size * size, dev)
     theta = grad.get_params(scene)
+    machines = {}
     return _route(dev, lambda: grad.radiance_weighted_loss_and_grad(
-        scene, theta, None, samples, cot, params, size, size, device=dev))
+        scene, theta, None, samples, cot, params, size, size, device=dev,
+        machines=machines))
 
 
 def run(size=SIZE, spp=SPP, device=None):

@@ -8,7 +8,8 @@ Counterpart of ``nart_tpu/grad.py``:
   * the work-queue route (radiance_weighted_loss_and_grad) is a path
     replay: the forward pass keeps each round's carry and traversal
     outputs, the backward pass re-runs each round's shading and never
-    traverses (path.trace_balanced_loss);
+    traverses (path.trace_balanced_loss), on a kept machine that runs both
+    passes as CUDA graphs on the card (replay.py);
   * the volume integrator's events carry p / detach(p) ratios, so the
     medium's sigma_a, sigma_s, Le and density get gradients; its work-queue
     route is the replay volume.trace_vol_static_loss;
@@ -30,6 +31,7 @@ from . import camera, render, resolve_device, rng, sampling
 from .cluster_accel import build_accel
 from .integrators import path as path_integrator
 from .integrators import volume as volume_integrator
+from .replay import pad_rounds
 from .scene import SceneData
 
 TRAINABLE_FIELDS = (
@@ -171,30 +173,43 @@ def render_lanes(scene, accel, params, width, height, spp, seed_base=0,
     return out
 
 
-def _balanced_loss_fn(params):
+def _balanced_fns(params):
+    """(the replay, the forward that measures its rounds)."""
     if params.integrator == "volume":
         # the replay of the render route's static assignment
-        return volume_integrator.trace_vol_static_loss
-    return path_integrator.trace_balanced_loss
+        return (volume_integrator.trace_vol_static_loss,
+                volume_integrator.trace_vol_static)
+    return path_integrator.trace_balanced_loss, path_integrator.trace_balanced
 
 
 def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
                                     params, width, height, chunk_base=0,
                                     lanes=0, n_rounds=None, device=None,
                                     pix_offset=0, n_pix_total=None,
-                                    row_map=None):
+                                    row_map=None, machines=None,
+                                    per_round=False):
     """Value and gradient of sum(cot * per-sample radiance) over the
     balanced work queue, by path replay (path.trace_balanced_loss, or
     volume.trace_vol_static_loss for the volume integrator).
 
     Any image loss linearises to this form: the film splat is linear in
     the per-sample radiance, so cot = d loss / d la comes from a forward
-    render.  ``n_rounds`` is accepted and ignored: the JAX package measures
-    and caches a static round count for its compiled loop, this loop ends
-    when no lane is alive.  Everything is moved to ``device`` (the card
-    unless one is named).  pix_offset, n_pix_total and row_map place a
-    shard's items in the global grid of the replays (path.item_pixels):
-    samples and cot then cover the shard's pixels only.
+    render.  Everything is moved to ``device`` (the card unless one is
+    named).  pix_offset, n_pix_total and row_map place a shard's items in
+    the global grid of the replays (path.item_pixels): samples and cot then
+    cover the shard's pixels only.
+
+    ``n_rounds`` is the replay's capacity in rounds, as the JAX package's
+    static trip count (None: the kept machine's, or on its first call the
+    forward's measured count, padded).  Round counts drift with theta: if
+    lanes are still alive when it runs out, the forward's count is measured
+    again (on the forward machine kept in ``machines``) and the capacity
+    grows to max(it, 2 * n_rounds), at most 3 attempts, as the JAX package
+    does.  ``machines``: a dict that keeps the replay machine (on the card
+    its CUDA graphs) and the measuring forward machine across calls of one
+    scene, accel and params, chunk shape by chunk shape; None: machines for
+    this call alone.  ``per_round``: the per-round replay, eagerly (the
+    reference of the tests).
 
     Returns (loss, grads, rays, n_rounds): grads has theta's layout, rays
     is one forward's algorithmic count, n_rounds the measured round count.
@@ -205,11 +220,28 @@ def radiance_weighted_loss_and_grad(scene, theta, accel, samples, cot,
     accel = None if accel is None else accel.to(dev)
     if row_map is not None:
         row_map = row_map.to(dev)
-    loss, rays, _, rounds = _balanced_loss_fn(params)(
-        scn, accel, samples.to(dev), cot.to(dev), params, width, height,
-        chunk_base=chunk_base, n_lanes=lanes, pix_offset=pix_offset,
-        n_pix_total=n_pix_total, row_map=row_map)
-    return loss.detach(), _grads_of(loss, theta), rays, rounds
+    samples, cot = samples.to(dev), cot.to(dev)
+    machines = {} if machines is None else machines
+    replay, forward = _balanced_fns(params)
+    shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total,
+                 row_map=row_map)
+    for _ in range(3):
+        loss, rays, unfinished, rounds = replay(
+            scn, accel, samples, cot, params, width, height,
+            n_rounds=n_rounds, chunk_base=chunk_base, n_lanes=lanes,
+            machines=machines, per_round=per_round, **shard)
+        if not unfinished:
+            return loss.detach(), _grads_of(loss, theta), rays, rounds
+        # theta moved the count past the capacity (rounds, all live):
+        # measure again and grow
+        with torch.no_grad():
+            measured = forward(scn, accel, samples, params, width, height,
+                               chunk_base, lanes, machines=machines,
+                               **shard)[2]
+        n_rounds = max(pad_rounds(measured), 2 * rounds)
+    raise AssertionError(
+        f"balanced grad replay truncated: {unfinished} lanes alive after "
+        f"{rounds} rounds (3 regrow attempts)")
 
 
 def loss_and_grad(scene, params, width, height, spp, loss_fn, device=None,
@@ -258,16 +290,21 @@ def _volume_loss_and_grad_balanced(scene, params, width, height, spp,
     total_w = width + 2 * int(np.ceil(params.filter_width))
     samples = render.image_samples(width, height, total_w, spp, dev)
     scn = scene.to(dev)
+    machines = {}  # the forward's machine, kept for the replay's
     with torch.no_grad():
-        la, _, _ = volume_integrator.trace_vol_static(
-            scn, None, samples, params, width, height, n_lanes=params.lanes)
+        la, _, rounds = volume_integrator.trace_vol_static(
+            scn, None, samples, params, width, height, n_lanes=params.lanes,
+            machines=machines)
     image = la[..., :3].mean(0).reshape(height, width, 3).requires_grad_()
     with torch.enable_grad():
         loss = loss_fn(image)
         (g_img,) = torch.autograd.grad(loss, image)
     g = (g_img.reshape(1, n, 3) / float(np.float32(spp))).expand(spp, n, 3)
     cot = torch.cat([g, torch.zeros((spp, n, 1), device=dev)], dim=-1)
+    # the replay takes the forward's decisions, so the forward's round
+    # count is the replay's: no measuring forward
     _, grads, _, _ = radiance_weighted_loss_and_grad(
         scn, get_params(scn), None, samples, cot, params, width, height,
-        lanes=params.lanes, device=dev)
+        lanes=params.lanes, n_rounds=pad_rounds(rounds), device=dev,
+        machines=machines)
     return loss.detach(), grads

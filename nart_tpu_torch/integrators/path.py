@@ -15,10 +15,12 @@ regeneration of the "regen" mode.
 
 Gradients: ``make_bounce(differentiable=True)`` is the detached-sampling
 estimator, and ``trace_balanced_loss`` differentiates the work queue by
-path replay: rounds run forward without a graph, each round's carry and
-traversal outputs are kept, and the backward pass re-runs the rounds in
-reverse with the two queries answered from what was kept, so it never
-traverses.
+path replay: rounds run forward without an autograd graph, each round's
+carry and traversal outputs are kept, and the backward pass re-runs the
+rounds in reverse with the two queries answered from what was kept, so it
+never traverses.  The replay is a kept machine (replay.ReplayMachine): on
+the card its forward runs k rounds to each host check and its backward
+replays one captured round graph once a round, with no host read.
 
 RNG: each work item owns an independent Xorshift32 stream seeded from its
 global (sample, pixel) id (``_path_stream_seed``); draws happen at the
@@ -48,8 +50,10 @@ from ..lights import (
     light_eval,
     light_sample,
     pack_area_lights,
+    refresh_area_pack,
 )
 from ..materials import make_bsdf, pack_tex_half
+from ..replay import ReplayLoss, ReplayMachine, replay_loss
 from ..rounds import RoundRunner
 from ..scene import map_tensors
 
@@ -190,6 +194,19 @@ def _light_partition(lights, device):
         for r, i in enumerate(pack.index):
             row[i] = r
     return pack, rest, row
+
+
+def derive_light_tables(scene, base=None):
+    """The light partition of a scene (_light_partition), the tables a
+    round derives from the lights' trainable tensors; with base (an
+    earlier partition of the same lights) only its radiance fields are
+    derived anew, by device operations only, as the replay machine's
+    rounds derive them (_PathReplayParts)."""
+    if base is None:
+        return _light_partition(scene.lights, scene.tri_v.device)
+    pack, rest, row = base
+    return (None if pack is None else refresh_area_pack(pack, scene.lights),
+            rest, row)
 
 
 def _nearest_light(lights, part, o, d, t_lim):
@@ -345,7 +362,8 @@ def _make_queries(scene, accel, params):
     return isect, occluded
 
 
-def make_bounce(scene, accel, params, differentiable=False, queries=None):
+def make_bounce(scene, accel, params, differentiable=False, queries=None,
+                light_part=None):
     """The per-round wavefront step: bounce_body(bounce (N,), paths) ->
     Paths.  Mirrors nart_tpu's _make_bounce step for step.
 
@@ -356,12 +374,15 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None):
     fixed.  The forward values are the same bits either way (textures:
     where the texels are half floats, as the reference's are).  queries, an
     (isect, occluded) pair, replaces the scene's traversal queries (the
-    path replay answers them from stored outputs)."""
+    path replay answers them from stored outputs); light_part, the lights'
+    tables (derive_light_tables), replaces their derivation here, and
+    bounce_body(bounce, p, light_part) takes another for one call (the
+    replay machine's, derived in every round from its leaf tensors)."""
     n_lights = len(scene.lights)
     gamma = float(np.float32(params.roughening_factor ** 2))
     surf_rows = pack_surface_rows(scene.tri_v, scene.tri_n, scene.tri_uv,
                                   scene.tri_mesh)
-    light_part = _light_partition(scene.lights, scene.tri_v.device)
+    part0 = light_part or derive_light_tables(scene)
     # packed half textures on the render path (the reference's in-memory
     # textures are half, so its scenes read the same values); gradients
     # read the float32 table, as the JAX package's do
@@ -375,7 +396,8 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None):
     def det(x):
         return x.detach() if differentiable else x
 
-    def bounce_body(bounce, p: Paths) -> Paths:
+    def bounce_body(bounce, p: Paths, light_part=None) -> Paths:
+        light_part = light_part or part0
         n = p.o.shape[0]
         dev = p.o.device
         zeros = torch.zeros(n, device=dev)
@@ -724,13 +746,15 @@ def _chunk_base_tensor(chunk_base, device):
 
 def _balanced_parts(scene, accel, samples, params, render_w, render_h,
                     chunk_base, n_lanes, differentiable=False, queries=None,
-                    pix_offset=0, n_pix_total=None, row_map=None):
+                    pix_offset=0, n_pix_total=None, row_map=None,
+                    light_part=None):
     """Work-queue machinery: returns (init, step), where init() -> core0
     reads samples, chunk_base (an int or a () int64 tensor) and row_map as
     they are when it is called, and step(core) -> (core', dying, la,
     item_before) reads them as they are when it runs; so a machine kept
     across chunks serves each chunk whose samples and base are copied into
-    those tensors.  differentiable and queries go to make_bounce;
+    those tensors; step(core, light_part) takes the lights' tables for one
+    call.  differentiable, queries and light_part go to make_bounce;
     pix_offset, n_pix_total and row_map place a shard's items in the
     global grid (item_pixels): an item's stream is seeded by its global id
     (chunk_base + s) * n_pix_total + pix, so the result does not depend on
@@ -740,7 +764,8 @@ def _balanced_parts(scene, accel, samples, params, render_w, render_h,
     n = n_lanes or auto_lanes(total)
     n_pix_total = n_pix if n_pix_total is None else n_pix_total
     dev = samples.device
-    bounce_body = make_bounce(scene, accel, params, differentiable, queries)
+    bounce_body = make_bounce(scene, accel, params, differentiable, queries,
+                              light_part)
     samples_flat = samples.reshape(total, 2)
     pixels = item_pixels(render_w, pix_offset, row_map)
     chunk_base = _chunk_base_tensor(chunk_base, dev)
@@ -763,10 +788,10 @@ def _balanced_parts(scene, accel, samples, params, render_w, render_h,
         return (paths0, torch.zeros(n, dtype=torch.int64, device=dev), item0,
                 torch.full((), min(n, total), dtype=torch.int64, device=dev))
 
-    def step(core):
+    def step(core, light_part=None):
         paths, bounce, item, head = core
         was_alive = paths.alive
-        p = bounce_body(bounce, paths)
+        p = bounce_body(bounce, paths, light_part)
         bounce_next = torch.where(was_alive, bounce + 1, bounce)
         alive = p.alive & ~(p.alive & (bounce_next >= params.bounces))
         dying = was_alive & ~alive
@@ -903,6 +928,14 @@ class _QueryTape:
             self.occ = self._occluded(*rays)
         return self.occ
 
+    def record(self):
+        """The last round's outputs, to keep."""
+        return self.hit, self.occ
+
+    def answer(self, rec):
+        """Answer the next round's queries with a kept record."""
+        self.hit, self.occ = rec
+
 
 # the float leaves of the carry that can depend on a trainable parameter.
 # Origins, directions and t_lim come from geometry and detached samples,
@@ -927,9 +960,20 @@ def scene_leaves(scene):
     return list(seen.values())
 
 
+def scene_signature(scene):
+    """Which of a scene's tensors require grad, with every tensor's shape
+    and dtype, in field order: a kept replay machine's key."""
+    sig = []
+    map_tensors(scene, lambda t: sig.append(
+        (t.requires_grad, tuple(t.shape), t.dtype)) or t)
+    return tuple(sig)
+
+
 class _BalancedReplay:
-    """Path replay over the work queue: sum(cot * la) and its gradient
-    with respect to the scene's tensors that require grad."""
+    """The per-round path replay over the work queue (the reference of the
+    kept machine's tests, trace_balanced_loss(per_round=True)): sum(cot *
+    la) and its gradient with respect to the scene's tensors that require
+    grad, one round per host check both ways, eagerly."""
 
     def __init__(self, scene, accel, samples, cot, params, render_w,
                  render_h, chunk_base, n_lanes, shard):
@@ -958,8 +1002,7 @@ class _BalancedReplay:
                 differentiable=True, queries=(tape.isect, tape.occluded),
                 **self.shard)
             loss = torch.zeros((), device=self.samples.device)
-            # the replay keeps each round's carry: its forward and backward
-            # passes stay on the per-round loop (no CUDA graph)
+            # one round, then a host check; the carries kept in a list
             while bool(core[0].alive.any()):
                 core_in = core
                 core, dying, la, item = step(core)
@@ -1010,51 +1053,115 @@ class _BalancedReplay:
         return grads
 
 
-class ReplayLoss(torch.autograd.Function):
-    """A replay (an object with forward() -> loss and backward(g) -> the
-    leaves' gradients) as one differentiable function of the scene's
+class _PathReplayParts:
+    """The path integrator's side of a replay.ReplayMachine: the work
+    queue's round with its loss contribution (the lights' tables derived
+    in the round from the scene's leaves), and the carry's adjoint
     leaves."""
 
-    @staticmethod
-    def forward(ctx, replay, *leaves):
-        ctx.replay = replay
-        return replay.forward()
+    adjoint = staticmethod(_adjoint_leaves)
+    with_adjoint = staticmethod(_with_adjoint_leaves)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        return (None, *ctx.replay.backward(g))
+    def __init__(self, accel, params, render_w, render_h, n_lanes,
+                 pix_offset, n_pix_total):
+        self.accel, self.params = accel, params
+        self.args = (render_w, render_h)
+        self.n_lanes = n_lanes
+        self.shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total)
+
+    def make(self, scene, samples, chunk_base, row_map, cot_flat,
+             replaying):
+        tape = (_QueryTape() if replaying else
+                _QueryTape(*_make_queries(scene, self.accel, self.params)))
+        base = derive_light_tables(scene)
+        init, step = _balanced_parts(
+            scene, self.accel, samples, self.params, *self.args, chunk_base,
+            self.n_lanes, differentiable=True,
+            queries=(tape.isect, tape.occluded), row_map=row_map,
+            light_part=base, **self.shard)
+        total = cot_flat.shape[0]
+
+        def round_(core):
+            out, dying, la, item = step(
+                core, derive_light_tables(scene, base))
+            c = cot_flat[item.clamp(0, total - 1)]
+            contrib = ((c * la).sum(-1) * dying.to(la.dtype)).sum()
+            return out, contrib, out[0].rays - core[0].rays
+
+        return init, round_, tape
 
 
 def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
                         render_h, n_rounds=None, chunk_base=0, n_lanes=0,
-                        pix_offset=0, n_pix_total=None, row_map=None):
+                        pix_offset=0, n_pix_total=None, row_map=None,
+                        machines=None, per_round=False):
     """Differentiable balanced wavefront: scalar loss = sum(cot * la),
     with gradients by path replay.
 
     The loss is a function of the scene's tensors that require grad
     (``loss.backward()`` or ``torch.autograd.grad`` reach them).  The
-    forward pass runs the work queue without a graph and keeps, per round,
-    the incoming carry and the outputs of the two traversal queries
-    (O(lanes) per round); the backward pass walks the rounds in reverse,
-    re-runs each round's shading with the graph on and the queries answered
-    from what was kept, and pushes the carry's adjoint through it: one
-    extra forward of shading per round and **no traversal** in the backward
-    pass.  For an arbitrary image loss, linearise first (the splat is
-    linear in la) and pass d loss / d la as ``cot``.
+    forward pass runs the work queue without an autograd graph and keeps,
+    per round, the incoming carry and the outputs of the two traversal
+    queries (O(lanes) per round); the backward pass walks the rounds in
+    reverse, re-runs each round's shading with the graph on and the queries
+    answered from what was kept, and pushes the carry's adjoint through
+    it: one extra forward of shading per round and **no traversal** in the
+    backward pass.  For an arbitrary image loss, linearise first (the
+    splat is linear in la) and pass d loss / d la as ``cot``.
+
+    The rounds run on a kept replay.ReplayMachine: on the card the forward
+    k rounds to each host check in one CUDA graph and the backward as one
+    captured round graph replayed once a round with no host read; on the
+    CPU the same schedule eagerly.
 
     Args:
       cot: (spp_chunk, P, 4) cotangent of the per-sample radiance.
-      n_rounds: accepted and ignored.  The JAX package needs a static trip
-        count for reverse mode; here the loop ends when no lane is alive.
+      n_rounds: the store's capacity in rounds, as the JAX package's static
+        trip count; None takes the kept machine's, or on its first call the
+        forward's measured count (trace_balanced, on the forward machine
+        kept in machines) padded by replay.pad_rounds.  If lanes are alive
+        when it runs out, unfinished counts them and the result misses
+        their tail: rerun with more rounds (grad.py regrows).
       pix_offset, n_pix_total, row_map: a shard's place in the global grid,
         as for trace_balanced.
-    Returns (loss, rays, unfinished, rounds): unfinished is always 0, rays
-    is one forward's algorithmic count, rounds the measured round count.
+      machines: a dict that keeps the machines across calls of one scene
+        (its geometry), accel and params, as trace_balanced's; None: a
+        machine for this call alone.  Take each call's gradient before the
+        next call on the same machine.
+      per_round: the per-round replay (one round per host check both ways,
+        eagerly; n_rounds ignored): the reference of the kept machine's
+        tests.
+    Returns (loss, rays, unfinished, rounds): rays is one forward's
+    algorithmic count, rounds the live round count.
     """
-    replay = _BalancedReplay(scene, accel, samples, cot, params, render_w,
-                             render_h, chunk_base, n_lanes,
-                             dict(pix_offset=pix_offset,
-                                  n_pix_total=n_pix_total, row_map=row_map))
-    loss = ReplayLoss.apply(replay, *replay.leaves)
-    return loss, replay.rays, 0, len(replay.saved)
+    shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total,
+                 row_map=row_map)
+    if per_round:
+        replay = _BalancedReplay(scene, accel, samples, cot, params,
+                                 render_w, render_h, chunk_base, n_lanes,
+                                 shard)
+        loss = ReplayLoss.apply(replay, *replay.leaves)
+        return loss, replay.rays, 0, len(replay.saved)
+    machines = {} if machines is None else machines
+    row_shape = None if row_map is None else tuple(row_map.shape)
+    key = ("path_replay", tuple(samples.shape[:2]), render_w, render_h,
+           n_lanes, pix_offset, n_pix_total, row_shape, params,
+           scene_signature(scene))
+    leaves = scene_leaves(scene)
+
+    def build():
+        parts = _PathReplayParts(accel, params, render_w, render_h, n_lanes,
+                                 pix_offset, n_pix_total)
+        # "bvh" and "brute" stay eager, as their forward machines do
+        return ReplayMachine(
+            parts, scene, leaves, key[1], row_shape, samples.device,
+            graph=resolve_accel_kind(params.accel) == "cluster")
+
+    def measure():
+        with torch.no_grad():
+            return trace_balanced(scene, accel, samples, params, render_w,
+                                  render_h, chunk_base, n_lanes,
+                                  machines=machines, **shard)[2]
+
+    return replay_loss(machines, key, build, leaves, samples, cot,
+                       chunk_base, row_map, n_rounds, measure)

@@ -25,7 +25,8 @@ depend on which lane runs it, nor when):
     render route.  Per-item radiance is the same bits as trace_balanced's.
 Both machines run FUSE_STEPS flight steps per round and the escape light
 pass once per round.  trace_balanced_loss and trace_vol_static_loss
-differentiate them by path replay, as ``path.trace_balanced_loss`` does.
+differentiate them by path replay on a kept replay.ReplayMachine, as
+``path.trace_balanced_loss`` does.
 No traversal query runs on any of these paths: the walk never reads the
 scene's triangles.
 """
@@ -41,17 +42,19 @@ import torch
 from .. import camera, rng
 from ..media import clip_to_aabb, medium_properties_cells, pack_density_cells
 from ..sampling import sample_exponential_decay, uniform_sample_sphere
+from ..replay import ReplayLoss, ReplayMachine, replay_loss
 from ..rounds import RoundRunner
 from ..scene import map_tensors
 from .path import (
-    ReplayLoss,
     _chunk_base_tensor,
     _light_partition,
     _nearest_light,
     _next_pow2,
     _path_stream_seed,
+    derive_light_tables,
     item_pixels,
     scene_leaves,
+    scene_signature,
 )
 
 INF = math.inf
@@ -89,7 +92,7 @@ def _ratio(p, mask):
     return safe / safe.detach()
 
 
-def _make_vol_step(scene, params, part, defer_light=False):
+def _make_vol_step(scene, params, part, defer_light=False, cells=None):
     """One delta-tracking flight step: (step, finish).
 
     step(vs) -> (vs', died, esc): `died` marks lanes whose walk ended this
@@ -98,22 +101,29 @@ def _make_vol_step(scene, params, part, defer_light=False):
     not needed; with defer_light=True escaped lanes only set `esc`, and the
     caller applies finish(vs, esc_pending) once after a batch of steps: the
     light pass draws nothing and (o, d, beta) freeze at escape, so this
-    changes only when the pass is paid."""
+    changes only when the pass is paid.  cells, the density's packed cell
+    table (media.pack_density_cells), replaces its derivation here, and
+    step(vs, tables) / finish(vs, mask, tables) take another (light
+    partition, cells) pair for one call (the replay machine's, derived in
+    every round from its leaf tensors)."""
     medium = scene.medium
     lights = scene.lights
     dev = medium.density.device
     # a tensor on the medium's device: CUDA divides by a host scalar as a
     # product with its reciprocal, which is not the same bits
     sigma_maj = torch.tensor(float(np.float32(medium.sigma_maj)), device=dev)
-    cells = pack_density_cells(medium.density)  # once per trace
+    if cells is None:
+        cells = pack_density_cells(medium.density)  # once per trace
+    tables0 = (part, cells)
 
-    def light(vs, mask):
-        le, _, _ = _nearest_light(lights, part, vs.o, vs.d,
+    def light(vs, mask, tables=None):
+        le, _, _ = _nearest_light(lights, (tables or tables0)[0], vs.o, vs.d,
                                   torch.full_like(vs.t_cur, INF))
         return replace(vs, l_out=vs.l_out + torch.where(
             mask[:, None], le * vs.beta, 0.0))
 
-    def step(vs: VolState):
+    def step(vs: VolState, tables=None):
+        part_now, cells_now = tables or tables0
         # ---- a new segment: SampleT_maj's entry (media.h:128-140)
         setup = vs.alive & vs.new_ray
         _, st = rng.masked_next_float(vs.state, setup)  # u: drawn, unused
@@ -133,7 +143,8 @@ def _make_vol_step(scene, params, part, defer_light=False):
         t = t_cur + sample_exponential_decay(u_t, sigma_maj)
         left_segment = flying & (t >= t_exit)
         p = vs.o + vs.d * t[:, None]
-        inside, s_a, s_s, le_med = medium_properties_cells(medium, cells, p)
+        inside, s_a, s_s, le_med = medium_properties_cells(medium, cells_now,
+                                                           p)
         in_medium = flying & ~left_segment
         left_medium = in_medium & ~inside  # SampleMedium returned false
 
@@ -178,10 +189,19 @@ def _make_vol_step(scene, params, part, defer_light=False):
             u_mode=u_mode, t_cur=t_cur, t_exit=t_exit, o=o, d=d, state=st,
             beta=beta, l_out=l_out)
         if not defer_light:
-            out = light(out, esc)
+            out = light(out, esc, (part_now, cells_now))
         return out, vs.alive & ended, esc
 
     return step, light
+
+
+def derive_tables(scene, base=None):
+    """The tables a flight step derives from the scene's trainable tensors:
+    (the light partition, the density's packed cells); with base (an
+    earlier result of the same scene) by device operations only, as the
+    replay machine's rounds derive them (_VolReplayParts)."""
+    return (derive_light_tables(scene, None if base is None else base[0]),
+            pack_density_cells(scene.medium.density))
 
 
 def _vol_state(o, d, state):
@@ -301,18 +321,18 @@ def _camera_spawn(scene, params, samples, render_w, chunk_base,
     return spawn
 
 
-def _fused_round(step, finish, vs):
+def _fused_round(step, finish, vs, tables=None):
     """FUSE_STEPS flight steps, then the escape light pass once: (vs',
-    died, segment starts)."""
+    died, segment starts); tables as for _make_vol_step's step."""
     died = torch.zeros_like(vs.alive)
     esc_pending = torch.zeros_like(vs.alive)
     seg = torch.zeros((), dtype=torch.int64, device=vs.o.device)
     for _ in range(FUSE_STEPS):
         seg = seg + _segment_starts(vs)
-        vs, died_k, esc_k = step(vs)
+        vs, died_k, esc_k = step(vs, tables)
         died = died | died_k
         esc_pending = esc_pending | esc_k
-    return finish(vs, esc_pending), died, seg
+    return finish(vs, esc_pending, tables), died, seg
 
 
 def _respawn(vs, respawn, o, d, state):
@@ -332,15 +352,17 @@ def _respawn(vs, respawn, o, d, state):
 
 
 def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
-                 **shard):
+                 tables=None, **shard):
     """The work queue (volume analogue of path._balanced_parts).
 
-    Returns (init, step_round, n): init() -> core0, and step_round(core)
-    -> (core', died, l, item, segment starts), where l is the radiance of
-    the lanes whose walk ended this round and item the item each lane
-    carried into it.  Both read samples and chunk_base (an int or a ()
-    int64 tensor) as they are when they run.  shard: pix_offset,
-    n_pix_total, row_map (_camera_spawn)."""
+    Returns (init, step_round, n): init() -> core0, and step_round(core,
+    tables=None) -> (core', died, l, item, segment starts), where l is the
+    radiance of the lanes whose walk ended this round and item the item
+    each lane carried into it.  Both read samples and chunk_base (an int
+    or a () int64 tensor) as they are when they run.  tables:
+    derive_tables's (light partition, density cells), derived here if
+    None; step_round's tables replace them for one round.  shard:
+    pix_offset, n_pix_total, row_map (_camera_spawn)."""
     spp_chunk, n_pix = samples.shape[0], samples.shape[1]
     total = spp_chunk * n_pix
     n = n_lanes or vol_lanes(total)
@@ -359,13 +381,13 @@ def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
         return (vs0, item0,
                 torch.full((), min(n, total), dtype=torch.int64, device=dev))
 
-    step, finish = _make_vol_step(scene, params,
-                                  _light_partition(scene.lights, dev),
-                                  defer_light=True)
+    part, cells = tables or derive_tables(scene)
+    step, finish = _make_vol_step(scene, params, part, defer_light=True,
+                                  cells=cells)
 
-    def step_round(core):
+    def step_round(core, tables=None):
         vs, item, head = core
-        vs, died, seg = _fused_round(step, finish, vs)
+        vs, died, seg = _fused_round(step, finish, vs, tables)
         l_done = vs.l_out
         # pull the next queue items (prefix sum over this round's deaths)
         dy = died.to(torch.int64)
@@ -379,7 +401,7 @@ def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
 
 
 def _static_parts(scene, samples, params, render_w, chunk_base, n_lanes,
-                  **shard):
+                  tables=None, **shard):
     """Static strided assignment: lane i owns items {i, i+n, i+2n, ...}
     (the `local`-th of them is item local * n + i).  The same interface as
     _queue_parts (init() lays the samples out by lane); an item keeps its
@@ -406,13 +428,13 @@ def _static_parts(scene, samples, params, render_w, chunk_base, n_lanes,
         o0, d0, st0, live0 = spawn(local0)
         return (replace(_vol_state(o0, d0, st0), alive=live0), local0)
 
-    step, finish = _make_vol_step(scene, params,
-                                  _light_partition(scene.lights, dev),
-                                  defer_light=True)
+    part, cells = tables or derive_tables(scene)
+    step, finish = _make_vol_step(scene, params, part, defer_light=True,
+                                  cells=cells)
 
-    def step_round(core):
+    def step_round(core, tables=None):
         vs, local = core
-        vs, died, seg = _fused_round(step, finish, vs)
+        vs, died, seg = _fused_round(step, finish, vs, tables)
         l_done = vs.l_out
         # advance to the lane's next item
         nxt = local + 1
@@ -545,8 +567,10 @@ def trace_vol_static(scene, accel, samples, params, render_w, render_h,
 
 
 class _VolReplay:
-    """Path replay over a volume machine: sum(cot * la) and its gradient
-    with respect to the scene's tensors that require grad."""
+    """The per-round path replay over a volume machine (the reference of
+    the kept machine's tests, per_round=True): sum(cot * la) and its
+    gradient with respect to the scene's tensors that require grad, one
+    round per host check both ways, eagerly."""
 
     def __init__(self, machine, scene, samples, cot, params, render_w,
                  chunk_base, n_lanes, **shard):
@@ -560,10 +584,7 @@ class _VolReplay:
         self.rays = 0
 
     def _contribution(self, died, l_done, item):
-        # alpha is the constant 1: its cotangent adds c[:, 3] per item
-        c = self.cot_flat[item.clamp(0, self.total - 1)]
-        per_lane = (c[:, :3] * l_done).sum(-1) + c[:, 3]
-        return (per_lane * died.to(l_done.dtype)).sum()
+        return _contribution(self.cot_flat, died, l_done, item)
 
     def forward(self):
         """The rounds without a graph, keeping each round's incoming carry;
@@ -573,8 +594,7 @@ class _VolReplay:
                                                **self.shard)
             loss = torch.zeros((), device=self.cot_flat.device)
             rays = torch.zeros((), dtype=torch.int64, device=loss.device)
-            # the replay keeps each round's carry: its forward and backward
-            # passes stay on the per-round loop (no CUDA graph)
+            # one round, then a host check; the carries kept in a list
             while (len(self.saved) < MAX_STEPS
                    and bool(core[0].alive.any())):
                 self.saved.append(core)
@@ -624,39 +644,117 @@ class _VolReplay:
         return grads
 
 
-def _replay_loss(machine, scene, samples, cot, params, render_w, chunk_base,
-                 n_lanes, **shard):
+def _contribution(cot_flat, died, l_done, item):
+    """The loss of the walks that ended in a round: alpha is the constant 1,
+    so its cotangent adds c[:, 3] per item."""
+    c = cot_flat[item.clamp(0, cot_flat.shape[0] - 1)]
+    per_lane = (c[:, :3] * l_done).sum(-1) + c[:, 3]
+    return (per_lane * died.to(l_done.dtype)).sum()
+
+
+class _VolReplayParts:
+    """A volume machine's side of a replay.ReplayMachine: the machine's
+    round with its loss contribution (the light and density tables derived
+    in the round from the scene's leaves), and the carry's adjoint leaves
+    (beta, l_out: the only carried floats that depend on a parameter)."""
+
+    def __init__(self, parts, params, render_w, n_lanes, pix_offset,
+                 n_pix_total):
+        self.parts, self.params = parts, params
+        self.render_w, self.n_lanes = render_w, n_lanes
+        self.shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total)
+
+    def make(self, scene, samples, chunk_base, row_map, cot_flat,
+             replaying):
+        base = derive_tables(scene)
+        init, step_round, _ = self.parts(
+            scene, samples, self.params, self.render_w, chunk_base,
+            self.n_lanes, tables=base, row_map=row_map, **self.shard)
+
+        def round_(core):
+            out, died, l_done, item, seg = step_round(
+                core, derive_tables(scene, base))
+            return out, _contribution(cot_flat, died, l_done, item), seg
+
+        return init, round_, None
+
+    @staticmethod
+    def adjoint(vs):
+        return [vs.beta, vs.l_out]
+
+    @staticmethod
+    def with_adjoint(vs, vals):
+        return replace(vs, beta=vals[0], l_out=vals[1])
+
+
+def _replay_loss(parts, forward, scene, samples, cot, params, render_w,
+                 render_h, n_rounds, chunk_base, n_lanes, machines,
+                 per_round, **shard):
     if scene.medium is None:
         la, rays, _ = _no_medium_la(scene, samples, params, render_w, **shard)
         return (cot * la).sum(), rays, 0, 0
-    replay = _VolReplay(machine, scene, samples, cot, params, render_w,
-                        chunk_base, n_lanes, **shard)
-    loss = ReplayLoss.apply(replay, *replay.leaves)
-    return loss, replay.rays, 0, len(replay.saved)
+    if per_round:
+        replay = _VolReplay(_made(parts), scene, samples, cot, params,
+                            render_w, chunk_base, n_lanes, **shard)
+        loss = ReplayLoss.apply(replay, *replay.leaves)
+        return loss, replay.rays, 0, len(replay.saved)
+    machines = {} if machines is None else machines
+    row_map = shard["row_map"]
+    row_shape = None if row_map is None else tuple(row_map.shape)
+    key = (parts.__name__ + "_replay", tuple(samples.shape[:2]), render_w,
+           n_lanes, shard["pix_offset"], shard["n_pix_total"], row_shape,
+           params, scene_signature(scene))
+    leaves = scene_leaves(scene)
+
+    def build():
+        vol_parts = _VolReplayParts(parts, params, render_w, n_lanes,
+                                    shard["pix_offset"], shard["n_pix_total"])
+        # the forward's MAX_STEPS cut, whatever the capacity
+        return ReplayMachine(vol_parts, scene, leaves, key[1], row_shape,
+                             samples.device, max_rounds=MAX_STEPS)
+
+    def measure():
+        with torch.no_grad():
+            return forward(scene, None, samples, params, render_w, render_h,
+                           chunk_base, n_lanes, machines=machines,
+                           **shard)[2]
+
+    return replay_loss(machines, key, build, leaves, samples, cot,
+                       chunk_base, row_map, n_rounds, measure)
 
 
 def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
                         render_h, n_rounds=None, chunk_base=0, n_lanes=0,
-                        pix_offset=0, n_pix_total=None, row_map=None):
+                        pix_offset=0, n_pix_total=None, row_map=None,
+                        machines=None, per_round=False):
     """Differentiable work-queue wavefront: loss = sum(cot * la), with
     gradients by path replay (path.trace_balanced_loss's contract).
 
-    The forward pass runs the rounds without a graph and keeps each round's
-    incoming carry (O(lanes) per round); the backward pass re-runs them in
-    reverse with the graph on.  cot: (spp_chunk, P, 4).  n_rounds is
-    accepted and ignored (the loop ends when no lane is alive).  Returns
-    (loss, rays, unfinished = 0, rounds).  pix_offset, n_pix_total and
-    row_map place a shard's items in the global grid (trace_balanced)."""
-    return _replay_loss(_queue_machine, scene, samples, cot, params,
-                        render_w, chunk_base, n_lanes, pix_offset=pix_offset,
+    The forward pass runs the rounds without an autograd graph and keeps
+    each round's incoming carry (O(lanes) per round) in the kept replay
+    machine's store; the backward pass re-runs them in reverse with the
+    graph on (on the card: the forward k rounds to a host check, the
+    backward one captured round graph replayed once a round).  cot:
+    (spp_chunk, P, 4).  n_rounds: the store's capacity (None: the kept
+    machine's, or the forward's padded count); walks that MAX_STEPS cuts
+    are not unfinished.  machines, per_round: as for
+    path.trace_balanced_loss.  Returns (loss, rays, unfinished, rounds).
+    pix_offset, n_pix_total and row_map place a shard's items in the
+    global grid (trace_balanced)."""
+    return _replay_loss(_queue_parts, trace_balanced, scene, samples, cot,
+                        params, render_w, render_h, n_rounds, chunk_base,
+                        n_lanes, machines, per_round, pix_offset=pix_offset,
                         n_pix_total=n_pix_total, row_map=row_map)
 
 
 def trace_vol_static_loss(scene, accel, samples, cot, params, render_w,
                           render_h, n_rounds=None, chunk_base=0, n_lanes=0,
-                          pix_offset=0, n_pix_total=None, row_map=None):
+                          pix_offset=0, n_pix_total=None, row_map=None,
+                          machines=None, per_round=False):
     """The replay counterpart of trace_vol_static (trace_balanced_loss's
     contract): the gradient route of grad.py."""
-    return _replay_loss(_static_machine, scene, samples, cot, params,
-                        render_w, chunk_base, n_lanes, pix_offset=pix_offset,
-                        n_pix_total=n_pix_total, row_map=row_map)
+    return _replay_loss(_static_parts, trace_vol_static, scene, samples,
+                        cot, params, render_w, render_h, n_rounds,
+                        chunk_base, n_lanes, machines, per_round,
+                        pix_offset=pix_offset, n_pix_total=n_pix_total,
+                        row_map=row_map)

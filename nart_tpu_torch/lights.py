@@ -347,7 +347,7 @@ def pack_area_lights(lights):
 
     zneg, xpos, ypos = (_vec(v, rows[0].xf) for v in
                         ([0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]))
-    tex_off, tex_w, tex_h, chunks = [], [], [], []
+    tex_off, tex_w, tex_h = [], [], []
     off = 0
     for li in rows:
         if li.le_tex is None:
@@ -359,7 +359,6 @@ def pack_area_lights(lights):
             tex_off.append(off)
             tex_w.append(w)
             tex_h.append(h)
-            chunks.append(li.le_tex.reshape(h * w, 3))
             off += h * w
     ring = [li.kind == LIGHT_RING for li in rows]
     pack = AreaLightPack(
@@ -379,19 +378,38 @@ def pack_area_lights(lights):
             for li, r in zip(rows, ring)
         ]),
         pdf0_ring_scale=t32([1.0 / (math.pi * li.radius**2) for li in rows]),
+        tex_off=i64(tex_off),
+        tex_w=i64(tex_w),
+        tex_h=i64(tex_h),
+        **_pack_radiance(rows, dev),
+    )
+    return pack, tuple(rest)
+
+
+def _pack_radiance(rows, dev):
+    """The pack's fields that derive from the lights' trainable tensors
+    (le, intensity, tex_atlas), by device operations only: no host-built
+    tensor, so no synchronisation."""
+    chunks = [li.le_tex.reshape(-1, 3) for li in rows if li.le_tex is not None]
+    return dict(
         le=torch.stack([
             torch.zeros(3, device=dev) if li.le_tex is not None
             else li.le_const * li.intensity
             for li in rows
         ]),
         intensity=torch.stack([li.intensity.reshape(()) for li in rows]),
-        tex_off=i64(tex_off),
-        tex_w=i64(tex_w),
-        tex_h=i64(tex_h),
         tex_atlas=(torch.cat(chunks) if chunks
                    else torch.zeros((1, 3), device=dev)),
     )
-    return pack, tuple(rest)
+
+
+def refresh_area_pack(pack, lights):
+    """pack (pack_area_lights of lights of the same kinds, shapes and
+    placement) with its radiance fields derived anew from lights' Le,
+    intensity and Le textures: the replay machines' per-call
+    derivation."""
+    return pack._replace(**_pack_radiance([lights[i] for i in pack.index],
+                                          pack.le.device))
 
 
 def _pack_st(pack, sel, delta):

@@ -30,6 +30,14 @@ nothing but costs what a live round costs: at most k - 1 of them run a
 call.  ``max_rounds`` gates each round on the device count, which keeps
 the volume's MAX_STEPS cut exact.
 
+``ReplayRunner`` runs a path replay (replay.py) on the same schedule: its
+forward rounds as above, each handed the slot of the caller's per-round
+store at which it writes its incoming carry (the device count before the
+round), and its backward as one round function replayed once for each
+live round, last to first, the slot counted down on the device: on the
+card one captured CUDA graph replayed back to back with no host read, on
+the CPU eagerly.  Its ``max_rounds`` is the store's capacity.
+
 A failed capture or replay raises.  Whether the rounds run eagerly is
 decided by the device, or by the caller's route (integrators/path.py
 names the routes that never capture), never by an error.
@@ -60,13 +68,21 @@ def carry_tensors(x):
     return [t for v in x for t in carry_tensors(v)]
 
 
-def _clone(x):
-    if torch.is_tensor(x):
-        return x.clone()
+def rebuild(x, tensors):
+    """x's structure (tuples, named tuples, dataclasses) with its tensors
+    taken from the iterator `tensors` in carry_tensors' order; a None in x
+    stands for a tensor (a structure kept without its tensors)."""
+    if x is None or torch.is_tensor(x):
+        return next(tensors)
     if is_dataclass(x):
-        return replace(x, **{f.name: _clone(getattr(x, f.name))
+        return replace(x, **{f.name: rebuild(getattr(x, f.name), tensors)
                              for f in fields(x)})
-    return tuple(_clone(v) for v in x)
+    vals = [rebuild(v, tensors) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def _clone(x):
+    return rebuild(x, (t.clone() for t in carry_tensors(x)))
 
 
 def _copy_into(dst, src):
@@ -97,14 +113,18 @@ class RoundRunner:
         self.replays = 0
         self.rounds_run = 0  # rounds the device ran, live and dead
 
+    def _gate(self, core):
+        """core with its lanes gated by max_rounds on the device count."""
+        if self.max_rounds is None:
+            return core
+        alive = core[0].alive & (self.rounds < self.max_rounds)
+        return (replace(core[0], alive=alive),) + tuple(core[1:])
+
     def _round(self, core):
         """One round of core, gated by max_rounds and counted on the
         device."""
-        alive = core[0].alive
-        if self.max_rounds is not None:
-            alive = alive & (self.rounds < self.max_rounds)
-            core = (replace(core[0], alive=alive),) + tuple(core[1:])
-        self.rounds.add_(alive.any())
+        core = self._gate(core)
+        self.rounds.add_(core[0].alive.any())
         return self.round_fn(core)
 
     def _live(self, core):
@@ -152,39 +172,122 @@ class RoundRunner:
         return self.carry
 
     def _capture(self):
-        dev = self.rounds.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            # the chunk's first round, eagerly: it builds what a round
-            # builds on first use before anything is captured
+        def warm():
             _copy_into(self.carry, self._round(self.carry))
             self.flag.copy_(self._live(self.carry))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.rounds_run += 1
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        cluster_accel.reset_captured_launches()
-        # a graph that dies during a capture (cyclic garbage collected
-        # then) is destroyed by a call the capture does not permit, which
-        # invalidates it: collect now and not during the capture
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                core = self.carry
-                for _ in range(self.k):
-                    core = self._round(core)
-                # the rounds' outputs live in the graph's pool: copy the
-                # last into the static carry, and hold no reference to them
-                _copy_into(self.carry, core)
-                del core
-                self.flag.copy_(self._live(self.carry))
-        finally:
-            if was_enabled:
-                gc.enable()
-        self.graph = graph
-        self.launches = dict(cluster_accel.captured_launches)
+
+        def body():
+            core = self.carry
+            for _ in range(self.k):
+                core = self._round(core)
+            # the rounds' outputs live in the graph's pool: copy the last
+            # into the static carry (the reference dies with this frame)
+            _copy_into(self.carry, core)
+            self.flag.copy_(self._live(self.carry))
+
+        self.graph, self.launches, dt = _capture(self.rounds.device, warm,
+                                                 body)
+        self.rounds_run += 1  # warm's
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += dt
+
+
+def _capture(dev, warm, body):
+    """warm() eagerly on a side stream (the first round, which builds what
+    a round builds on first use before anything is captured), then body()
+    captured into a new CUDA graph.  Returns (the graph, the traversal
+    launches of one replay, capture + instantiate seconds)."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    cluster_accel.reset_captured_launches()
+    # a graph that dies during a capture (cyclic garbage collected then) is
+    # destroyed by a call the capture does not permit, which invalidates
+    # it: collect now and not during the capture
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            body()
+    finally:
+        if was_enabled:
+            gc.enable()
+    return graph, dict(cluster_accel.captured_launches), \
+        time.perf_counter() - t0
+
+
+class ReplayRunner(RoundRunner):
+    """The runner of a path replay (replay.ReplayMachine).
+
+    Forward: RoundRunner's schedule with ``max_rounds`` the store's
+    capacity (or the caller's own cut, if smaller), calling
+    ``round_fn(core, slot)``: slot, a (1,) int64 tensor, is the device
+    count before the round, so the live rounds write slots 0, 1, ... and a
+    round past the end (or past the capacity) writes the first slot not
+    live, which the store keeps spare.  ``cut`` counts the lanes still
+    alive when the capacity ran out (the caller's "unfinished").
+
+    Backward: ``run_backward(n)`` calls ``back_fn(slot)`` n times with slot
+    = rounds - 1, rounds - 2, ..., 0, counted down on the device: on the
+    card the first call runs the first of them eagerly on a side stream,
+    captures one into a CUDA graph, and every call replays that graph back
+    to back with no host read; on the CPU (or with ``graph`` off) the same
+    rounds run eagerly."""
+
+    def __init__(self, round_fn, back_fn, capacity, k=None, max_rounds=None,
+                 graph=True):
+        super().__init__(round_fn, k, capacity if max_rounds is None
+                         else min(capacity, max_rounds), graph)
+        self.back_fn = back_fn
+        self.capacity = capacity
+        self.cut = None  # () int64 on the device
+        self.slot = None  # (1,) int64 on the device: the backward's round
+        self.back_graph = None
+        self.back_launches = {}
+        self.back_rounds = 0  # backward rounds run (captures counts both
+        # graphs, replays the forward's)
+
+    def _round(self, core):
+        self.cut.add_((core[0].alive & (self.rounds >= self.max_rounds)).sum())
+        core = self._gate(core)
+        slot = self.rounds.reshape(1).clone()
+        self.rounds.add_(core[0].alive.any())
+        return self.round_fn(core, slot)
+
+    def run(self, core0):
+        if self.cut is None:
+            dev = core0[0].alive.device
+            self.cut = torch.zeros((), dtype=torch.int64, device=dev)
+            self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.cut.zero_()
+        return super().run(core0)
+
+    def _back_round(self):
+        self.back_fn(self.slot)
+        self.slot.sub_(1)
+
+    def run_backward(self, n):
+        """The backward over the last run's n live rounds (n read by the
+        caller at the forward's end)."""
+        self.slot.copy_(self.rounds - 1)
+        if n > 0 and self.slot.device.type == "cuda" and self.graph_on:
+            if self.back_graph is None:
+                self.back_graph, self.back_launches, dt = _capture(
+                    self.slot.device, self._back_round, self._back_round)
+                self.captures += 1
+                self.capture_s += dt
+                self.back_rounds += 1
+                n -= 1
+            for _ in range(n):
+                self.back_graph.replay()
+                for name, c in self.back_launches.items():
+                    cluster_accel.launch_counts[name] += c
+        else:
+            for _ in range(n):
+                self._back_round()
+        self.back_rounds += n

@@ -251,14 +251,16 @@ def render_sharded(session, layout: Layout):
 
 def radiance_weighted_loss_and_grad_shard(
         scene, theta, accel, samples, cot, params, width, height,
-        layout: Layout, rank: int, chunk_base=0, lanes=0, device=None):
+        layout: Layout, rank: int, chunk_base=0, lanes=0, device=None,
+        machines=None):
     """One rank's share of grad.radiance_weighted_loss_and_grad: its
     (strips, sample slab) block of the items of samples (spp, width *
     height, 2) and cot (spp, width * height, 4), replayed with the block's
     row_map, n_pix_total = width * height and chunk_base + the slab start,
     so every item keeps its global stream.  Needs no process group.
-    Returns (loss, grads, rays, rounds) of the block; the losses and the
-    gradients of all ranks of the layout sum to the whole chunk's."""
+    machines: the rank's kept replay machines (grad's).  Returns (loss,
+    grads, rays, rounds) of the block; the losses and the gradients of all
+    ranks of the layout sum to the whole chunk's."""
     fb = int(np.ceil(params.filter_width))
     _, rows, (s0, s1) = _block(layout, rank, width, height, fb,
                                samples.shape[0])
@@ -274,12 +276,12 @@ def radiance_weighted_loss_and_grad_shard(
         scene, theta, accel, samples[s0:s1][:, pix],
         cot[s0:s1][:, pix.to(cot.device)], params, width, rows.shape[0],
         chunk_base=chunk_base + s0, lanes=lanes, device=device,
-        n_pix_total=width * height, row_map=rows)
+        n_pix_total=width * height, row_map=rows, machines=machines)
 
 
 def radiance_weighted_loss_and_grad_sharded(
         scene, theta, accel, samples, cot, params, width, height,
-        layout: Layout, chunk_base=0, lanes=0, device=None):
+        layout: Layout, chunk_base=0, lanes=0, device=None, machines=None):
     """radiance_weighted_loss_and_grad_shard of this process's rank, then
     one all_reduce (SUM) of the loss and one of every gradient leaf,
     flattened into one buffer.  Returns (loss, grads, rays, rounds): the
@@ -288,7 +290,7 @@ def radiance_weighted_loss_and_grad_sharded(
     _check_world(layout)
     loss, grads, rays, rounds = radiance_weighted_loss_and_grad_shard(
         scene, theta, accel, samples, cot, params, width, height, layout,
-        dist.get_rank(), chunk_base, lanes, device)
+        dist.get_rank(), chunk_base, lanes, device, machines)
     loss = all_reduce_sum(loss.clone())
     flat = all_reduce_sum(grad.flatten_leaves(grads))
     return loss, grad.unflatten_like(flat, grads), rays, rounds

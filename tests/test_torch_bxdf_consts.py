@@ -53,11 +53,11 @@ def test_no_host_constant_inside_a_round(monkeypatch, make):
     def make_bounce(*a, **k):
         body = real_make_bounce(*a, **k)
 
-        def counted(bounce, p):
+        def counted(bounce, p, *tables):
             where["round"] += 1
             where["inside"] = True
             try:
-                return body(bounce, p)
+                return body(bounce, p, *tables)
             finally:
                 where["inside"] = False
         return counted

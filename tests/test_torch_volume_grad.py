@@ -108,7 +108,8 @@ def test_balanced_loss_and_grads_match_jax(name):
     np.testing.assert_allclose(float(loss_t), own, rtol=1e-4)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4)
     assert rays_t == rays_f == float(rays_j)
-    assert rounds == rounds_f > SPP * W * H // LANES  # n_rounds ignored
+    # n_rounds = 3 falls short of the count: the entry regrew the store
+    assert rounds == rounds_f > SPP * W * H // LANES > 3
     _assert_grads_match(grads_t, jax.tree_util.tree_map(np.asarray, grads_j))
     for k in ("sigma_a", "sigma_s", "le", "density"):
         assert float(grads_t["medium"][k].abs().sum()) > 0, k
