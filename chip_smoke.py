@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero):
   1. device: require CUDA; print the card's name and nvidia-smi's
      "name, power.limit" line;
   2. build: compile the CUDA kernels from nart_tpu_torch/csrc into
-     build/nart_tpu_torch (timed);
+     build/nart_tpu_torch, one nvcc a source, all started together (timed);
   3. kernels against their plain PyTorch versions on the card: (a) the
      macbeth scene's clusters with 65,536 camera rays and 131,072
      random-direction rays from the hit points (25% with t_max = 0);
@@ -28,7 +28,8 @@ Phases (any failure raises and exits non-zero):
      warm run (it captures the session's k-round CUDA graph), one timed
      run with launch counters reset just before it: K1 and K2 launched
      once in every round the card ran (the rounds past the end of the last
-     replay, fewer than k, included), one capture for both runs;
+     replay, fewer than k, included), one capture for both runs; the
+     look-up kernel launched, its backward never;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
@@ -41,8 +42,12 @@ Phases (any failure raises and exits non-zero):
      gradients nonzero, and the closest-hit and any-hit kernels launched
      once in every forward round the card ran (the live rounds plus fewer
      than k past the end) and never in the backward (its graph captured no
-     launch).  Then the forward queue alone, twice on one kept machine
-     (the first call captures its graph);
+     launch); the look-up kernel in the forward's graph, it and its
+     backward in the backward's round graph.  The timed call once more
+     under torch.profiler: the top device operations and the shares of
+     indexing_backward_kernel* and of the look-up kernels.  Then the
+     forward queue alone, twice on one kept machine (the first call
+     captures its graph);
   7. gradients through the kernels against the same call on the CPU
      (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
      1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
@@ -142,11 +147,32 @@ Phases (any failure raises and exits non-zero):
      and rounds, K1/K2 launched once a forward round run on the graphed
      route and once a round on the per-round one (none on the volume);
      logged: each route's wall s and rate, rounds run and live, capture s,
-     peak and held MiB, the card's busy share of the graphed call.
-The line before the last is the kernels' JSON record (launches_sharded:
-phases 13-15, launches_bench: phase 18); the last line is {"ok": true,
-"device": {...}}.  Needs the repository checkout (it imports nart_tpu_torch
-from beside this file); imports nothing of JAX.
+     peak and held MiB, the card's busy share of the graphed call, its top
+     device operations with the shares of indexing_backward_kernel* and of
+     the look-up kernels;
+ 23. small-table look-ups (csrc/small_lut.cu) against their plain versions
+     on the card: N in {65,536, 131,072} lanes, tables of n in {1, 3, 4,
+     16, 64} rows of 1 or 3 values, indices uniform, all on one row, and
+     the mesh ids of 65,536 macbeth camera rays' hits.  The forward kernel
+     gives the plain gather's bits; the backward kernel is within rtol 1e-5
+     / atol 1e-6 of a float64 index_add_ of the same cotangents (positive
+     ones; for signed ones, whose sums cancel, within atol plus rtol times
+     the float64 sum of their magnitudes), and for integer cotangents in
+     [-8, 8] (float32 sums exact in any order) the int64 index_add_'s bits;
+     the same bits on a second launch and from a CUDA graph's replay.
+     Logged at
+     three shapes (macbeth's mesh ids, the bench's one light row at
+     131,072 lanes, 64 rows): the median CUDA-event ms of each kernel, of
+     the plain versions (table[idx]; index_put_(accumulate=True), whose
+     indexing_backward kernel is the plain backward), of F.embedding and
+     embedding_dense_backward (the library yardstick, timed only), and the
+     bound.
+The line before the last is the kernels' JSON record (`launches`: a
+traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
+fwd+bwd; launches_sharded: phases 13-15, launches_bench: phase 18); the
+last line is {"ok": true, "device": {...}}.  Needs the repository
+checkout (it imports nart_tpu_torch from beside this file); imports nothing
+of JAX.
 """
 
 import json
@@ -157,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -169,13 +196,25 @@ VOLUME_GOLDEN = os.path.join(HERE, "tests", "golden",
                              "volume_blob_96x96_32spp.exr")
 CORNELL = os.path.join(HERE, "tests", "golden", "cornell.json")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
+LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
 DEVICE = "cuda"  # every phase runs on the card
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             "any_hit": "nart_tpu/pallas_accel.py:773",  # _kernel_any
             "closest_hit_stats": "tools/kernel_stats.py:27",  # _kernel_stats
             # the same counters, on _kernel_any's walk
-            "any_hit_stats": "tools/kernel_stats.py:27"}
+            "any_hit_stats": "tools/kernel_stats.py:27",
+            # no Pallas kernel: the one-hot look-up small_lut (and
+            # materials.mesh_luts, nart_tpu/materials.py:96), forward and
+            # its transpose
+            "lut_gather": "nart_tpu/select.py:59",
+            "lut_gather_bwd": "nart_tpu/select.py:59"}
 KERNELS = tuple(REPLACES)
+TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
+SOURCES = {k: SOURCE if k in TRAVERSAL else LUT_SOURCE for k in KERNELS}
+# the profiler's names of the look-up kernels, and of PyTorch's backward of
+# a gather (the plain version's)
+LUT_NAMES = ("lut_gather_kernel", "lut_partial_kernel", "lut_final_kernel")
+INDEXING_BACKWARD = "indexing_backward"
 TRI_AGREE = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
@@ -318,13 +357,27 @@ def bound(acc, n_rays, out_bytes_per_ray, stats):
             "bytes": nbytes, "operations": ops}
 
 
+def camera_rays(sc, n, rng, device):
+    """(o, d, t_min, t_max) of n rays through random pixels of the scene's
+    camera at 1280x720 (t in [0, inf))."""
+    import torch
+
+    from nart_tpu_torch import camera
+
+    px = torch.from_numpy(rng.integers(0, 1280, n))
+    py = torch.from_numpy(rng.integers(0, 720, n))
+    jit = torch.from_numpy(rng.random((n, 2), dtype=np.float32))
+    o, d = camera.cast_rays(sc.cam_to_world, sc.fov, 1280, 720, px, py, jit)
+    return (o.to(device), d.to(device), torch.zeros(n, device=device),
+            torch.full((n,), float("inf"), device=device))
+
+
 def kernel_checks(device, sizes):
     """Phase 3.  Returns the per-kernel records at the main-path shapes
     (the macbeth rays)."""
     import torch
 
-    from nart_tpu_torch import (camera, cluster_accel as ca, kernel_stats,
-                                scene)
+    from nart_tpu_torch import cluster_accel as ca, kernel_stats, scene
 
     rng = np.random.default_rng(0)
     sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
@@ -334,14 +387,8 @@ def kernel_checks(device, sizes):
 
     # (a1) camera rays through random pixels of the 1280x720 view
     n = sizes["camera_rays"]
-    px = torch.from_numpy(rng.integers(0, 1280, n))
-    py = torch.from_numpy(rng.integers(0, 720, n))
-    jit = torch.from_numpy(rng.random((n, 2), dtype=np.float32))
-    o, d = camera.cast_rays(sc.cam_to_world, sc.fov, 1280, 720, px, py, jit)
-    o, d = o.to(device), d.to(device)
-    t_min = torch.zeros(n, device=device)
-    t_max = torch.full((n,), float("inf"), device=device)
-    cam = (o, d, t_min, t_max)
+    cam = camera_rays(sc, n, rng, device)
+    o, d = cam[:2]
     hk = ca.intersect_clusters(*cam, acc)
     hp = ca.closest_hit_plain(*cam, acc)
     frac, err_c = compare_closest("closest-hit camera", hk, hp)
@@ -477,15 +524,15 @@ def block_compare(ours, ref, mean_tol, block_tol, block_frac,
 
 def golden_check(device, size):
     """Phase 4."""
-    from nart_tpu_torch import cluster_accel as ca, exr, render, scene
+    from nart_tpu_torch import cuda_build, exr, render, scene
 
     sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
     params = render.resolve_params(
         {}, dict(image_width=size[0], image_height=size[1], spp=size[2]))
-    before = dict(ca.launch_counts)
+    before = dict(cuda_build.launch_counts)
     sess = render.RenderSession(sc, params, device)
     ours = sess.image().cpu().numpy()
-    grew = {k: ca.launch_counts[k] - before[k] for k in before}
+    grew = {k: cuda_build.launch_counts[k] - before[k] for k in before}
     log(f"golden render {size[0]}x{size[1]} {size[2]} spp: {sess.stats}, "
         f"launches {grew}")
     if min(grew["closest_hit"], grew["any_hit"]) <= 0:
@@ -500,7 +547,7 @@ def main_path(overrides):
     """Phase 5: returns the launch counts of the timed run."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, exr, film, render
+    from nart_tpu_torch import cuda_build, exr, film, render
     from nart_tpu_torch import rounds as rounds_mod
 
     params, sess = next(render.render_scene_file(MACBETH, overrides))
@@ -514,13 +561,13 @@ def main_path(overrides):
     log(f"warm run {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     before = machine_totals(sess.machines)
     t0 = time.perf_counter()
     buf = sess.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(ca.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     after = machine_totals(sess.machines)
     ran = after["rounds_run"] - before["rounds_run"]
     rays, rounds = sess.stats["rays"], sess.stats["rounds"]
@@ -550,6 +597,10 @@ def main_path(overrides):
     log(f"image {tuple(img.shape)} finite, mean {mean:.6f}; EXR written")
     if min(counts["closest_hit"], counts["any_hit"]) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
+    # the small tables' look-ups: the forward kernel in every round, the
+    # backward one never (no gradient)
+    if counts["lut_gather"] <= 0 or counts["lut_gather_bwd"]:
+        raise AssertionError(f"the forward's look-up launches: {counts}")
     return counts
 
 
@@ -558,12 +609,12 @@ def stats_path():
     launch counts."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, kernel_stats
+    from nart_tpu_torch import cuda_build, kernel_stats
 
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     out = kernel_stats.main([MACBETH, "--asset-root", MACBETH_DIR])
     torch.cuda.synchronize()
-    counts = dict(ca.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     if min(counts["closest_hit_stats"], counts["any_hit_stats"]) <= 0:
         raise AssertionError(f"a counter kernel was not launched: {counts}")
     for label, s in out.items():
@@ -629,11 +680,21 @@ def check_replay_launches(label, counts, rounds, ran, runner):
     if not (counts["closest_hit"] == counts["any_hit"] == ran
             and rounds <= ran < rounds + runner.k
             and runner.back_graph is not None
-            and not any(runner.back_launches.values())):
+            and not any(runner.back_launches.get(k, 0) for k in TRAVERSAL)):
         raise AssertionError(
             f"{label}: launches {counts}, {ran} forward rounds run for "
             f"{rounds} live, backward graph {runner.back_launches}: K1 and "
             "K2 launch once a forward round run and never in the backward")
+    # the small tables' look-ups: the forward kernel in the forward's
+    # rounds, both kernels in the backward's round graph
+    fwd, back = runner.launches, runner.back_launches
+    if not (fwd.get("lut_gather", 0) > 0 and not fwd.get("lut_gather_bwd", 0)
+            and back.get("lut_gather", 0) > 0
+            and back.get("lut_gather_bwd", 0) > 0
+            and counts["lut_gather_bwd"] > 0):
+        raise AssertionError(
+            f"{label}: look-up launches {counts}, per forward replay {fwd}, "
+            f"per backward round {back}")
 
 
 def device_busy(label, fn, wall_s, top=5):
@@ -665,10 +726,20 @@ def device_busy(label, fn, wall_s, top=5):
         f"copies = {100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
         f"{wall_s:.4f} s")
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
-    # the heaviest, and the traversal kernels wherever they rank
-    for name, (ns, n) in ranked[:top] + [kv for kv in ranked[top:]
-                                         if "walk_kernel" in kv[0]]:
+    # the heaviest, and the traversal and look-up kernels wherever they rank
+    ours = ("walk_kernel",) + LUT_NAMES
+    for name, (ns, n) in ranked[:top] + [
+            kv for kv in ranked[top:] if any(k in kv[0] for k in ours)]:
         log(f"    {name[:60]:60s} {ns / 1e6:10.3f} ms x{n}")
+    # the gathers' backward: PyTorch's (the large tables') and the look-up
+    # kernels' (the small tables')
+    for what, keys in (("indexing_backward_kernel*", (INDEXING_BACKWARD,)),
+                       ("look-up kernels (small_lut.cu)", LUT_NAMES)):
+        hits = [v for name, v in by_name.items()
+                if any(k in name for k in keys)]
+        ms = sum(ns for ns, _ in hits) / 1e6
+        log(f"    {what}: {ms:.3f} ms in {sum(n for _, n in hits)} launches "
+            f"= {100.0 * ms / busy_ms:.2f}% of the device time")
     return count, busy_ms / (1e3 * wall_s)
 
 
@@ -676,7 +747,13 @@ def training_path(spp):
     """Phase 6: returns the launch counts of the timed run."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, grad, render, scene
+    from nart_tpu_torch import (
+        cluster_accel as ca,
+        cuda_build,
+        grad,
+        render,
+        scene,
+    )
     from nart_tpu_torch.integrators import path
 
     # the camera's placeholder medium is a trainable leaf the path
@@ -705,9 +782,9 @@ def training_path(spp):
     runner = replay_runner(machines)
     ran = runner.rounds_run
     torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     (loss, grads, rays, rounds), dt = run()
-    counts = dict(ca.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     ran = runner.rounds_run - ran
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"timed run fwd+bwd {dt:.4f} s, {rounds} rounds ({ran} run by the "
@@ -715,6 +792,8 @@ def training_path(spp):
         f"{rays / dt / 1e6:.4f} Mrays/s fwd+bwd, launches {counts}, peak "
         f"device memory {peak:.1f} MiB")
     check_replay_launches("training path", counts, rounds, ran, runner)
+    # where the device time goes, the gathers' backward among it
+    device_busy("macbeth fwd+bwd, graphed", run, dt)
 
     # the forward alone, as a session runs it: its machine kept, the
     # k-round graph captured by the first call and replayed by the next
@@ -761,7 +840,13 @@ def card_against_cpu():
     """Phase 7."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, grad, render, testing
+    from nart_tpu_torch import (
+        cluster_accel as ca,
+        cuda_build,
+        grad,
+        render,
+        testing,
+    )
     from nart_tpu_torch.integrators import path
 
     sc = testing.simple_scene(("lambert",))
@@ -772,14 +857,14 @@ def card_against_cpu():
     theta = grad.get_params(sc)
     # 256 work slots for 2,048 items: a dozen rounds with respawns
     args = (sc, theta, acc, samples, cot, params, 32, 32, 0, 256)
-    before = dict(ca.launch_counts)
+    before = dict(cuda_build.launch_counts)
     machines = {}
     loss_k, grads_k, rays_k, rounds_k = grad.radiance_weighted_loss_and_grad(
         *args, machines=machines)
     # the forwards (the measuring one's and the replay's) launch K1 once in
     # every round they run
     ran = machine_totals(machines)["rounds_run"]
-    if (ca.launch_counts["closest_hit"] - before["closest_hit"] != ran
+    if (cuda_build.launch_counts["closest_hit"] - before["closest_hit"] != ran
             or ran < 2 * rounds_k):
         raise AssertionError("the card's gradient did not go through the "
                              "closest-hit kernel once per round run")
@@ -817,10 +902,10 @@ def card_against_cpu():
 
 
 def modes_path(size):
-    """Phase 8: returns the K1/K2 launches of the "spp" and "regen" runs."""
+    """Phase 8: returns the launches of the "spp" and "regen" runs."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, film, render, scene
+    from nart_tpu_torch import cuda_build, film, render, scene
 
     sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
     w, h, spp = size
@@ -829,12 +914,12 @@ def modes_path(size):
         params = render.resolve_params(
             {}, dict(image_width=w, image_height=h, spp=spp, wavefront=mode))
         sess = render.RenderSession(sc, params, DEVICE)
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         films[mode] = sess.render()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts[mode] = {k: ca.launch_counts[k] for k in KERNELS[:2]}
+        counts[mode] = dict(cuda_build.launch_counts)
         img = film.finalize(films[mode], w, h, sess.filter_bounds)
         means[mode] = float(img[..., :3].mean())
         if not bool(torch.isfinite(img).all()):
@@ -842,8 +927,9 @@ def modes_path(size):
         log(f"mode {mode}: macbeth {w}x{h} {spp} spp in {dt:.3f} s, "
             f"{sess.stats}, image mean {means[mode]:.6f}, launches "
             f"{counts[mode]}")
-        if min(counts[mode].values()) <= 0:
-            raise AssertionError(f"{mode}: K1 and K2 not both launched")
+        if min(counts[mode][k] for k in KERNELS[:2] + ("lut_gather",)) <= 0:
+            raise AssertionError(f"{mode}: K1, K2 and the look-up kernel "
+                                 "not all launched")
     if not torch.allclose(films["regen"], films["spp"], rtol=1e-5,
                           atol=1e-6):
         worst = float((films["regen"] - films["spp"]).abs().max())
@@ -855,7 +941,7 @@ def modes_path(size):
         if not rel < 0.03:
             raise AssertionError(f"{mode} mean {means[mode]} vs balanced "
                                  f"{means['balanced']}: {rel:.4f} apart")
-    return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS[:2]}
+    return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS}
 
 
 def volume_session(overrides=None, per_round=False):
@@ -872,18 +958,18 @@ def volume_session(overrides=None, per_round=False):
 
 
 def _no_traversal(label, counts):
-    if any(counts.values()):
+    if any(counts.get(k, 0) for k in TRAVERSAL):
         raise AssertionError(f"{label} launched a traversal kernel: {counts}")
 
 
 def volume_golden():
     """Phase 9."""
-    from nart_tpu_torch import cluster_accel as ca, exr
+    from nart_tpu_torch import cuda_build, exr
 
     params, sess = volume_session()
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     ours = sess.image().cpu().numpy()
-    _no_traversal("the volume golden", ca.launch_counts)
+    _no_traversal("the volume golden", cuda_build.launch_counts)
     log(f"volume golden render {params.image_width}x{params.image_height} "
         f"{params.spp} spp: {sess.stats}")
     ref = exr.read(VOLUME_GOLDEN)
@@ -913,7 +999,7 @@ def volume_forward(spp, window):
     """Phase 10: returns the launch counts of the timed run."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, exr, film, render
+    from nart_tpu_torch import cuda_build, exr, film, render
     from nart_tpu_torch.integrators import volume
 
     params, sess = volume_session(
@@ -926,12 +1012,12 @@ def volume_forward(spp, window):
     torch.cuda.synchronize()
     log(f"warm run {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     buf = sess.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(ca.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     rays, rounds = sess.stats["rays"], sess.stats["rounds"]
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"timed run {dt:.4f} s, {rounds} rounds "
@@ -976,7 +1062,7 @@ def volume_training(spp, window):
     """Phase 11: returns the launch counts of the timed fwd+bwd run."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, grad, render
+    from nart_tpu_torch import cuda_build, grad, render
     from nart_tpu_torch.integrators import volume
 
     params, sess = volume_session(
@@ -999,14 +1085,14 @@ def volume_training(spp, window):
     grad.radiance_weighted_loss_and_grad(sc, theta, None, samples, cot,
                                          params, w, h, machines=machines)
     torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, grads, rays, rounds = grad.radiance_weighted_loss_and_grad(
         sc, theta, None, samples, cot, params, w, h, machines=machines)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(ca.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"forward alone {dt_f:.4f} s ({rounds_f} rounds); fwd+bwd (after "
         f"a warm call that captured) {dt:.4f} s, {rounds} rounds, {rays} "
@@ -1139,7 +1225,7 @@ def sharded_virtual(spp):
     the one-process macbeth film (phase 14's reference)."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, render, sharding
+    from nart_tpu_torch import cuda_build, render, sharding
 
     params, sess = next(render.render_scene_file(MACBETH, {"spp": spp},
                                                   device=DEVICE))
@@ -1152,10 +1238,10 @@ def sharded_virtual(spp):
     counts = dict.fromkeys(KERNELS, 0)
     for shape in ((4, 1), (2, 2)):
         layout = sharding.Layout(*shape)
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         film, _ = _virtual_ranks(sess, layout, f"macbeth {layout}")
         for k in KERNELS:
-            counts[k] += ca.launch_counts[k]
+            counts[k] += cuda_build.launch_counts[k]
         _close_films(f"macbeth {layout}", film, single)
     # "regen" shards: whole rows on the per-pixel streams, Layout(2, 2)
     # counting as four row ranks; the strip splats add at distinct rows, so
@@ -1166,10 +1252,10 @@ def sharded_virtual(spp):
     single_r = sess_r.render()
     layout = sharding.Layout(2, 2)
     label = f"macbeth 320x180 regen {layout}"
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     film_r, _ = _virtual_ranks(sess_r, layout, label)
     for k in KERNELS:
-        counts[k] += ca.launch_counts[k]
+        counts[k] += cuda_build.launch_counts[k]
     _close_films(label, film_r, single_r)
     again = [sharding.render_shard(sess_r, layout, r)[0]
              for r in range(layout.world_size)]
@@ -1180,9 +1266,9 @@ def sharded_virtual(spp):
                                        "image_height": 720, "spp": spp})
     single_v = sess_v.render()
     layout = sharding.Layout(4, 1)
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     film_v, _ = _virtual_ranks(sess_v, layout, f"volume_blob {layout}")
-    _no_traversal("the sharded volume", ca.launch_counts)
+    _no_traversal("the sharded volume", cuda_build.launch_counts)
     _close_films(f"volume_blob {layout}", film_v, single_v)
     if min(counts["closest_hit"], counts["any_hit"]) <= 0:
         raise AssertionError(f"the sharded renders launched {counts}")
@@ -1216,13 +1302,13 @@ def rank_worker(rank, port, out_dir):
     import torch
 
     sys.path.insert(0, HERE)
-    from nart_tpu_torch import cluster_accel as ca, grad, render, sharding
+    from nart_tpu_torch import cuda_build, grad, render, sharding
 
     dev = sharding.init_distributed(f"tcp://127.0.0.1:{port}", rank, 2,
                                     backend="gloo", device="cuda:0")
     layout = sharding.Layout(2, 1)
     _, sess = next(render.render_scene_file(MACBETH, {"spp": 2}, device=dev))
-    ca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     film, stats = sharding.render_sharded(sess, layout)
     torch.cuda.synchronize()
@@ -1247,7 +1333,7 @@ def rank_worker(rank, port, out_dir):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              film=film.cpu().numpy() if rank == 0 else np.zeros(0),
              loss=float(loss), grads=flat.cpu().numpy(),
-             counts=np.array([ca.launch_counts[k] for k in KERNELS]),
+             counts=np.array([cuda_build.launch_counts[k] for k in KERNELS]),
              rounds=np.array([stats["rounds"], rounds]),
              seconds=np.array([t_film, t_grad] + t_reduce),
              sizes=np.array([film.numel(), flat.numel()]))
@@ -1319,17 +1405,17 @@ def cli_world_of_one(spp):
     import contextlib
     import io
 
-    from nart_tpu_torch import cli, cluster_accel as ca, exr, render
+    from nart_tpu_torch import cli, cuda_build, exr, render
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cli")
         err = io.StringIO()
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         with contextlib.redirect_stderr(err):
             rc = cli.main([MACBETH, out, "--coordinator",
                            f"127.0.0.1:{_free_port()}", "--numProcesses", "1",
                            "--processId", "0", "-s", str(spp), "--timing"])
-        counts = dict(ca.launch_counts)
+        counts = dict(cuda_build.launch_counts)
         for line in err.getvalue().splitlines():
             log(f"    cli {line}")
         if rc != 0:
@@ -1390,7 +1476,7 @@ def bvh_accel(size):
     """Phase 17 (e)."""
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, render
+    from nart_tpu_torch import cuda_build, render
 
     w, h, spp = size
     imgs, secs = {}, {}
@@ -1398,7 +1484,7 @@ def bvh_accel(size):
         params, sess = next(render.render_scene_file(
             MACBETH, dict(image_width=w, image_height=h, spp=spp,
                           accel=kind), device=DEVICE))
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = sess.image()
@@ -1406,9 +1492,9 @@ def bvh_accel(size):
         secs[kind] = time.perf_counter() - t0
         imgs[kind] = img.cpu().numpy()
         log(f"accel {kind}: macbeth {w}x{h} {spp} spp in {secs[kind]:.3f} s, "
-            f"{sess.stats}, launches {dict(ca.launch_counts)}")
+            f"{sess.stats}, launches {dict(cuda_build.launch_counts)}")
         if kind == "bvh":
-            _no_traversal("the bvh render", ca.launch_counts)
+            _no_traversal("the bvh render", cuda_build.launch_counts)
     if not np.isfinite(imgs["bvh"]).all():
         raise AssertionError("the bvh image is not finite")
     block_compare(imgs["bvh"], imgs["cluster"], 1e-3, 0.01, 0.95,
@@ -1453,7 +1539,7 @@ def bench_subprocess(size, spp):
 
 def cornell_golden():
     """Phase 19: returns the launches of the two renders."""
-    from nart_tpu_torch import cluster_accel as ca, exr, render, scene
+    from nart_tpu_torch import cuda_build, exr, render, scene
 
     sc = scene.load_scene(CORNELL, asset_root=MACBETH_DIR)
     counts = dict.fromkeys(KERNELS, 0)
@@ -1464,10 +1550,10 @@ def cornell_golden():
         params = render.resolve_params(
             {}, dict(image_width=w, image_height=h, spp=spp, bounces=6))
         sess = render.RenderSession(sc, params, DEVICE)
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         ours = sess.image().cpu().numpy()
-        grew = {k: ca.launch_counts[k] for k in KERNELS}
+        grew = {k: cuda_build.launch_counts[k] for k in KERNELS}
         log(f"cornell {w}x{h} {spp} spp in {time.perf_counter() - t0:.3f} s: "
             f"{sess.stats}, launches {grew}")
         if min(grew["closest_hit"], grew["any_hit"]) <= 0:
@@ -1629,11 +1715,11 @@ def _graphed_against_per_round(label, make, traversal):
 
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, rounds
+    from nart_tpu_torch import cuda_build, rounds
 
     def timed(sess):
         torch.cuda.reset_peak_memory_stats()
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         before = machine_totals(sess.machines)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1642,7 +1728,7 @@ def _graphed_against_per_round(label, make, traversal):
         wall = time.perf_counter() - t0
         after = machine_totals(sess.machines)
         return film, {"wall_s": wall, "stats": dict(sess.stats),
-                      "launches": {k: ca.launch_counts[k]
+                      "launches": {k: cuda_build.launch_counts[k]
                                    for k in KERNELS[:2]},
                       "rounds_run": after["rounds_run"] - before["rounds_run"],
                       "replays": after["replays"] - before["replays"],
@@ -1800,13 +1886,13 @@ def _replay_cell(label, fn, traversal):
     warm call that measures and captures, then a timed call) against the
     per-round replay in the same process: the loss to rtol 1e-6, every
     gradient leaf to rtol 1e-5 / atol 1e-7, equal rays and rounds, K1/K2
-    launched once a forward round run (none on the volume).  Returns the
-    cell's record."""
+    launched once a forward round run (none on the volume), the look-up
+    kernels in the path's rounds.  Returns the cell's record."""
     import gc
 
     import torch
 
-    from nart_tpu_torch import cluster_accel as ca, grad
+    from nart_tpu_torch import cuda_build, grad
 
     def cached_mib():
         gc.collect()
@@ -1815,15 +1901,14 @@ def _replay_cell(label, fn, traversal):
 
     def timed(per_round, machines):
         torch.cuda.reset_peak_memory_stats()
-        ca.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(per_round, machines)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return out, {"wall_s": wall, "rays": out[2], "rounds": out[3],
-                     "launches": {k: ca.launch_counts[k]
-                                  for k in KERNELS[:2]},
+                     "launches": dict(cuda_build.launch_counts),
                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
     base = cached_mib()
@@ -1880,7 +1965,7 @@ def _replay_cell(label, fn, traversal):
         raise AssertionError(f"{label}: {g['back_rounds']} backward rounds, "
                              f"{g['captures']} captures")
     if traversal:
-        if set(e["launches"].values()) != {e["rounds"]}:
+        if {e["launches"][k] for k in KERNELS[:2]} != {e["rounds"]}:
             raise AssertionError(f"{label}: per-round launches "
                                  f"{e['launches']}")
     else:
@@ -1924,10 +2009,215 @@ def graphed_replay():
     }
 
 
+def _macbeth_mesh_ids(device, lanes):
+    """(the mesh ids of `lanes` macbeth camera rays' closest hits through
+    random pixels of the 1280x720 view, clamped to the table as small_lut
+    clamps them (a miss's -1 to 0), the mesh count)."""
+    import torch
+
+    from nart_tpu_torch import cluster_accel as ca, scene
+
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    acc = ca.build_clusters(sc.tri_v.numpy()).to(device)
+    hit = ca.intersect_clusters(
+        *camera_rays(sc, lanes, np.random.default_rng(0), device), acc)
+    n_mesh = sc.mat_type.shape[0]
+    mesh = sc.tri_mesh.to(device).long()[hit.tri.clamp(min=0)]
+    return torch.where(hit.tri >= 0, mesh, -1).clamp(0, n_mesh - 1), n_mesh
+
+
+def _captured_lut(table, g, idx, n):
+    """Both look-up kernels captured into a CUDA graph (after a warm launch
+    on a side stream) and replayed once: copies of (out, d_table)."""
+    import torch
+
+    from nart_tpu_torch import select
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        select.lut_gather_cuda(table, idx)
+        select.lut_gather_bwd_cuda(g, idx, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = select.lut_gather_cuda(table, idx)
+        d_table = select.lut_gather_bwd_cuda(g, idx, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone(), d_table.clone()
+
+
+def lut_bound(lanes, n, width, backward):
+    """Least time the card could take (ms) for a look-up and what sets it.
+    Bytes: idx (8 B a lane) read once, the lanes' values (4 * width B a
+    lane: the output, or the cotangent read) and the (n, width) table
+    (read, or written) once.  Operations: none in the forward (a copy), one
+    float32 addition a lane's value in the backward, over 67 TFLOP/s."""
+    nbytes = lanes * (8 + 4 * width) + 4 * n * width
+    ops = lanes * width if backward else 0
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def lut_checks(device):
+    """Phase 23: the small-table look-up kernels against their plain
+    versions.  Returns their records at the main path's shape (the macbeth
+    mesh ids, rows of 3)."""
+    import torch
+
+    from nart_tpu_torch import select
+
+    rng = np.random.default_rng(23)
+    mesh, n_mesh = _macbeth_mesh_ids(device, LUT_LANES[0])
+    cases = [(f"macbeth mesh ids, N={LUT_LANES[0]}, n={n_mesh}", mesh,
+              n_mesh)]
+    for lanes in LUT_LANES:
+        for n in LUT_ROWS:
+            cases.append((f"uniform, N={lanes}, n={n}", torch.from_numpy(
+                rng.integers(0, n, lanes)).to(device), n))
+            cases.append((f"one row, N={lanes}, n={n}", torch.full(
+                (lanes,), int(rng.integers(0, n)), dtype=torch.int64,
+                device=device), n))
+    err_f = err_b = 0.0
+    for label, idx, n in cases:
+        for width in LUT_WIDTHS:
+            shape = (n,) if width == 1 else (n, width)
+            lanes_shape = (idx.shape[0],) + shape[1:]
+            table = torch.from_numpy(
+                rng.normal(size=shape).astype(np.float32)).to(device)
+            # signed cotangents, and positive ones, whose sums do not
+            # cancel: a float32 sum's rounding follows the sum of the
+            # terms' magnitudes, so the signed sums are held to rtol times
+            # that (plus atol), the positive ones to rtol times the sum
+            g = torch.from_numpy(
+                rng.normal(size=lanes_shape).astype(np.float32)).to(device)
+            g_pos = torch.from_numpy(
+                rng.random(lanes_shape, dtype=np.float32)).to(device)
+            # and small integers, whose float32 sums in any order are exact
+            # (every partial sum below 2^24): one lane dropped or counted
+            # twice shows in the bits
+            g_int = torch.from_numpy(
+                rng.integers(-LUT_INT, LUT_INT + 1, lanes_shape)).to(device)
+            out = select.lut_gather_cuda(table, idx)
+            d1 = select.lut_gather_bwd_cuda(g, idx, n)
+            d2 = select.lut_gather_bwd_cuda(g, idx, n)
+            d_pos = select.lut_gather_bwd_cuda(g_pos, idx, n)
+            d_int = select.lut_gather_bwd_cuda(g_int.float(), idx, n)
+            want_int = torch.zeros(shape, dtype=torch.int64,
+                                   device=device).index_add_(0, idx, g_int)
+            out_g, d_g = _captured_lut(table, g, idx, n)
+            plain = select.lut_gather_plain(table, idx)
+
+            def f64_sum(x):
+                return torch.zeros(shape, dtype=torch.float64,
+                                   device=device).index_add_(0, idx,
+                                                             x.double())
+
+            want, want_pos = f64_sum(g), f64_sum(g_pos)
+            scale = f64_sum(g.abs())
+            torch.cuda.synchronize()
+            where = f"look-up {label}, rows of {width}"
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{where}: the forward kernel differs "
+                                     "from the plain gather")
+            if not (torch.equal(d1, d2) and torch.equal(d_g, d1)
+                    and torch.equal(out_g, out)):
+                raise AssertionError(f"{where}: other bits on a second "
+                                     "launch or from a graph's replay")
+            if not torch.equal(d_int, want_int.float()):
+                raise AssertionError(
+                    f"{where}: the backward kernel's sums of integer "
+                    f"cotangents are off the int64 index_add_ by "
+                    f"{float((d_int.double() - want_int).abs().max())}")
+            err = (d1.double() - want).abs()
+            err_pos = (d_pos.double() - want_pos).abs()
+            if not (bool((err <= LUT_ATOL + LUT_RTOL * scale).all())
+                    and torch.allclose(d_pos.double(), want_pos,
+                                       rtol=LUT_RTOL, atol=LUT_ATOL)):
+                raise AssertionError(
+                    f"{where}: the backward kernel is off the float64 sum "
+                    f"by {float(err.max())} (signed), "
+                    f"{float(err_pos.max())} (positive)")
+            err_f = max(err_f, float((out - plain).abs().max()))
+            err_b = max(err_b, float(err.max()), float(err_pos.max()))
+    log(f"look-up kernels, {len(cases) * len(LUT_WIDTHS)} cases (N in "
+        f"{LUT_LANES}, n in {LUT_ROWS}, rows of {LUT_WIDTHS}; uniform, one "
+        f"row, macbeth's mesh ids): the forward the plain gather's bits; the "
+        f"backward against the float64 index_add_ within rtol {LUT_RTOL} / "
+        f"atol {LUT_ATOL} (positive cotangents; signed ones: rtol times the "
+        f"sum of their magnitudes), max abs err {err_b:.3g}, and integer "
+        f"cotangents in [-{LUT_INT}, {LUT_INT}] the int64 index_add_'s bits; "
+        "the same bits on a second launch and from a CUDA graph's replay")
+
+    # times: the main path's shape (macbeth's mesh ids, the per-mesh rows
+    # of 3), the bench's one light row, a table of 64 rows
+    emb_bwd = torch.ops.aten.embedding_dense_backward
+    shapes = [("macbeth mesh ids", mesh, n_mesh),
+              ("one light row", torch.zeros(LUT_LANES[1], dtype=torch.int64,
+                                            device=device), 1),
+              ("uniform over 64 rows", torch.from_numpy(
+                  rng.integers(0, 64, LUT_LANES[0])).to(device), 64)]
+    records = None
+    reps = SIZES["reps"]
+    for label, idx, n in shapes:
+        lanes = idx.shape[0]
+        table = torch.from_numpy(
+            rng.normal(size=(n, 3)).astype(np.float32)).to(device)
+        g = torch.from_numpy(
+            rng.normal(size=(lanes, 3)).astype(np.float32)).to(device)
+        t = {
+            "fwd": cuda_ms(lambda: select.lut_gather_cuda(table, idx), reps),
+            "bwd": cuda_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n),
+                           reps),
+            "fwd_plain": cuda_ms(lambda: select.lut_gather_plain(table, idx),
+                                 reps),
+            "bwd_plain": cuda_ms(
+                lambda: select.lut_gather_bwd_plain(g, idx, n), reps),
+            "fwd_library": cuda_ms(
+                lambda: torch.nn.functional.embedding(idx, table), reps),
+            "bwd_library": cuda_ms(lambda: emb_bwd(g, idx, n, -1, False),
+                                   reps),
+        }
+        fb, bb = lut_bound(lanes, n, 3, False), lut_bound(lanes, n, 3, True)
+        log(f"time look-up {label}, N={lanes}, n={n}, rows of 3: forward "
+            f"kernel {t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
+            f"F.embedding {t['fwd_library']:.4f} ms, bound "
+            f"{fb['bound_ms']:.6f} ms ({fb['bound_by']}); backward kernel "
+            f"{t['bwd']:.4f} ms, plain (index_put_, indexing_backward) "
+            f"{t['bwd_plain']:.4f} ms, embedding_dense_backward "
+            f"{t['bwd_library']:.4f} ms, bound {bb['bound_ms']:.6f} ms "
+            f"({bb['bound_by']}); F.embedding fwd+bwd "
+            f"{t['fwd_library'] + t['bwd_library']:.4f} ms")
+        if records is None:
+            records = {
+                "lut_gather": dict(max_abs_err=err_f, ms=t["fwd"],
+                                   plain_ms=t["fwd_plain"],
+                                   library_ms=t["fwd_library"], **fb),
+                "lut_gather_bwd": dict(max_abs_err=err_b, ms=t["bwd"],
+                                       plain_ms=t["bwd_plain"],
+                                       library_ms=t["bwd_library"], **bb),
+            }
+    for k, r in records.items():
+        log(f"bound {k}: {r['bound_ms']:.6f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes; {r['operations']} operations): the kernel "
+            f"reaches {100.0 * r['bound_ms'] / r['ms']:.3f}% of it")
+    return records
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
 VOLUME_WINDOW = (40, 20)
+# phase 23's look-up shapes: lanes, table rows, row widths; the backward's
+# tolerance against a float64 sum (float32 sums in another order)
+LUT_LANES = (65536, 131072)
+LUT_ROWS = (1, 3, 4, 16, 64)
+LUT_WIDTHS = (1, 3)
+LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
+LUT_INT = 8  # integer cotangents in [-8, 8]: sums below 2^20, exact
 
 
 def main():
@@ -1950,8 +2240,14 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    cuda_build.load("cluster_hit")  # the one source: one nvcc
-    log(f"build: {SOURCE} in {time.perf_counter() - t0:.2f} s")
+    libs = [os.path.splitext(os.path.basename(f))[0]
+            for f in (SOURCE, LUT_SOURCE)]
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source
+        list(pool.map(cuda_build.build, libs))
+    for lib in libs:
+        cuda_build.load(lib)
+    log(f"build: {SOURCE} and {LUT_SOURCE}, together, in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -1983,9 +2279,18 @@ def main():
     phase("round sync check", round_sync_check, 1)
     phase("graphed rounds", graphed_rounds)
     phase("graphed replay", graphed_replay)
+    records.update(phase("small-table look-ups", lut_checks, DEVICE))
 
-    kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-                    launches=counts[k], launches_training=counts_train[k],
+    # `launches`: a traversal kernel's in the forward render (phase 5), a
+    # look-up kernel's in the fwd+bwd (phase 6), whose backward the
+    # look-ups are on
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
+                    replaces=REPLACES[k],
+                    launches=(counts if k in TRAVERSAL else counts_train)[k],
+                    launches_of=("forward" if k in TRAVERSAL
+                                 else "fwd+bwd"),
+                    launches_forward=counts[k],
+                    launches_training=counts_train[k],
                     launches_modes=counts_modes.get(k, 0),
                     launches_volume=counts_vol[k] + counts_vol_train[k],
                     launches_sharded=counts_a[k] + counts_b[k] + counts_c[k],

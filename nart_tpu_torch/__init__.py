@@ -24,6 +24,9 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     kind policy, tools/kernel_stats.py's kernel)
   bvh.py            LBVH build + plain lockstep walk, the "bvh" kind
                     (accel.py)
+  select.py         small-table look-ups: CUDA kernels (csrc/small_lut.cu)
+                    forward and backward for float tables on the card,
+                    table[idx] on the CPU (select.py)
   bxdf.py           5 BSDF lobes + aggregation (bxdf.py)
   materials.py      per-hit BSDF descriptors, half textures (materials.py)
   lights.py         disk / ring / env / distant lights, packed area tables

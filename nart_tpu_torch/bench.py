@@ -26,7 +26,7 @@ reference renderer's CPU time for glassSphere 512x512 @ 16 spp, 321.66 s
 the median forward seconds; it is null unless the scene rendered was
 glassSphere, since the anchor times no other scene.  "#" lines on stderr give
 the same ratio against the fresh build's 137.58 s (null likewise), and each
-mode's per-run seconds, rounds, peak device memory and traversal-kernel
+mode's per-run seconds, rounds, peak device memory and kernel
 launches (over its timed runs).  With no device named and no card, it
 raises (resolve_device).
 """
@@ -41,7 +41,7 @@ import time
 import torch
 
 from . import grad, render, resolve_device, testing
-from .cluster_accel import launch_counts, reset_launch_counts
+from .cuda_build import launch_counts, reset_launch_counts
 from .scene import load_scene
 
 # the reference renderer's checkout, where the JAX package's bench.py and
@@ -119,7 +119,7 @@ def fwdbwd_run(sess, samples, cot, chunk=CHUNK):
 def timed(dev, fn, repeats):
     """fn() once to warm up, then `repeats` times between synchronizes:
     (the timed runs' seconds, the last run's output, their peak device
-    memory in MiB (None on the CPU), their traversal-kernel launches)."""
+    memory in MiB (None on the CPU), their kernel launches)."""
     fn()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

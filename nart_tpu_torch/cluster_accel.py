@@ -17,8 +17,8 @@ Each query dispatches on the device of its tensors:
     walk with visit counters; ``nart_any_hit_stats`` is the same
     instrument on the any-hit walk; both are dispatched by
     kernel_stats.traversal_stats) and count the launch in
-    ``launch_counts`` (inside a CUDA graph capture, at every replay of
-    the graph: see ``captured_launches``);
+    ``cuda_build.launch_counts`` (inside a CUDA graph capture, at every
+    replay of the graph: see ``cuda_build.captured_launches``);
   * CPU tensors run the plain versions below: a chunked watertight brute
     force over the planes with the same tie rule (lowest row wins within a
     cluster; a strictly closer hit replaces the running best).
@@ -51,35 +51,6 @@ SUPER_TARGET = 128  # supercluster count target below LARGE_MESH
 SUPER_TARGET_LARGE = 256
 LARGE_MESH = 32768  # triangle count where the large-mesh policy starts
 WARP = 32  # rays of consecutive index that share a warp in the kernels
-
-# kernel launches on the card per wrapper since the last
-# reset_launch_counts(): each *_cuda wrapper below adds one where it
-# launches its kernel, nowhere else.  Called while a CUDA graph is being
-# captured, a wrapper launches nothing: the graph launches the kernel at
-# each replay.  It then adds one to captured_launches instead, and the
-# code that replays the graph (rounds.RoundRunner) adds those counts to
-# launch_counts at every replay
-launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
-                 "any_hit_stats": 0}
-captured_launches = dict.fromkeys(launch_counts, 0)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
-def reset_captured_launches():
-    for k in captured_launches:
-        captured_launches[k] = 0
-
-
-def _count_launch(name):
-    if torch.cuda.is_current_stream_capturing():
-        captured_launches[name] += 1
-    else:
-        launch_counts[name] += 1
-
 
 @dataclass
 class ClusterAccel:
@@ -490,7 +461,7 @@ def closest_hit_cuda(o, d, t_min, t_max, accel: ClusterAccel) -> Hit:
     )
     if rc != 0:
         raise RuntimeError(f"nart_closest_hit launch failed: CUDA error {rc}")
-    _count_launch("closest_hit")
+    cuda_build.count_launch("closest_hit")
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -508,7 +479,7 @@ def any_hit_cuda(o, d, t_min, t_max, accel: ClusterAccel):
     )
     if rc != 0:
         raise RuntimeError(f"nart_any_hit launch failed: CUDA error {rc}")
-    _count_launch("any_hit")
+    cuda_build.count_launch("any_hit")
     return occ
 
 
@@ -530,7 +501,7 @@ def _stats_cuda(name, hit_dtype, o, d, t_min, t_max, accel):
     )
     if rc != 0:
         raise RuntimeError(f"nart_{name} launch failed: CUDA error {rc}")
-    _count_launch(name)
+    cuda_build.count_launch(name)
     return hit, counters
 
 

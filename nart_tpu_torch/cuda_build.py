@@ -7,6 +7,10 @@ Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers that return
 the file name carries a hash of the source and flags, so an edited source
 rebuilds — and returns the ``ctypes.CDLL``.  Nothing is compiled or loaded
 when the module is imported.
+
+``launch_counts`` counts the kernels' launches on the card, per wrapper:
+the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py) and the
+look-up kernels of csrc/small_lut.cu (select.py).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -31,6 +37,35 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict = {}
+
+# kernel launches on the card per wrapper since the last
+# reset_launch_counts(): each *_cuda wrapper adds one where it launches its
+# kernel, nowhere else.  Called while a CUDA graph is being captured, a
+# wrapper launches nothing: the graph launches the kernel at each replay.
+# It then adds one to captured_launches instead, and the code that replays
+# the graph (rounds.RoundRunner, rounds.ReplayRunner) adds those counts to
+# launch_counts at every replay
+launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
+                 "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0}
+captured_launches = dict.fromkeys(launch_counts, 0)
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def reset_captured_launches():
+    for k in captured_launches:
+        captured_launches[k] = 0
+
+
+def count_launch(name):
+    """One launch of kernel `name` (or, during a capture, one per replay)."""
+    if torch.cuda.is_current_stream_capturing():
+        captured_launches[name] += 1
+    else:
+        launch_counts[name] += 1
 
 
 def nvcc_path() -> str:

@@ -30,6 +30,7 @@ from .scene import (
     Env2D,
     LightData,
 )
+from .select import auto_lut, small_lut
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
@@ -73,13 +74,14 @@ def _xform_dir(xf, d):
 
 def _tex_lookup(img, st, intensity):
     """Nearest texel of an (h, w, 3) image at st, with GetValue's clamps and
-    v-flip, times the intensity."""
+    v-flip, times the intensity; a texture of at most 64 texels through the
+    look-up kernels (select.auto_lut)."""
     h, w, _ = img.shape
     u = torch.clamp(st[..., 0], 1e-4, 0.9999)
     v = torch.clamp(1.0 - st[..., 1], 1e-4, 0.9999)
     iu = (float(w) * u).to(torch.int64)
     iv = (float(h) * v).to(torch.int64)
-    return img.reshape(h * w, 3)[iv * w + iu] * intensity
+    return auto_lut(iv * w + iu, h * w)(img.reshape(h * w, 3)) * intensity
 
 
 def _le_value(light: LightData, st):
@@ -412,29 +414,32 @@ def refresh_area_pack(pack, lights):
                                           pack.le.device))
 
 
-def _pack_st(pack, sel, delta):
-    """Disk-parameterisation st of the selected row."""
-    r = pack.radius[sel]
-    u = (delta * pack.ux[sel]).sum(-1) / r
-    v = (delta * pack.uy[sel]).sum(-1) / r
+def _pack_st(pack, lut, delta):
+    """Disk-parameterisation st of the selected row (lut: the rows'
+    small_lut)."""
+    r = lut(pack.radius)
+    u = (delta * lut(pack.ux)).sum(-1) / r
+    v = (delta * lut(pack.uy)).sum(-1) / r
     return torch.stack([(u + 1.0) * 0.5, 1.0 - (v + 1.0) * 0.5], dim=-1)
 
 
-def _pack_le(pack, sel, st):
+def _pack_le(pack, lut, st):
     """Le * intensity of the selected row: constant table or one atlas
-    gather (GetValue's clamps and v-flip)."""
-    le = pack.le[sel]
-    if pack.tex_atlas.shape[0] <= 1:
+    look-up (GetValue's clamps and v-flip; an atlas of at most 64 texels
+    through the look-up kernels, select.auto_lut)."""
+    le = lut(pack.le)
+    atlas = pack.tex_atlas
+    if atlas.shape[0] <= 1:
         return le
-    off = pack.tex_off[sel]
-    w = pack.tex_w[sel]
-    h = pack.tex_h[sel]
+    off = lut(pack.tex_off)
+    w = lut(pack.tex_w)
+    h = lut(pack.tex_h)
     u = torch.clamp(st[..., 0], 1e-4, 0.9999)
     v = torch.clamp(1.0 - st[..., 1], 1e-4, 0.9999)
     iu = (w.to(torch.float32) * u).to(torch.int64)
     iv = (h.to(torch.float32) * v).to(torch.int64)
-    fetched = pack.tex_atlas[off.clamp(min=0) + iv * w + iu]
-    fetched = fetched * pack.intensity[sel][..., None]
+    fetched = auto_lut(off.clamp(min=0) + iv * w + iu, atlas.shape[0])(atlas)
+    fetched = fetched * lut(pack.intensity)[..., None]
     return torch.where((off >= 0)[..., None], fetched, le)
 
 
@@ -455,17 +460,20 @@ def area_pack_nearest(pack: AreaLightPack, o, d, t_lim):
     t_best = t_ok.min(dim=-1).values
     sel = torch.argmin(t_ok, dim=-1)  # first minimum
     hit = t_best < t_lim
+    lut = small_lut(sel, pack.radius.shape[0])
     delta_sel = delta[torch.arange(delta.shape[0], device=d.device), sel]
-    st = _pack_st(pack, sel, delta_sel)
-    le = torch.where(hit[:, None], _pack_le(pack, sel, st), 0.0)
+    st = _pack_st(pack, lut, delta_sel)
+    le = torch.where(hit[:, None], _pack_le(pack, lut, st), 0.0)
     return le, torch.where(hit, t_best, t_lim), hit
 
 
 def area_pack_eval(pack: AreaLightPack, sel, p, wi):
-    """Li of the per-lane selected packed light (sel: (N,) pack rows)."""
-    center = pack.center[sel]
-    n = pack.n[sel]
-    radius = pack.radius[sel]
+    """Li of the per-lane selected packed light (sel: (N,) pack rows, read
+    through one small_lut)."""
+    lut = small_lut(sel, pack.radius.shape[0])
+    center = lut(pack.center)
+    n = lut(pack.n)
+    radius = lut(pack.radius)
     wi_dot_n = (wi * n).sum(-1)
     plane_d = (center * n).sum(-1)
     t = _safe_div(plane_d - (p * n).sum(-1), wi_dot_n)
@@ -474,11 +482,11 @@ def area_pack_eval(pack: AreaLightPack, sel, p, wi):
     dist2 = (delta * delta).sum(-1)
     r2 = radius * radius
     ok = (wi_dot_n < 0.0) & (t >= 0.0) & (dist2 <= r2)
-    ok &= dist2 >= pack.inner_k2[sel] * r2  # 0 for disks: no-op
-    pdf = torch.where(ok, pack.area_pdf[sel] * _safe_div(t * t, -wi_dot_n),
+    ok &= dist2 >= lut(pack.inner_k2) * r2  # 0 for disks: no-op
+    pdf = torch.where(ok, lut(pack.area_pdf) * _safe_div(t * t, -wi_dot_n),
                       0.0)
-    st = _pack_st(pack, sel, delta)
-    le = torch.where((pdf > 0.0)[..., None], _pack_le(pack, sel, st), 0.0)
+    st = _pack_st(pack, lut, delta)
+    le = torch.where((pdf > 0.0)[..., None], _pack_le(pack, lut, st), 0.0)
     t_out = torch.where(pdf > 0.0, t, INF)
     return LightEval(le=le, pdf=pdf, t=t_out)
 
@@ -486,19 +494,20 @@ def area_pack_eval(pack: AreaLightPack, sel, p, wi):
 def area_pack_sample(pack: AreaLightPack, sel, p, u2):
     """Sample_Li of the per-lane selected packed light (disk and ring share
     the warp up to the ring's annulus remap and double-pi pdf quirk)."""
-    radius = pack.radius[sel]
-    is_ring = pack.is_ring[sel]
-    k = torch.sqrt(pack.inner_k2[sel])
+    lut = small_lut(sel, pack.radius.shape[0])
+    radius = lut(pack.radius)
+    is_ring = lut(pack.is_ring)
+    k = torch.sqrt(lut(pack.inner_k2))
     xy_d = uniform_sample_disk(u2)
     xy_r, pdf_r = uniform_sample_ring(u2, k)
     xy = torch.where(is_ring[..., None], xy_r, xy_d)
-    pdf0 = torch.where(is_ring, pdf_r * pack.pdf0_ring_scale[sel],
-                       pack.area_pdf[sel])
+    pdf0 = torch.where(is_ring, pdf_r * lut(pack.pdf0_ring_scale),
+                       lut(pack.area_pdf))
     xy = xy * radius[..., None]
 
-    sample_world = (pack.center[sel] + xy[..., 0:1] * pack.ux[sel]
-                    + xy[..., 1:2] * pack.uy[sel])
-    n = pack.n[sel]
+    sample_world = (lut(pack.center) + xy[..., 0:1] * lut(pack.ux)
+                    + xy[..., 1:2] * lut(pack.uy))
+    n = lut(pack.n)
     wi = sample_world - p
     dist = torch.sqrt((wi * wi).sum(-1))
     wi = wi / torch.where(dist == 0.0, 1.0, dist)[..., None]
@@ -509,7 +518,7 @@ def area_pack_sample(pack: AreaLightPack, sel, p, u2):
     su = ((xy[..., 0] + 1.0) * 0.5) / radius
     sv = ((xy[..., 1] + 1.0) * 0.5) / radius
     st = torch.stack([su, 1.0 - sv], dim=-1)
-    le = torch.where(visible[..., None], _pack_le(pack, sel, st), 0.0)
+    le = torch.where(visible[..., None], _pack_le(pack, lut, st), 0.0)
     return le, wi, pdf, dist
 
 

@@ -2,8 +2,11 @@
 
 Counterpart of ``nart_tpu/materials.py`` (reference src/materials/*.cpp and
 TexturePattern::GetValue, texturepattern.cpp:172-188).  Per-mesh tables are
-read by plain indexing (the JAX package's one-hot look-ups stand in for
-gathers that are slow on a TPU).  The render path stores the packed
+read through select.small_lut, the counterpart of the JAX package's
+one-hot mesh_luts: its differentiable small-table read, whose backward is a
+reduction over the lanes (on the card, the look-up kernels of
+csrc/small_lut.cu; a plain gather's backward there serialises the lanes
+of each mesh).  The render path stores the packed
 textures as half floats: the reference's in-memory textures are half, so
 this is exact parity and halves the bytes each fetch moves.
 """
@@ -21,6 +24,7 @@ from .scene import (
     MAT_SPECULAR,
     SceneData,
 )
+from .select import small_lut
 
 def _tex_index(scene: SceneData, tex_id, st):
     """Flat texel index per lane: u = clamp(st.x, 1e-4, .9999),
@@ -51,13 +55,9 @@ def tex_fetch(scene: SceneData, tex_id, st, tex_half=None):
 
 
 def mesh_lookup(scene: SceneData, mesh_id):
-    """Row look-up into per-mesh tables with gather's index clamping."""
-    m = mesh_id.clamp(0, scene.mat_type.shape[0] - 1)
-
-    def lut(table):
-        return table[m]
-
-    return lut
+    """Row look-ups into per-mesh tables with gather's index clamping
+    (mesh_luts): float tables through the look-up kernels on the card."""
+    return small_lut(mesh_id, scene.mat_type.shape[0])
 
 
 def _pattern(scene, const_table, tex_table, lut, st, slot, tex_half):

@@ -51,7 +51,7 @@ from dataclasses import fields, is_dataclass, replace
 
 import torch
 
-from . import cluster_accel
+from . import cuda_build
 
 # rounds per host check (k): from a chip sweep of k = 4, 8, 16 on macbeth
 # at 1280x720 (PERF.md, section 6)
@@ -107,7 +107,7 @@ class RoundRunner:
         self.rounds = None  # () int64 on the device: live rounds of a call
         self.flag = None  # () bool on the device: is any lane alive?
         self.graph = None
-        self.launches = {}  # traversal launches of one replay
+        self.launches = {}  # kernel launches of one replay
         self.captures = 0
         self.capture_s = 0.0  # warm-up round excluded
         self.replays = 0
@@ -168,7 +168,7 @@ class RoundRunner:
             self.replays += 1
             self.rounds_run += self.k
             for name, n in self.launches.items():
-                cluster_accel.launch_counts[name] += n
+                cuda_build.launch_counts[name] += n
         return self.carry
 
     def _capture(self):
@@ -195,7 +195,7 @@ class RoundRunner:
 def _capture(dev, warm, body):
     """warm() eagerly on a side stream (the first round, which builds what
     a round builds on first use before anything is captured), then body()
-    captured into a new CUDA graph.  Returns (the graph, the traversal
+    captured into a new CUDA graph.  Returns (the graph, the kernel
     launches of one replay, capture + instantiate seconds)."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -204,7 +204,7 @@ def _capture(dev, warm, body):
     torch.cuda.current_stream(dev).wait_stream(side)
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    cluster_accel.reset_captured_launches()
+    cuda_build.reset_captured_launches()
     # a graph that dies during a capture (cyclic garbage collected then) is
     # destroyed by a call the capture does not permit, which invalidates
     # it: collect now and not during the capture
@@ -217,7 +217,7 @@ def _capture(dev, warm, body):
     finally:
         if was_enabled:
             gc.enable()
-    return graph, dict(cluster_accel.captured_launches), \
+    return graph, dict(cuda_build.captured_launches), \
         time.perf_counter() - t0
 
 
@@ -286,7 +286,7 @@ class ReplayRunner(RoundRunner):
             for _ in range(n):
                 self.back_graph.replay()
                 for name, c in self.back_launches.items():
-                    cluster_accel.launch_counts[name] += c
+                    cuda_build.launch_counts[name] += c
         else:
             for _ in range(n):
                 self._back_round()

@@ -16,6 +16,7 @@ import torch
 from nart_tpu import pallas_accel as jpa
 from nart_tpu.geometry import intersect_brute as j_brute
 from nart_tpu_torch import cluster_accel as tca
+from nart_tpu_torch import cuda_build
 from nart_tpu_torch import kernel_stats
 from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
@@ -164,13 +165,14 @@ def test_cpu_tensors_take_the_plain_path():
     acc = tca.build_clusters(_random_tris(50, rng))
     o, d = (torch.from_numpy(x) for x in _random_rays(64, rng))
     tmin, tmax = torch.zeros(64), torch.full((64,), np.inf)
-    tca.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     tca.intersect_clusters(o, d, tmin, tmax, acc)
     tca.intersect_clusters_any(o, d, tmin, tmax, acc)
     kernel_stats.traversal_stats(o, d, tmin, tmax, acc)
     kernel_stats.traversal_stats(o, d, tmin, tmax, acc, any_hit=True)
-    assert tca.launch_counts == {"closest_hit": 0, "any_hit": 0,
-                                 "closest_hit_stats": 0, "any_hit_stats": 0}
+    assert cuda_build.launch_counts == {
+        "closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
+        "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0}
     with pytest.raises(ValueError):
         tca.intersect_clusters(o.to("meta"), d.to("meta"), tmin.to("meta"),
                                tmax.to("meta"), acc)

@@ -1,5 +1,5 @@
-"""CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu) vs their plain
-PyTorch versions, on the card.
+"""CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu, csrc/small_lut.cu) vs
+their plain PyTorch versions, on the card.
 
 Marked ``gpu``: each test skips (with its reason) when no CUDA device is
 present, deciding inside the fixture, never at import.  Run them on a
@@ -9,7 +9,10 @@ t/u/v to rtol 1e-4 / atol 1e-5 where they agree, any-hit equal to
 closest-hit validity exactly; the two counter kernels' five counters equal
 to their plain versions' on every ray.  The small cases pin what a warp
 that tests a cluster together could get wrong: one ray to a group, one live
-lane, a ragged last warp, and ties between rows, lanes and tiles.
+lane, a ragged last warp, and ties between rows, lanes and tiles.  The
+small-table look-ups: the forward the plain gather's bits, the backward the
+float64 per-row sum to rtol 1e-5 / atol 1e-6 and the same bits run to run
+and from a CUDA graph's replay.
 """
 
 import os
@@ -19,10 +22,15 @@ import pytest
 import torch
 
 from nart_tpu_torch import cluster_accel as ca
+from nart_tpu_torch import cuda_build
+from nart_tpu_torch import select as tsel
 
 pytestmark = pytest.mark.gpu
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
+# the look-up kernels' backward against a float64 sum: float32 sums in
+# another order
+LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture
@@ -49,12 +57,13 @@ def _rays(n, rng, dev, parked=0.25):
 
 
 def _check(rays, acc):
-    before = dict(ca.launch_counts)
+    before = dict(cuda_build.launch_counts)
     hk = ca.intersect_clusters(*rays, acc)
     occ = ca.intersect_clusters_any(*rays, acc)
     torch.cuda.synchronize()
-    assert ca.launch_counts["closest_hit"] == before["closest_hit"] + 1
-    assert ca.launch_counts["any_hit"] == before["any_hit"] + 1
+    counts = cuda_build.launch_counts
+    assert counts["closest_hit"] == before["closest_hit"] + 1
+    assert counts["any_hit"] == before["any_hit"] + 1
     hp = ca.closest_hit_plain(*rays, acc)
     agree = hk.tri == hp.tri
     assert agree.float().mean() >= 0.9999
@@ -81,13 +90,13 @@ def _check_stats(rays, acc):
     production kernels on the same rays."""
     from nart_tpu_torch import kernel_stats
 
-    before = dict(ca.launch_counts)
+    before = dict(cuda_build.launch_counts)
     sk = kernel_stats.traversal_stats(*rays, acc)
     ak = kernel_stats.traversal_stats(*rays, acc, any_hit=True)
     torch.cuda.synchronize()
-    assert ca.launch_counts["closest_hit_stats"] == (
-        before["closest_hit_stats"] + 1)
-    assert ca.launch_counts["any_hit_stats"] == before["any_hit_stats"] + 1
+    counts = cuda_build.launch_counts
+    assert counts["closest_hit_stats"] == before["closest_hit_stats"] + 1
+    assert counts["any_hit_stats"] == before["any_hit_stats"] + 1
     sp = ca.closest_hit_stats_plain(*rays, acc)
     ap = ca.any_hit_stats_plain(*rays, acc)
     for k in ("visited", "slabs", "tested", "together", "sc_tests"):
@@ -276,3 +285,64 @@ def test_macbeth_golden_through_kernels(cuda):
     rb = r.reshape(6, 16, 6, 16, 3).mean((1, 3, 4))
     ob = o.reshape(6, 16, 6, 16, 3).mean((1, 3, 4))
     assert (np.abs(ob - rb) / np.maximum(rb, 0.05) < 0.12).mean() >= 0.95
+
+
+@pytest.mark.parametrize("n,width", [(1, 3), (4, 1), (4, 3), (64, 4),
+                                     (100, 3)])
+def test_lut_kernels_against_plain(cuda, n, width):
+    """nart_lut_gather: the plain gather's bits; nart_lut_gather_bwd: the
+    float64 per-row sum to rtol 1e-5 / atol 1e-6 (positive cotangents; for
+    signed ones, whose sums cancel, atol plus rtol times the sum of their
+    magnitudes), integer cotangents' sums bit for bit, the same bits on a
+    second launch and from a CUDA graph's replay; each launch counted; the autograd Function's gradient equal to
+    the backward kernel's.  n = 100 spans two row tiles."""
+    g = np.random.default_rng(n)
+    lanes = 65536 + 17  # a ragged last block
+    table = torch.from_numpy(
+        g.normal(size=(n, width)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(g.integers(0, n, lanes)).to(cuda)
+    cot = torch.from_numpy(
+        g.normal(size=(lanes, width)).astype(np.float32)).to(cuda)
+    before = dict(cuda_build.launch_counts)
+    out = tsel.lut_gather_cuda(table, idx)
+    d1 = tsel.lut_gather_bwd_cuda(cot, idx, n)
+    d2 = tsel.lut_gather_bwd_cuda(cot, idx, n)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["lut_gather"] == before["lut_gather"] + 1
+    assert (cuda_build.launch_counts["lut_gather_bwd"]
+            == before["lut_gather_bwd"] + 2)
+    assert torch.equal(out, table[idx])
+
+    def f64_sum(x):
+        return torch.zeros(n, width, dtype=torch.float64,
+                           device=cuda).index_add_(0, idx, x.double())
+
+    err = (d1.double() - f64_sum(cot)).abs()
+    assert bool((err <= LUT_ATOL + LUT_RTOL * f64_sum(cot.abs())).all())
+    cot_pos = cot.abs()
+    torch.testing.assert_close(
+        tsel.lut_gather_bwd_cuda(cot_pos, idx, n).double(), f64_sum(cot_pos),
+        rtol=LUT_RTOL, atol=LUT_ATOL)
+    assert torch.equal(d1, d2)
+    # integer cotangents: float32 sums exact in any order
+    cot_int = torch.from_numpy(g.integers(-8, 9, (lanes, width))).to(cuda)
+    want_int = torch.zeros(n, width, dtype=torch.int64,
+                           device=cuda).index_add_(0, idx, cot_int)
+    assert torch.equal(tsel.lut_gather_bwd_cuda(cot_int.float(), idx, n),
+                       want_int.float())
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsel.lut_gather_bwd_cuda(cot, idx, n)  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d3 = tsel.lut_gather_bwd_cuda(cot, idx, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(d3, d1)
+
+    leaf = table.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(tsel.small_lut(idx, n)(leaf), leaf, cot)
+    assert torch.equal(ga, d1)
