@@ -29,7 +29,8 @@ Phases (any failure raises and exits non-zero):
      run with launch counters reset just before it: K1 and K2 launched
      once in every round the card ran (the rounds past the end of the last
      replay, fewer than k, included), one capture for both runs; the
-     look-up kernel launched, its backward never;
+     look-up kernels' forwards launched (the small tables' and the env
+     map's), their backwards never;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
@@ -42,10 +43,11 @@ Phases (any failure raises and exits non-zero):
      gradients nonzero, and the closest-hit and any-hit kernels launched
      once in every forward round the card ran (the live rounds plus fewer
      than k past the end) and never in the backward (its graph captured no
-     launch); the look-up kernel in the forward's graph, it and its
-     backward in the backward's round graph.  The timed call once more
-     under torch.profiler: the top device operations and the shares of
-     indexing_backward_kernel* and of the look-up kernels.  Then the
+     launch); the look-up forward (every table) in the forward's graph,
+     it and both backwards (small and large tables) in the backward's
+     round graph.  The timed call once more under torch.profiler: the top device
+     operations and the shares of indexing_backward_kernel*, of the
+     look-up kernels, of the sorts and of the memsets.  Then the
      forward queue alone, twice on one kept machine (the first call
      captures its graph);
   7. gradients through the kernels against the same call on the CPU
@@ -146,10 +148,13 @@ Phases (any failure raises and exits non-zero):
      rtol 1e-6, every gradient leaf to rtol 1e-5 / atol 1e-7, equal rays
      and rounds, K1/K2 launched once a forward round run on the graphed
      route and once a round on the per-round one (none on the volume);
-     logged: each route's wall s and rate, rounds run and live, capture s,
-     peak and held MiB, the card's busy share of the graphed call, its top
-     device operations with the shares of indexing_backward_kernel* and of
-     the look-up kernels;
+     the large-table look-ups (S2) launched on both routes of macbeth and
+     volume_blob and not on simple_glass, indexing_backward_kernel*
+     launched 0 times in the graphed call's profile; logged: each route's
+     wall s and rate, rounds run and live, capture s, peak and held MiB,
+     the card's busy share of the graphed call, its top device operations
+     with the shares of indexing_backward_kernel*, of the look-up kernels,
+     of the sorts and of the memsets;
  23. small-table look-ups (csrc/small_lut.cu) against their plain versions
      on the card: N in {65,536, 131,072} lanes, tables of n in {1, 3, 4,
      16, 64} rows of 1 or 3 values, indices uniform, all on one row, and
@@ -166,7 +171,26 @@ Phases (any failure raises and exits non-zero):
      the plain versions (table[idx]; index_put_(accumulate=True), whose
      indexing_backward kernel is the plain backward), of F.embedding and
      embedding_dense_backward (the library yardstick, timed only), and the
-     bound.
+     bound;
+ 24. large-table look-ups (the forward of csrc/small_lut.cu, the backward
+     of csrc/large_lut.cu) against their plain versions on the card at the
+     main path's shapes: macbeth's env map (65,536 lanes, 8,192 rows of 3)
+     and tex_data (65,536 lanes, 9,047,075 rows of 3), volume_blob's
+     density cells (32,768 lanes, 29,791 rows of 8); rows uniform, all on
+     one row, and long runs (half the lanes on one row, a quarter on
+     another).  The forward gives the plain gather's bits; the backward is
+     within atol 1e-6 plus rtol 1e-5 times the float64 sum of the
+     cotangents' magnitudes of a float64 index_add_, gives the int64
+     index_add_'s bits for integer cotangents in [-8, 8], and the same bits
+     on a second launch and from a CUDA graph's replay.  Logged at each
+     shape (uniform, and one row): the median CUDA-event ms of each kernel
+     (the backward's sort included), of the plain versions, of F.embedding,
+     embedding_dense_backward and zeros + index_add_ (timed only), and the
+     bound; then both backward kernels, the small-table one (S1) and the
+     large-table one (S2), timed side by side on 65,536 uniform lanes over
+     tables of 3 to 4,096 rows of 3 and on the bench's one light row
+     (131,072 lanes): the measured ground for select.AUTO_LUT_ROWS, the
+     row count up to which the small-table backward is taken.
 The line before the last is the kernels' JSON record (`launches`: a
 traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
 fwd+bwd; launches_sharded: phases 13-15, launches_bench: phase 18); the
@@ -197,7 +221,10 @@ VOLUME_GOLDEN = os.path.join(HERE, "tests", "golden",
 CORNELL = os.path.join(HERE, "tests", "golden", "cornell.json")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
+LARGE_SOURCE = "nart_tpu_torch/csrc/large_lut.cu"
 DEVICE = "cuda"  # every phase runs on the card
+LARGE_SITES = ("nart_tpu/materials.py:60", "nart_tpu/lights.py:73",
+               "nart_tpu/media.py:81")
 REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             "any_hit": "nart_tpu/pallas_accel.py:773",  # _kernel_any
             "closest_hit_stats": "tools/kernel_stats.py:27",  # _kernel_stats
@@ -206,14 +233,26 @@ REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             # no Pallas kernel: the one-hot look-up small_lut (and
             # materials.mesh_luts, nart_tpu/materials.py:96), forward and
             # its transpose
-            "lut_gather": "nart_tpu/select.py:59",
-            "lut_gather_bwd": "nart_tpu/select.py:59"}
+            # the forward also stands for XLA's gather behind the plain
+            # gathers of the large tables (the texture table, the env map
+            # and light textures above 64 texels, the density cells)
+            "lut_gather": ", ".join(("nart_tpu/select.py:59",) + LARGE_SITES),
+            "lut_gather_bwd": "nart_tpu/select.py:59",
+            # no Pallas kernel: XLA's scatter-add, the transpose of those
+            # plain gathers
+            "lut_gather_large_bwd": ", ".join(LARGE_SITES)}
 KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
-SOURCES = {k: SOURCE if k in TRAVERSAL else LUT_SOURCE for k in KERNELS}
+LARGE = KERNELS[6:]  # the kernel of large_lut.cu
+SOURCES = {k: SOURCE if k in TRAVERSAL else
+           LARGE_SOURCE if k in LARGE else LUT_SOURCE for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
 LUT_NAMES = ("lut_gather_kernel", "lut_partial_kernel", "lut_final_kernel")
+LARGE_NAMES = ("lut_seg_kernel", "lut_carry_kernel")
+# torch.sort's kernels (the path round's ray sort, and S2's order of lanes)
+SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
+              "bitonicSort")
 INDEXING_BACKWARD = "indexing_backward"
 TRI_AGREE = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
@@ -597,9 +636,10 @@ def main_path(overrides):
     log(f"image {tuple(img.shape)} finite, mean {mean:.6f}; EXR written")
     if min(counts["closest_hit"], counts["any_hit"]) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    # the small tables' look-ups: the forward kernel in every round, the
-    # backward one never (no gradient)
-    if counts["lut_gather"] <= 0 or counts["lut_gather_bwd"]:
+    # the look-ups: the forward kernel in every round (the per-mesh tables,
+    # the env map), the backward ones never (no gradient)
+    if (counts["lut_gather"] <= 0
+            or counts["lut_gather_bwd"] or counts["lut_gather_large_bwd"]):
         raise AssertionError(f"the forward's look-up launches: {counts}")
     return counts
 
@@ -676,7 +716,7 @@ def check_replay_launches(label, counts, rounds, ran, runner):
     """A graphed fwd+bwd call's traversal launches: K1 and K2 once in every
     round its forward ran on the card (the live rounds plus fewer than k
     past the end, credited per replay), never in its backward (its graph
-    captured none)."""
+    captured none); the small tables' look-ups in both."""
     if not (counts["closest_hit"] == counts["any_hit"] == ran
             and rounds <= ran < rounds + runner.k
             and runner.back_graph is not None
@@ -697,6 +737,24 @@ def check_replay_launches(label, counts, rounds, ran, runner):
             f"per backward round {back}")
 
 
+def check_large_launches(label, counts, runner, large):
+    """A graphed fwd+bwd call's large-table backward (S2): where the scene
+    has a large float table (large), launched in the backward's round graph
+    and never in the forward's replays, so the call's backward launched it;
+    where it has none, never."""
+    fwd, back = runner.launches, runner.back_launches
+    if large:
+        ok = (not fwd.get("lut_gather_large_bwd", 0)
+              and back.get("lut_gather_large_bwd", 0) > 0
+              and counts["lut_gather_large_bwd"] > 0)
+    else:
+        ok = not any(counts[k] for k in LARGE)
+    if not ok:
+        raise AssertionError(
+            f"{label}: large-table look-up launches {counts}, per forward "
+            f"replay {fwd}, per backward round {back}")
+
+
 def device_busy(label, fn, wall_s, top=5):
     """Run fn once under torch.profiler (the card's activity only) and log
     the card's busy time -- the sum of its kernels' and copies' device time
@@ -705,7 +763,8 @@ def device_busy(label, fn, wall_s, top=5):
     replayed from a CUDA graph are traced one by one, as launched ones are.
     The profiler's raw events are summed by name (key_averages takes ~50
     us an event, minutes for a forward's million kernels).  Returns (the
-    number of kernels and copies, the busy share)."""
+    number of kernels and copies, the busy share, the launches of
+    indexing_backward_kernel*)."""
     import torch
 
     with torch.profiler.profile(
@@ -727,20 +786,26 @@ def device_busy(label, fn, wall_s, top=5):
         f"{wall_s:.4f} s")
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     # the heaviest, and the traversal and look-up kernels wherever they rank
-    ours = ("walk_kernel",) + LUT_NAMES
+    ours = ("walk_kernel",) + LUT_NAMES + LARGE_NAMES
     for name, (ns, n) in ranked[:top] + [
             kv for kv in ranked[top:] if any(k in kv[0] for k in ours)]:
         log(f"    {name[:60]:60s} {ns / 1e6:10.3f} ms x{n}")
-    # the gathers' backward: PyTorch's (the large tables') and the look-up
-    # kernels' (the small tables')
+    # the gathers' backward: PyTorch's (the plain version's) and the look-up
+    # kernels' (the small tables', the large tables' and their sorts)
+    launches = {}
     for what, keys in (("indexing_backward_kernel*", (INDEXING_BACKWARD,)),
-                       ("look-up kernels (small_lut.cu)", LUT_NAMES)):
+                       ("look-up kernels (small_lut.cu)", LUT_NAMES),
+                       ("look-up kernels (large_lut.cu)", LARGE_NAMES),
+                       ("sorts (the ray sort's and S2's)", SORT_NAMES),
+                       ("memsets", ("Memset",))):
         hits = [v for name, v in by_name.items()
                 if any(k in name for k in keys)]
         ms = sum(ns for ns, _ in hits) / 1e6
-        log(f"    {what}: {ms:.3f} ms in {sum(n for _, n in hits)} launches "
+        launches[what] = sum(n for _, n in hits)
+        log(f"    {what}: {ms:.3f} ms in {launches[what]} launches "
             f"= {100.0 * ms / busy_ms:.2f}% of the device time")
-    return count, busy_ms / (1e3 * wall_s)
+    return (count, busy_ms / (1e3 * wall_s),
+            launches["indexing_backward_kernel*"])
 
 
 def training_path(spp):
@@ -792,6 +857,7 @@ def training_path(spp):
         f"{rays / dt / 1e6:.4f} Mrays/s fwd+bwd, launches {counts}, peak "
         f"device memory {peak:.1f} MiB")
     check_replay_launches("training path", counts, rounds, ran, runner)
+    check_large_launches("training path", counts, runner, True)
     # where the device time goes, the gathers' backward among it
     device_busy("macbeth fwd+bwd, graphed", run, dt)
 
@@ -990,7 +1056,7 @@ def window_busy(label, run, count):
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels, _ = device_busy(label, run, wall)
+    kernels, _, _ = device_busy(label, run, wall)
     log(f"    {kernels / count:.0f} kernels and copies a round, "
         f"{1e3 * wall / count:.3f} ms a round untraced")
 
@@ -1101,6 +1167,8 @@ def volume_training(spp, window):
         f"= {dt / dt_f:.3f}, peak device memory {peak:.1f} MiB, launches "
         f"{counts}; loss {float(loss):.6f} vs forward {want:.6f}")
     _no_traversal("the volume fwd+bwd", counts)
+    check_large_launches("the volume fwd+bwd", counts,
+                         replay_runner(machines), True)
     if not (np.isfinite(float(loss))
             and abs(float(loss) - want) <= 1e-4 * abs(want)):
         raise AssertionError(f"loss {float(loss)} != forward sum {want}")
@@ -1751,8 +1819,8 @@ def _graphed_against_per_round(label, make, traversal):
     g["first_wall_s"] = first["wall_s"]
     g.update({k: v for k, v in machine_totals(sess.machines).items()
               if k.startswith("capture")})
-    _, g["busy"] = device_busy(f"{label}, graphed forward", sess.render,
-                               g["wall_s"])
+    _, g["busy"], _ = device_busy(f"{label}, graphed forward", sess.render,
+                                  g["wall_s"])
     del sess
     base = cached_mib()
     sess = make(True)
@@ -1880,14 +1948,17 @@ def k_sweep(scene, params):
         f"package's k = {default}")
 
 
-def _replay_cell(label, fn, traversal):
+def _replay_cell(label, fn, traversal, large):
     """One cell of phase 22: fn(per_round, machines) -> (loss, grads, rays,
     rounds), one fwd+bwd chunk.  The graphed replay on kept machines (a
     warm call that measures and captures, then a timed call) against the
     per-round replay in the same process: the loss to rtol 1e-6, every
     gradient leaf to rtol 1e-5 / atol 1e-7, equal rays and rounds, K1/K2
     launched once a forward round run (none on the volume), the look-up
-    kernels in the path's rounds.  Returns the cell's record."""
+    kernels in the path's rounds, the large-table ones (S2) on both routes
+    where the scene has a large table (large) and nowhere else, and no
+    indexing_backward_kernel* in the graphed call's profile.  Returns the
+    cell's record."""
     import gc
 
     import torch
@@ -1928,8 +1999,13 @@ def _replay_cell(label, fn, traversal):
     if traversal:
         check_replay_launches(label, g["launches"], g["rounds"],
                               g["rounds_run"], runner)
-    _, g["busy"] = device_busy(f"{label}, graphed fwd+bwd",
-                               lambda: fn(False, machines), g["wall_s"])
+    check_large_launches(label, g["launches"], runner, large)
+    _, g["busy"], g["indexing_backward"] = device_busy(
+        f"{label}, graphed fwd+bwd", lambda: fn(False, machines), g["wall_s"])
+    if g["indexing_backward"]:
+        raise AssertionError(
+            f"{label}: {g['indexing_backward']} launches of PyTorch's "
+            "indexing_backward: a table read by a plain gather")
     del machines, runner
     base = cached_mib()
     out_e, e = timed(True, {})
@@ -1970,6 +2046,9 @@ def _replay_cell(label, fn, traversal):
                                  f"{e['launches']}")
     else:
         _no_traversal(label, {**g["launches"], **e["launches"]})
+    if (e["launches"]["lut_gather_large_bwd"] > 0) != large:
+        raise AssertionError(f"{label}: per-round large-table look-ups "
+                             f"{e['launches']}")
     return {"graphed": g, "per_round": e}
 
 
@@ -1999,13 +2078,13 @@ def graphed_replay():
     return {
         "macbeth 1280x720 @ 4 spp": _replay_cell(
             "macbeth 1280x720 @ 4 spp",
-            call(sc.to(DEVICE), acc.to(DEVICE), p_mac), True),
+            call(sc.to(DEVICE), acc.to(DEVICE), p_mac), True, True),
         f"{name} 512x512 @ 16 spp": _replay_cell(
             f"{name} 512x512 @ 16 spp",
-            call(sess.scene, sess.accel, p_glass, bench.CHUNK), True),
+            call(sess.scene, sess.accel, p_glass, bench.CHUNK), True, False),
         "volume_blob 1280x720 @ 4 spp": _replay_cell(
             "volume_blob 1280x720 @ 4 spp",
-            call(vol.scene, None, p_vol), False),
+            call(vol.scene, None, p_vol), False, True),
     }
 
 
@@ -2026,23 +2105,22 @@ def _macbeth_mesh_ids(device, lanes):
     return torch.where(hit.tri >= 0, mesh, -1).clamp(0, n_mesh - 1), n_mesh
 
 
-def _captured_lut(table, g, idx, n):
-    """Both look-up kernels captured into a CUDA graph (after a warm launch
-    on a side stream) and replayed once: copies of (out, d_table)."""
+def _captured_lut(fwd, bwd, table, g, idx, n):
+    """A look-up's forward and backward wrappers (fwd(table, idx),
+    bwd(g, idx, n)) captured into a CUDA graph (after a warm launch on a
+    side stream) and replayed once: copies of (out, d_table)."""
     import torch
-
-    from nart_tpu_torch import select
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        select.lut_gather_cuda(table, idx)
-        select.lut_gather_bwd_cuda(g, idx, n)
+        fwd(table, idx)
+        bwd(g, idx, n)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = select.lut_gather_cuda(table, idx)
-        d_table = select.lut_gather_bwd_cuda(g, idx, n)
+        out = fwd(table, idx)
+        d_table = bwd(g, idx, n)
     graph.replay()
     torch.cuda.synchronize()
     return out.clone(), d_table.clone()
@@ -2108,7 +2186,9 @@ def lut_checks(device):
             d_int = select.lut_gather_bwd_cuda(g_int.float(), idx, n)
             want_int = torch.zeros(shape, dtype=torch.int64,
                                    device=device).index_add_(0, idx, g_int)
-            out_g, d_g = _captured_lut(table, g, idx, n)
+            out_g, d_g = _captured_lut(select.lut_gather_cuda,
+                                       select.lut_gather_bwd_cuda, table, g,
+                                       idx, n)
             plain = select.lut_gather_plain(table, idx)
 
             def f64_sum(x):
@@ -2207,6 +2287,191 @@ def lut_checks(device):
     return records
 
 
+def _large_indices(kind, n, lanes, rng, device):
+    """A large-table case's rows: uniform, all on one row, or long runs
+    (half the lanes on one row, a quarter on another, the rest uniform)."""
+    import torch
+
+    if kind == "uniform":
+        idx = rng.integers(0, n, lanes)
+    elif kind == "one row":
+        idx = np.full(lanes, rng.integers(0, n))
+    else:
+        idx = rng.integers(0, n, lanes)
+        pick = rng.random(lanes)
+        idx[pick < 0.5] = rng.integers(0, n)
+        idx[(pick >= 0.5) & (pick < 0.75)] = rng.integers(0, n)
+    return torch.from_numpy(idx).to(device)
+
+
+def large_lut_checks(device):
+    """Phase 24: the large-table look-ups (the forward kernel, and the
+    backward kernel S2) against their plain versions at the main path's
+    shapes, and the two backward kernels against each other on small
+    tables.  Returns S2's record at the env map's shape (the most launches
+    a macbeth round), with every shape's times under "shapes" and the
+    backward kernels' side by side under "against_small", and the forward
+    kernel's times at these shapes ("lut_gather_shapes")."""
+    import torch
+
+    from nart_tpu_torch import select
+
+    rng = np.random.default_rng(24)
+    err_f = err_b = 0.0
+    kinds = ("uniform", "one row", "runs")
+    for label, lanes, n, width in LARGE_SHAPES:
+        table = torch.from_numpy(
+            rng.normal(size=(n, width)).astype(np.float32)).to(device)
+        for kind in kinds:
+            idx = _large_indices(kind, n, lanes, rng, device)
+            shape = (n, width)
+            g = torch.from_numpy(
+                rng.normal(size=(lanes, width)).astype(np.float32)).to(device)
+            g_int = torch.from_numpy(
+                rng.integers(-LUT_INT, LUT_INT + 1, (lanes, width))).to(device)
+            out = select.lut_gather_cuda(table, idx)
+            d1 = select.lut_gather_large_bwd_cuda(g, idx, n)
+            d2 = select.lut_gather_large_bwd_cuda(g, idx, n)
+            d_int = select.lut_gather_large_bwd_cuda(g_int.float(), idx, n)
+            # the backward's sort is captured with it
+            out_g, d_g = _captured_lut(select.lut_gather_cuda,
+                                       select.lut_gather_large_bwd_cuda,
+                                       table, g, idx, n)
+            plain = select.lut_gather_plain(table, idx)
+            want_int = torch.zeros(shape, dtype=torch.int64,
+                                   device=device).index_add_(0, idx, g_int)
+
+            def f64_sum(x):
+                return torch.zeros(shape, dtype=torch.float64,
+                                   device=device).index_add_(0, idx,
+                                                             x.double())
+
+            want, scale = f64_sum(g), f64_sum(g.abs())
+            torch.cuda.synchronize()
+            where = f"large look-up {label}, {kind}"
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{where}: the forward kernel differs "
+                                     "from the plain gather")
+            if not (torch.equal(d1, d2) and torch.equal(d_g, d1)
+                    and torch.equal(out_g, out)):
+                raise AssertionError(f"{where}: other bits on a second "
+                                     "launch or from a graph's replay")
+            if not torch.equal(d_int, want_int.float()):
+                raise AssertionError(
+                    f"{where}: the backward kernel's sums of integer "
+                    f"cotangents are off the int64 index_add_ by "
+                    f"{float((d_int.double() - want_int).abs().max())}")
+            err = (d1.double() - want).abs()
+            if not bool((err <= LUT_ATOL + LUT_RTOL * scale).all()):
+                raise AssertionError(
+                    f"{where}: the backward kernel is off the float64 sum "
+                    f"by {float(err.max())}")
+            err_f = max(err_f, float((out - plain).abs().max()))
+            err_b = max(err_b, float(err.max()))
+            del want, scale, want_int
+    log(f"large-table look-up kernels, {len(LARGE_SHAPES) * len(kinds)} "
+        f"cases ({', '.join(s[0] for s in LARGE_SHAPES)}; {', '.join(kinds)}"
+        f"): the forward the plain gather's bits; the backward against the "
+        f"float64 index_add_ within atol {LUT_ATOL} plus rtol {LUT_RTOL} "
+        f"times the sum of the cotangents' magnitudes, max abs err "
+        f"{err_b:.3g}, integer cotangents in [-{LUT_INT}, {LUT_INT}] the "
+        "int64 index_add_'s bits; the same bits on a second launch and from "
+        "a CUDA graph's replay")
+
+    # times at each shape: uniform rows, and every lane on one row (the
+    # plain backward's worst case)
+    emb_bwd = torch.ops.aten.embedding_dense_backward
+    reps = SIZES["reps"]
+    shapes = {}
+    for label, lanes, n, width in LARGE_SHAPES:
+        table = torch.from_numpy(
+            rng.normal(size=(n, width)).astype(np.float32)).to(device)
+        g = torch.from_numpy(
+            rng.normal(size=(lanes, width)).astype(np.float32)).to(device)
+        for kind in kinds[:2]:
+            idx = _large_indices(kind, n, lanes, rng, device)
+            touched = int(torch.unique(idx).numel())
+            t = {
+                "fwd": cuda_ms(
+                    lambda: select.lut_gather_cuda(table, idx), reps),
+                "bwd": cuda_ms(
+                    lambda: select.lut_gather_large_bwd_cuda(g, idx, n),
+                    reps),
+                "fwd_plain": cuda_ms(
+                    lambda: select.lut_gather_plain(table, idx), reps),
+                "bwd_plain": cuda_ms(
+                    lambda: select.lut_gather_bwd_plain(g, idx, n), reps),
+                "fwd_library": cuda_ms(
+                    lambda: torch.nn.functional.embedding(idx, table), reps),
+                "bwd_library": cuda_ms(
+                    lambda: emb_bwd(g, idx, n, -1, False), reps),
+                "bwd_index_add": cuda_ms(
+                    lambda: g.new_zeros((n, width)).index_add_(0, idx, g),
+                    reps),
+            }
+            # the forward moves the rows it reads, the backward writes the
+            # whole dense (n, C) table
+            fb = lut_bound(lanes, touched, width, False)
+            bb = lut_bound(lanes, n, width, True)
+            log(f"time large look-up {label} ({kind}), N={lanes}, n={n}, "
+                f"rows of {width}, {touched} rows touched: forward kernel "
+                f"{t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
+                f"F.embedding {t['fwd_library']:.4f} ms, bound "
+                f"{fb['bound_ms']:.6f} ms ({fb['bound_by']}); backward "
+                f"kernel (its sort included) {t['bwd']:.4f} ms, plain "
+                f"(index_put_, indexing_backward) {t['bwd_plain']:.4f} ms, "
+                f"embedding_dense_backward {t['bwd_library']:.4f} ms, "
+                f"zeros + index_add_ {t['bwd_index_add']:.4f} ms, bound "
+                f"{bb['bound_ms']:.6f} ms ({bb['bound_by']}), "
+                f"{100.0 * bb['bound_ms'] / t['bwd']:.3f}% of it reached")
+            shapes[f"{label}, {kind}"] = {
+                "fwd": dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                            library_ms=t["fwd_library"], **fb),
+                "bwd": dict(ms=t["bwd"], plain_ms=t["bwd_plain"],
+                            library_ms=t["bwd_library"],
+                            index_add_ms=t["bwd_index_add"], **bb)}
+
+    # the two backward kernels side by side where both apply (rows of 3):
+    # where the small-table one stops paying for its tiles' passes over the
+    # lanes, against the large-table one's sort
+    against = {}
+    for lanes, n, kind in [(65536, n, "uniform") for n in S1_S2_ROWS] + [
+            (131072, 1, "one row")]:
+        idx = _large_indices(kind, n, lanes, rng, device)
+        g = torch.from_numpy(
+            rng.normal(size=(lanes, 3)).astype(np.float32)).to(device)
+        small = select.lut_gather_bwd_cuda(g, idx, n)
+        large = select.lut_gather_large_bwd_cuda(g, idx, n)
+        want = torch.zeros((n, 3), dtype=torch.float64,
+                           device=device).index_add_(0, idx, g.double())
+        scale = torch.zeros((n, 3), dtype=torch.float64,
+                            device=device).index_add_(0, idx, g.double().abs())
+        for d in (small, large):
+            if not bool(((d.double() - want).abs()
+                         <= LUT_ATOL + LUT_RTOL * scale).all()):
+                raise AssertionError(f"backward kernels at n={n}: off the "
+                                     "float64 sum")
+        t_small = cuda_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n), reps)
+        t_large = cuda_ms(
+            lambda: select.lut_gather_large_bwd_cuda(g, idx, n), reps)
+        against[f"N={lanes}, n={n}, {kind}"] = dict(small_ms=t_small,
+                                                     large_ms=t_large)
+        log(f"time backward kernels, N={lanes}, n={n} rows of 3, {kind}: "
+            f"small-table (S1) {t_small:.4f} ms, large-table (S2, its sort "
+            f"included) {t_large:.4f} ms, S2 / S1 {t_large / t_small:.3f}")
+
+    main = shapes[f"{LARGE_SHAPES[0][0]}, uniform"]
+    return {
+        "lut_gather_large_bwd": dict(max_abs_err=err_b, **main["bwd"],
+                                     shapes={k: v["bwd"]
+                                             for k, v in shapes.items()},
+                                     against_small=against),
+        "lut_gather_shapes": dict(max_abs_err=err_f,
+                                  shapes={k: v["fwd"]
+                                          for k, v in shapes.items()}),
+    }
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -2218,6 +2483,12 @@ LUT_ROWS = (1, 3, 4, 16, 64)
 LUT_WIDTHS = (1, 3)
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 LUT_INT = 8  # integer cotangents in [-8, 8]: sums below 2^20, exact
+# phase 24's shapes, the main path's: (label, lanes, rows, row width)
+LARGE_SHAPES = (("macbeth env map", 65536, 64 * 128, 3),
+                ("macbeth tex_data", 65536, 2525 * 3583, 3),
+                ("volume_blob density cells", 32768, 31**3, 8))
+# phase 24's table rows where both backward kernels are timed
+S1_S2_ROWS = (3, 64, 1024, 4096, 8192, 16384, 65536)
 
 
 def main():
@@ -2240,13 +2511,13 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    libs = [os.path.splitext(os.path.basename(f))[0]
-            for f in (SOURCE, LUT_SOURCE)]
+    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE)
+    libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source
         list(pool.map(cuda_build.build, libs))
     for lib in libs:
         cuda_build.load(lib)
-    log(f"build: {SOURCE} and {LUT_SOURCE}, together, in "
+    log(f"build: {', '.join(sources)}, together, in "
         f"{time.perf_counter() - t0:.2f} s")
 
     def phase(label, fn, *args):
@@ -2280,10 +2551,16 @@ def main():
     phase("graphed rounds", graphed_rounds)
     phase("graphed replay", graphed_replay)
     records.update(phase("small-table look-ups", lut_checks, DEVICE))
+    large = phase("large-table look-ups", large_lut_checks, DEVICE)
+    fwd_large = large.pop("lut_gather_shapes")
+    records["lut_gather"]["shapes"] = fwd_large["shapes"]
+    records["lut_gather"]["max_abs_err"] = max(
+        records["lut_gather"]["max_abs_err"], fwd_large["max_abs_err"])
+    records.update(large)
 
     # `launches`: a traversal kernel's in the forward render (phase 5), a
-    # look-up kernel's in the fwd+bwd (phase 6), whose backward the
-    # look-ups are on
+    # look-up kernel's (small or large tables) in the fwd+bwd (phase 6),
+    # whose backward the look-ups are on
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k],
                     launches=(counts if k in TRAVERSAL else counts_train)[k],

@@ -24,9 +24,9 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     kind policy, tools/kernel_stats.py's kernel)
   bvh.py            LBVH build + plain lockstep walk, the "bvh" kind
                     (accel.py)
-  select.py         small-table look-ups: CUDA kernels (csrc/small_lut.cu)
-                    forward and backward for float tables on the card,
-                    table[idx] on the CPU (select.py)
+  select.py         table look-ups: CUDA kernels (csrc/small_lut.cu,
+                    csrc/large_lut.cu) forward and backward for float
+                    tables on the card, table[idx] on the CPU (select.py)
   bxdf.py           5 BSDF lobes + aggregation (bxdf.py)
   materials.py      per-hit BSDF descriptors, half textures (materials.py)
   lights.py         disk / ring / env / distant lights, packed area tables
@@ -63,6 +63,10 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
   kernel_stats.py   traversal counters per ray and the tool that prints
                     them: python -m nart_tpu_torch.kernel_stats
                     (tools/kernel_stats.py)
+  lut_runs.py       the large tables' backward look-ups on a per-round
+                    fwd+bwd: launches, rows touched, the longest run of
+                    one row: python -m nart_tpu_torch.lut_runs (no
+                    counterpart)
 
 Entry points (RenderSession, render_scene_file, grad.loss_and_grad,
 grad.radiance_weighted_loss_and_grad, kernel_stats.main, cli.main) run on

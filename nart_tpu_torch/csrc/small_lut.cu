@@ -1,25 +1,33 @@
-// Small-table look-ups: a per-lane row read of a float32 table of a few
-// rows, and its backward, the per-row sum of the lanes' cotangents.
+// Table look-ups: a per-lane row read of a float32 table, and, for a table
+// of a few rows, its backward, the per-row sum of the lanes' cotangents.
 // nart_tpu_torch/select.py binds both entries:
-//   * nart_lut_gather      out[i, :] = table[clamp(idx[i], 0, n - 1), :]
+//   * nart_lut_gather      out[i, :] = table[clamp(idx[i], 0, n - 1), :],
+//                          for every float table: any n, rows of C = 1 to
+//                          8 values (its cost does not depend on n)
 //   * nart_lut_gather_bwd  d_table[r, :] = the sum of g[i, :] over the
-//                          lanes i with clamp(idx[i], 0, n - 1) == r
+//                          lanes i with clamp(idx[i], 0, n - 1) == r, for
+//                          rows of C = 1 to 4 values (select.py takes it
+//                          for tables of at most 64 rows; the others'
+//                          backward is csrc/large_lut.cu's)
 //
 // They stand for the JAX package's one-hot look-up, which has no Pallas
 // kernel: nart_tpu/select.py:59 small_lut and nart_tpu/materials.py:96
 // mesh_luts.  There the forward is ohf @ table and the backward its
-// transpose ohf.T @ g, a dense reduction over the lanes.  The port's plain
-// version, table[idx] under autograd, differentiates through PyTorch's
-// sorted index_put_(accumulate=True), whose indexing_backward kernel walks
-// every run of equal indices serially: 65,536 lanes on 3-4 mesh rows, or
-// 131,072 on one light row, are runs tens of thousands of steps long.
+// transpose ohf.T @ g, a dense reduction over the lanes.  The forward also
+// stands for XLA's gather behind the JAX package's plain gathers of its
+// large tables (nart_tpu/materials.py:60, nart_tpu/lights.py:73,
+// nart_tpu/media.py:81).  The port's plain version, table[idx] under
+// autograd, differentiates through PyTorch's sorted
+// index_put_(accumulate=True), whose indexing_backward kernel walks every
+// run of equal indices serially: 65,536 lanes on 3-4 mesh rows, or 131,072
+// on one light row, are runs tens of thousands of steps long.
 //
 // What bounds it on an H100: bytes.  The forward reads idx (8 B a lane)
-// and the table, and writes 4C B a lane; the backward reads idx and g
-// (8 + 4C B a lane) and writes the (n, C) table.  At N = 65,536 and C = 3
-// that is about 1.3 MB, 0.4 us at 3.35 TB/s: far below one launch's
-// latency (a few us).  So each entry is simple: the forward one launch,
-// the backward two.  Tensor cores and TMA have nothing to do here.
+// and 4C B of the table a lane, and writes 4C B a lane; the backward reads
+// idx and g (8 + 4C B a lane) and writes the (n, C) table.  At N = 65,536
+// and C = 3 that is about 1.3 MB, 0.4 us at 3.35 TB/s: far below one
+// launch's latency (a few us).  So each entry is simple: the forward one
+// launch, the backward two.  Tensor cores and TMA have nothing to do here.
 //
 // The forward is an exact copy: the plain version's bits.
 //
@@ -142,8 +150,9 @@ int64_t n_blocks_of(int64_t N) {
   return (N + kLanesPerBlock - 1) / kLanesPerBlock;
 }
 
-bool bad_args(int64_t N, int64_t n, int C) {
-  return N <= 0 || n <= 0 || C < 1 || C > 4;
+// the forward takes rows of up to 8 values, the backward of up to 4
+bool bad_args(int64_t N, int64_t n, int C, int max_c) {
+  return N <= 0 || n <= 0 || C < 1 || C > max_c;
 }
 
 template <int C>
@@ -174,12 +183,16 @@ extern "C" int64_t nart_lut_bwd_scratch(int64_t N, int64_t n, int C) {
 extern "C" int nart_lut_gather(const float* table, const int64_t* idx,
                                int64_t N, int64_t n, int C, float* out,
                                cudaStream_t stream) {
-  if (bad_args(N, n, C)) return (int)cudaErrorInvalidValue;
+  if (bad_args(N, n, C, 8)) return (int)cudaErrorInvalidValue;
   switch (C) {
     case 1: launch_gather<1>(table, idx, N, n, out, stream); break;
     case 2: launch_gather<2>(table, idx, N, n, out, stream); break;
     case 3: launch_gather<3>(table, idx, N, n, out, stream); break;
-    default: launch_gather<4>(table, idx, N, n, out, stream); break;
+    case 4: launch_gather<4>(table, idx, N, n, out, stream); break;
+    case 5: launch_gather<5>(table, idx, N, n, out, stream); break;
+    case 6: launch_gather<6>(table, idx, N, n, out, stream); break;
+    case 7: launch_gather<7>(table, idx, N, n, out, stream); break;
+    default: launch_gather<8>(table, idx, N, n, out, stream); break;
   }
   return (int)cudaGetLastError();
 }
@@ -188,7 +201,7 @@ extern "C" int nart_lut_gather_bwd(const float* g, const int64_t* idx,
                                    int64_t N, int64_t n, int C,
                                    float* partial, float* d_table,
                                    cudaStream_t stream) {
-  if (bad_args(N, n, C)) return (int)cudaErrorInvalidValue;
+  if (bad_args(N, n, C, 4)) return (int)cudaErrorInvalidValue;
   switch (C) {
     case 1: launch_partial<1>(g, idx, N, n, partial, stream); break;
     case 2: launch_partial<2>(g, idx, N, n, partial, stream); break;

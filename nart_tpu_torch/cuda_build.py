@@ -10,7 +10,7 @@ when the module is imported.
 
 ``launch_counts`` counts the kernels' launches on the card, per wrapper:
 the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py) and the
-look-up kernels of csrc/small_lut.cu (select.py).
+look-up kernels of csrc/small_lut.cu and csrc/large_lut.cu (select.py).
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ _loaded: dict = {}
 # the graph (rounds.RoundRunner, rounds.ReplayRunner) adds those counts to
 # launch_counts at every replay
 launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
-                 "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0}
+                 "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
+                 "lut_gather_large_bwd": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

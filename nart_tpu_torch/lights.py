@@ -30,7 +30,7 @@ from .scene import (
     Env2D,
     LightData,
 )
-from .select import auto_lut, small_lut
+from .select import small_lut
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
@@ -74,14 +74,15 @@ def _xform_dir(xf, d):
 
 def _tex_lookup(img, st, intensity):
     """Nearest texel of an (h, w, 3) image at st, with GetValue's clamps and
-    v-flip, times the intensity; a texture of at most 64 texels through the
-    look-up kernels (select.auto_lut)."""
+    v-flip, times the intensity, through the look-up kernels
+    (select.small_lut: the small-table backward up to 64 texels, the
+    large-table one above)."""
     h, w, _ = img.shape
     u = torch.clamp(st[..., 0], 1e-4, 0.9999)
     v = torch.clamp(1.0 - st[..., 1], 1e-4, 0.9999)
     iu = (float(w) * u).to(torch.int64)
     iv = (float(h) * v).to(torch.int64)
-    return auto_lut(iv * w + iu, h * w)(img.reshape(h * w, 3)) * intensity
+    return small_lut(iv * w + iu, h * w)(img.reshape(h * w, 3)) * intensity
 
 
 def _le_value(light: LightData, st):
@@ -425,8 +426,8 @@ def _pack_st(pack, lut, delta):
 
 def _pack_le(pack, lut, st):
     """Le * intensity of the selected row: constant table or one atlas
-    look-up (GetValue's clamps and v-flip; an atlas of at most 64 texels
-    through the look-up kernels, select.auto_lut)."""
+    look-up (GetValue's clamps and v-flip; through the look-up kernels,
+    select.small_lut, as _tex_lookup)."""
     le = lut(pack.le)
     atlas = pack.tex_atlas
     if atlas.shape[0] <= 1:
@@ -438,7 +439,8 @@ def _pack_le(pack, lut, st):
     v = torch.clamp(1.0 - st[..., 1], 1e-4, 0.9999)
     iu = (w.to(torch.float32) * u).to(torch.int64)
     iv = (h.to(torch.float32) * v).to(torch.int64)
-    fetched = auto_lut(off.clamp(min=0) + iv * w + iu, atlas.shape[0])(atlas)
+    texel = off.clamp(min=0) + iv * w + iu
+    fetched = small_lut(texel, atlas.shape[0])(atlas)
     fetched = fetched * lut(pack.intensity)[..., None]
     return torch.where((off >= 0)[..., None], fetched, le)
 

@@ -6,9 +6,11 @@ read through select.small_lut, the counterpart of the JAX package's
 one-hot mesh_luts: its differentiable small-table read, whose backward is a
 reduction over the lanes (on the card, the look-up kernels of
 csrc/small_lut.cu; a plain gather's backward there serialises the lanes
-of each mesh).  The render path stores the packed
-textures as half floats: the reference's in-memory textures are half, so
-this is exact parity and halves the bytes each fetch moves.
+of each mesh).  The gradient's float32 texture table goes through
+select.small_lut too (on the card, the backward of csrc/large_lut.cu for a
+table of more than 64 texels).  The render path stores the packed textures
+as half floats: the reference's in-memory textures are half, so this is
+exact parity and halves the bytes each fetch moves.
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ def pack_tex_half(tex_data):
 
 
 def tex_fetch(scene: SceneData, tex_id, st, tex_half=None):
-    """Nearest-neighbour texture lookup: (N, 3) f32, from the half table
-    when one is given."""
+    """Nearest-neighbour texture lookup: (N, 3) f32.  The float32 table (the
+    gradient's) through the look-up kernels (select.small_lut); the render
+    path's half table, which carries no gradient, by plain indexing."""
     idx = _tex_index(scene, tex_id, st)
     if tex_half is None:
-        return scene.tex_data[idx]
+        return small_lut(idx, scene.tex_data.shape[0])(scene.tex_data)
     return tex_half[idx].to(torch.float32)
 
 

@@ -11,6 +11,8 @@ import functools
 
 import torch
 
+from .select import small_lut
+
 _D_ZERO = 1e-30  # stands in for a zero direction component in the slab clip
 
 
@@ -73,7 +75,8 @@ def density_lookup_cells(cells, grid_shape, p_unit):
     rz, ry, rx = grid_shape
     lo, f = _grid_point(grid_shape, p_unit)
     idx = (lo[:, 2] * (ry - 1) + lo[:, 1]) * (rx - 1) + lo[:, 0]
-    row = cells[idx]  # (N, 8): the one gather
+    # (N, 8): the one gather, through the look-up kernels on the card
+    row = small_lut(idx, cells.shape[0])(cells)
     wx = (1.0 - f[:, 0], f[:, 0])
     wy = (1.0 - f[:, 1], f[:, 1])
     wz = (1.0 - f[:, 2], f[:, 2])

@@ -1,5 +1,5 @@
-"""CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu, csrc/small_lut.cu) vs
-their plain PyTorch versions, on the card.
+"""CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu, csrc/small_lut.cu,
+csrc/large_lut.cu) vs their plain PyTorch versions, on the card.
 
 Marked ``gpu``: each test skips (with its reason) when no CUDA device is
 present, deciding inside the fixture, never at import.  Run them on a
@@ -12,7 +12,9 @@ that tests a cluster together could get wrong: one ray to a group, one live
 lane, a ragged last warp, and ties between rows, lanes and tiles.  The
 small-table look-ups: the forward the plain gather's bits, the backward the
 float64 per-row sum to rtol 1e-5 / atol 1e-6 and the same bits run to run
-and from a CUDA graph's replay.
+and from a CUDA graph's replay; the large-table look-ups the same, on
+tables of 65 to 100,000 rows of 1 to 8 values, with runs of one row that
+cross many of the backward's 1,024-lane blocks.
 """
 
 import os
@@ -294,8 +296,10 @@ def test_lut_kernels_against_plain(cuda, n, width):
     float64 per-row sum to rtol 1e-5 / atol 1e-6 (positive cotangents; for
     signed ones, whose sums cancel, atol plus rtol times the sum of their
     magnitudes), integer cotangents' sums bit for bit, the same bits on a
-    second launch and from a CUDA graph's replay; each launch counted; the autograd Function's gradient equal to
-    the backward kernel's.  n = 100 spans two row tiles."""
+    second launch and from a CUDA graph's replay; each launch counted.  n =
+    100 spans two row tiles; the autograd Function takes it to the
+    large-table kernels, the others to these, and its gradient is the
+    backward kernel's that it picks."""
     g = np.random.default_rng(n)
     lanes = 65536 + 17  # a ragged last block
     table = torch.from_numpy(
@@ -339,6 +343,85 @@ def test_lut_kernels_against_plain(cuda, n, width):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         d3 = tsel.lut_gather_bwd_cuda(cot, idx, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(d3, d1)
+
+    leaf = table.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(tsel.small_lut(idx, n)(leaf), leaf, cot)
+    assert torch.equal(ga, d1 if n <= tsel.AUTO_LUT_ROWS
+                       else tsel.lut_gather_large_bwd_cuda(cot, idx, n))
+
+
+def _large_case(kind, n, lanes, g):
+    """Row indices of a large-table case: uniform, all on one row, or long
+    runs (half the lanes on one row, a quarter on another, the rest
+    uniform), with a few out of range."""
+    if kind == "uniform":
+        idx = g.integers(0, n, lanes)
+    elif kind == "one row":
+        idx = np.full(lanes, g.integers(0, n))
+    else:
+        idx = g.integers(0, n, lanes)
+        pick = g.random(lanes)
+        idx[pick < 0.5] = n // 2
+        idx[(pick >= 0.5) & (pick < 0.75)] = n - 1
+    idx[:4] = [-3, n, 0, 10 * n]
+    return idx
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one row", "runs"])
+@pytest.mark.parametrize("n,width,lanes", [
+    (65, 3, 65536), (8192, 3, 65536), (29791, 8, 32768 + 5),
+    (100000, 1, 3000), (343, 5, 1024), (27, 8, 2048)])
+def test_large_lut_kernels_against_plain(cuda, n, width, lanes, kind):
+    """nart_lut_gather on large tables and rows of up to 8 values: the plain
+    gather's bits (indices clamped); nart_lut_large_bwd: integer
+    cotangents' sums the int64 index_add_'s bits, float ones the float64
+    per-row sum to atol plus rtol times the sum of their magnitudes, the
+    same bits on a second launch and from a CUDA graph's replay (the sort
+    captured with it), each launch counted; small_lut's gradient is the
+    large-table kernel's (the Function picks it for rows of more than 4
+    values at any row count: 27 cells of a 4^3 density)."""
+    g = np.random.default_rng(n + lanes)
+    idx = torch.from_numpy(_large_case(kind, n, lanes, g)).to(cuda)
+    ci = idx.clamp(0, n - 1)
+    shape = (n,) if width == 1 else (n, width)
+    table = torch.from_numpy(g.normal(size=shape).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(
+        g.normal(size=(lanes,) + shape[1:]).astype(np.float32)).to(cuda)
+    cot_int = torch.from_numpy(
+        g.integers(-8, 9, (lanes,) + shape[1:])).to(cuda)
+    before = dict(cuda_build.launch_counts)
+    out = tsel.lut_gather_cuda(table, idx)
+    d1 = tsel.lut_gather_large_bwd_cuda(cot, idx, n)
+    d2 = tsel.lut_gather_large_bwd_cuda(cot, idx, n)
+    d_int = tsel.lut_gather_large_bwd_cuda(cot_int.float(), idx, n)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["lut_gather"] == before["lut_gather"] + 1
+    assert (cuda_build.launch_counts["lut_gather_large_bwd"]
+            == before["lut_gather_large_bwd"] + 3)
+    assert torch.equal(out, table[ci])
+    want_int = torch.zeros(shape, dtype=torch.int64,
+                           device=cuda).index_add_(0, ci, cot_int)
+    assert torch.equal(d_int, want_int.float())
+
+    def f64_sum(x):
+        return torch.zeros(shape, dtype=torch.float64,
+                           device=cuda).index_add_(0, ci, x.double())
+
+    err = (d1.double() - f64_sum(cot)).abs()
+    assert bool((err <= LUT_ATOL + LUT_RTOL * f64_sum(cot.abs())).all())
+    assert torch.equal(d1, d2)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsel.lut_gather_large_bwd_cuda(cot, idx, n)  # warm, outside
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d3 = tsel.lut_gather_large_bwd_cuda(cot, idx, n)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(d3, d1)

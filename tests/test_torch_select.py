@@ -6,9 +6,16 @@ vector-Jacobian products to rtol 1e-5 / atol 1e-6 (the per-row sums run in
 another order: the one-hot product's transpose there, a serial sum per row
 here), int and bool tables exactly, indices below 0 and from n up clamped.
 materials.make_bsdf's five per-mesh table gradients (mesh_lookup) against
-the JAX make_bsdf's (mesh_luts) at rtol 1e-5.  A float look-up is the
-autograd Function _LutGather on every device; on the CPU its forward and
-backward run their plain versions.  The kernels (csrc/small_lut.cu) against them on the card are in
+the JAX make_bsdf's (mesh_luts) at rtol 1e-5.  The large tables (more
+than 64 rows: an 8,192-texel env map, the 343 rows of 8 of a small
+density's packed cells) against the JAX package's plain gather and its
+scatter-add, with uniform indices and with every lane on one row.  A float
+look-up is the autograd Function _LutGather on every device; on the CPU
+its forward and backward run their plain versions.  A differentiable path
+round (textured plastic under a textured env map, both tables of more than
+64 texels) and a volume flight step read no trainable table through
+PyTorch's own indexing backward.  The kernels (csrc/small_lut.cu,
+csrc/large_lut.cu) against the plain versions on the card are in
 tests/test_torch_kernels.py (no jax there), which skips without a card.
 """
 
@@ -23,10 +30,15 @@ import torch
 from nart_tpu import materials as jm
 from nart_tpu import select as jsel
 from nart_tpu import testing as jtesting
+from nart_tpu_torch import cluster_accel as tca
 from nart_tpu_torch import cuda_build
+from nart_tpu_torch import grad as tgrad
 from nart_tpu_torch import materials as tm
+from nart_tpu_torch import media as tmedia
+from nart_tpu_torch import render as trender
 from nart_tpu_torch import scene as tscene
 from nart_tpu_torch import select as tsel
+from nart_tpu_torch import testing
 from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -46,9 +58,9 @@ def _indices(n, g):
 @pytest.mark.parametrize("width", [None, 3])
 @pytest.mark.parametrize("n", [1, 3, 64, 65])
 def test_lut_forward_and_vjp_match_jax(fn, width, n):
-    """Forward exact, VJP to rtol 1e-5 / atol 1e-6; n = 65 takes auto_lut's
-    plain gather on both sides, small_lut's one-hot (JAX) and look-up
-    (here) at any n."""
+    """Forward exact, VJP to rtol 1e-5 / atol 1e-6; the JAX package's
+    small_lut (one-hot at any n) and auto_lut (a plain gather at n = 65)
+    against the port's one small_lut."""
     g = np.random.default_rng(n * 10 + (width or 1))
     shape = (n,) if width is None else (n, width)
     table = g.normal(size=shape).astype(np.float32)
@@ -60,7 +72,7 @@ def test_lut_forward_and_vjp_match_jax(fn, width, n):
     (grad_j,) = vjp(jnp.asarray(cot))
 
     tt = torch.from_numpy(table).requires_grad_()
-    out_t = getattr(tsel, fn)(torch.from_numpy(idx), n)(tt)
+    out_t = tsel.small_lut(torch.from_numpy(idx), n)(tt)
     (grad_t,) = torch.autograd.grad(out_t, tt, torch.from_numpy(cot))
 
     np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
@@ -159,3 +171,159 @@ def test_make_bsdf_table_gradients_match_jax():
         assert np.abs(gj).sum() > 0.0, k
         np.testing.assert_allclose(gt.numpy(), gj, rtol=RTOL, atol=ATOL,
                                    err_msg=k)
+
+
+def _cells_table(g):
+    """The packed cell table (343 rows of 8) of a random 8^3 density."""
+    dens = torch.from_numpy(g.uniform(0.0, 1.0, (8, 8, 8)).astype(np.float32))
+    return tmedia.pack_density_cells(dens).numpy()
+
+
+@pytest.mark.parametrize("lanes", ["uniform", "one row"])
+@pytest.mark.parametrize("table", ["n=65", "env map", "cells"])
+def test_large_lut_matches_jax(table, lanes):
+    """small_lut on tables of more than 64 rows (the large-table backward
+    on the card): the forward the JAX package's plain gather's bits, the
+    VJP its scatter-add's to rtol 1e-5 / atol 1e-6 (a float32 sum in another
+    order), with uniform indices and with every lane on one row; the
+    look-up is _LutGather, run here by its plain versions."""
+    g = np.random.default_rng(len(table) * 10 + len(lanes))
+    tab = {"n=65": lambda: g.normal(size=(65, 3)),
+           "env map": lambda: g.uniform(0.0, 4.0, (64 * 128, 3)),
+           "cells": lambda: _cells_table(g)}[table]().astype(np.float32)
+    n = tab.shape[0]
+    idx = (g.integers(0, n, LANES) if lanes == "uniform"
+           else np.full(LANES, g.integers(0, n)))
+    cot = g.normal(size=(LANES,) + tab.shape[1:]).astype(np.float32)
+
+    jlut = jsel.auto_lut(jnp.asarray(idx.astype(np.int32)), n)
+    out_j, vjp = jax.vjp(jlut, jnp.asarray(tab))
+    (grad_j,) = vjp(jnp.asarray(cot))
+
+    tt = torch.from_numpy(tab).requires_grad_()
+    out_t = tsel.small_lut(torch.from_numpy(idx), n)(tt)
+    assert type(out_t.grad_fn).__name__ == "_LutGatherBackward"
+    (grad_t,) = torch.autograd.grad(out_t, tt, torch.from_numpy(cot))
+
+    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
+    np.testing.assert_array_equal(out_t.detach().numpy(), tab[idx])
+    assert np.abs(grad_t.numpy()).sum() > 0.0
+    np.testing.assert_allclose(grad_t.numpy(), np.asarray(grad_j),
+                               rtol=RTOL, atol=ATOL)
+
+
+# autograd nodes that only move, reshape or join a tensor's values: a table
+# read through them is the leaf itself
+_SHAPE_NODES = ("ViewBackward0", "UnsafeViewBackward0",
+                "ReshapeAliasBackward0", "CatBackward0", "StackBackward0",
+                "SliceBackward0", "SelectBackward0", "ExpandBackward0",
+                "CloneBackward0", "ToCopyBackward0", "PermuteBackward0",
+                "TBackward0", "TransposeBackward0", "SqueezeBackward0",
+                "SqueezeBackward1", "UnsqueezeBackward0")
+
+
+def _nodes(fn):
+    """Every autograd node reachable from fn."""
+    seen, stack = {}, [fn]
+    while stack:
+        node = stack.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node
+        stack += [nxt for nxt, _ in node.next_functions]
+    return list(seen.values())
+
+
+def _tables_read(node):
+    """The leaves a node's first input is, or is a rearrangement of."""
+    out, stack = [], [node.next_functions[0][0]]
+    while stack:
+        fn = stack.pop()
+        if fn is None:
+            continue
+        name = type(fn).__name__
+        if name == "AccumulateGrad":
+            out.append(fn.variable)
+        elif name in _SHAPE_NODES:
+            stack += [nxt for nxt, _ in fn.next_functions]
+    return out
+
+
+def _textured_env_scene():
+    """Textured plastic (a 12x12 albedo texture) under an 8x16 textured env
+    map: both tables of more than 64 texels."""
+    sc = testing.env_scene(("plastic",), tex_h=8, tex_w=16, roughness=0.3)
+    tex = np.random.default_rng(4).uniform(0.2, 0.9, (144, 3))
+    return dataclasses.replace(
+        sc, rho_d_tex=torch.zeros(1, dtype=torch.int32),
+        tex_data=torch.from_numpy(tex.astype(np.float32)),
+        tex_off=torch.zeros(1, dtype=torch.int32),
+        tex_w=torch.full((1,), 12, dtype=torch.int32),
+        tex_h=torch.full((1,), 12, dtype=torch.int32), tex_slots=("rho_d",))
+
+
+@pytest.mark.parametrize("kind", ["path round", "volume flight step"])
+def test_no_table_read_through_index_backward(kind):
+    """The differentiable path round (every bounce of a lockstep trace) and
+    the volume's flight step (every step of a lockstep walk) read their
+    large trainable tables (the texture, the env map, the density's cells)
+    through _LutGather: no float leaf that requires grad is read through
+    an IndexBackward0 node (PyTorch's gather, whose backward is the serial
+    indexing_backward on the card), and the tables are read through
+    _LutGatherBackward."""
+    if kind == "path round":
+        sc = _textured_env_scene()
+        accel = tca.build_clusters(sc.tri_v.numpy())
+        params = trender.RenderParams(image_width=6, image_height=6, spp=1,
+                                      bounces=3)
+        want = ("tex_data", "light_le_tex[0]")
+    else:
+        dens = np.random.default_rng(5).uniform(0.3, 1.0, (8, 8, 8))
+        sc = testing.medium_scene(0.4, 0.8, (0.5, 0.5, 0.5), density=dens)
+        accel = None
+        params = trender.RenderParams(image_width=6, image_height=6, spp=1,
+                                      integrator="volume")
+        want = ("medium.density",)
+    leaves = tgrad._as_leaves(tgrad.get_params(sc), "cpu")
+    scene = tgrad.put_params(sc, leaves)
+    out = tgrad.render_lanes(scene, accel, params, 6, 6, 1)
+    names = {id(v): f"{k}[{i}]" for k in ("light_le_tex",)
+             for i, v in enumerate(leaves[k]) if v is not None}
+    names.update({id(leaves[k]): k for k in tgrad.TRAINABLE_FIELDS})
+    if "medium" in leaves:
+        names.update({id(v): f"medium.{k}"
+                      for k, v in leaves["medium"].items()})
+    nodes = _nodes(out.grad_fn)
+    through_index = [names.get(id(v), "?") for node in nodes
+                     if type(node).__name__ == "IndexBackward0"
+                     for v in _tables_read(node)]
+    assert through_index == []
+    through_lut = {names.get(id(v), "?") for node in nodes
+                   if type(node).__name__ == "_LutGatherBackward"
+                   for v in _tables_read(node)}
+    assert set(want) <= through_lut, through_lut
+
+
+def test_lut_runs_counts_the_large_backward_look_ups():
+    """lut_runs.runs on a per-round fwd+bwd of the textured scene: the
+    backward look-ups of the 144-texel texture and the 128-texel env map
+    (the large-table backward's tables) are counted, with the longest run
+    of one row between 1 and the lanes, and select's backward is itself
+    again afterwards."""
+    from nart_tpu_torch import lut_runs
+
+    sc = _textured_env_scene()
+    accel = tca.build_clusters(sc.tri_v.numpy())
+    params = trender.RenderParams(image_width=6, image_height=6, spp=1,
+                                  bounces=3)
+    inner = tsel.lut_gather_bwd
+    out = lut_runs.runs(sc, accel, params, "cpu")
+    assert tsel.lut_gather_bwd is inner
+    assert {(144, 3), (128, 3)} <= set(out), out
+    for (n, _), rec in out.items():
+        assert n > tsel.AUTO_LUT_ROWS
+        assert rec["launches"] >= 1
+        assert 1 <= rec["rows"] <= min(n, rec["lanes"])
+        assert 1 <= rec["run"] <= rec["lanes"]
+        assert 0 <= rec["row"] < n
+
