@@ -2,6 +2,15 @@
 """Smoke run of nart_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns PARENT_TREE   # phase 22's cells, in turns
+
+Kernel times are device times: device_ms captures many calls of a
+function into one CUDA graph and divides the replay's CUDA-event time by
+the calls (median of a few replays, with min-max), so no host work sits
+between the launches, as in the graphed machines.  Beside each kernel's,
+call_ms's reading of one call between two events, the host's checks,
+allocation and launch included, is logged as "per call, host included":
+what an eager caller, a per-round loop, pays.
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA; print the card's name and nvidia-smi's
@@ -17,9 +26,11 @@ Phases (any failure raises and exits non-zero):
      closest-hit validity exactly.  The two counter kernels' five counters
      must equal their plain versions' on every ray, the closest-hit walk's
      t the closest-hit kernel's and the any-hit walk's occlusion the
-     any-hit kernel's.  Median times of kernel and plain version (CUDA
-     events, after warm-up), and each kernel's bound from its own walk's
-     counters on the very rays that were timed (see bound);
+     any-hit kernel's.  Each kernel's and plain version's device ms
+     (device_ms; the counter walks' plain versions, which read the card
+     from the host, over a few eager calls: stream_ms), each kernel's ms
+     per call, and its bound from its own walk's counters on the very rays
+     that were timed (see bound);
   4. golden parity: macbeth at 96x96, 8 spp, through the kernels, against
      tests/golden/macbeth_96x96_8spp.exr (read with the port's PIZ
      reader) with test_macbeth_golden's criteria;
@@ -159,38 +170,55 @@ Phases (any failure raises and exits non-zero):
      on the card: N in {65,536, 131,072} lanes, tables of n in {1, 3, 4,
      16, 64} rows of 1 or 3 values, indices uniform, all on one row, and
      the mesh ids of 65,536 macbeth camera rays' hits.  The forward kernel
-     gives the plain gather's bits; the backward kernel is within rtol 1e-5
-     / atol 1e-6 of a float64 index_add_ of the same cotangents (positive
-     ones; for signed ones, whose sums cancel, within atol plus rtol times
-     the float64 sum of their magnitudes), and for integer cotangents in
-     [-8, 8] (float32 sums exact in any order) the int64 index_add_'s bits;
-     the same bits on a second launch and from a CUDA graph's replay.
-     Logged at
-     three shapes (macbeth's mesh ids, the bench's one light row at
-     131,072 lanes, 64 rows): the median CUDA-event ms of each kernel, of
-     the plain versions (table[idx]; index_put_(accumulate=True), whose
+     gives the plain gather's bits, and, reading 16 tables of 1 to 8
+     values in one launch (nart_lut_gather_many), the bits of one launch a
+     table; the backward kernel is within rtol 1e-5 / atol 1e-6 of a
+     float64 index_add_ of the same cotangents (positive ones; for signed
+     ones, whose sums cancel, within atol plus rtol times the float64 sum
+     of their magnitudes), and for integer cotangents in [-8, 8] (float32
+     sums exact in any order) the int64 index_add_'s bits; the same bits
+     on a second launch and from a CUDA graph's replay.  Logged at three
+     shapes (macbeth's mesh ids, the bench's one light row at 131,072
+     lanes, 64 rows): the device ms of each kernel (and its ms per call),
+     of the plain versions (table[idx]; index_put_(accumulate=True), whose
      indexing_backward kernel is the plain backward), of F.embedding and
      embedding_dense_backward (the library yardstick, timed only), and the
-     bound;
+     bound; then the many-table forward at make_bsdf's six per-mesh tables
+     and area_pack_sample's ten light fields: one launch against one
+     launch a table, the plain gathers and F.embedding a table;
  24. large-table look-ups (the forward of csrc/small_lut.cu, the backward
      of csrc/large_lut.cu) against their plain versions on the card at the
      main path's shapes: macbeth's env map (65,536 lanes, 8,192 rows of 3)
      and tex_data (65,536 lanes, 9,047,075 rows of 3), volume_blob's
      density cells (32,768 lanes, 29,791 rows of 8); rows uniform, all on
-     one row, and long runs (half the lanes on one row, a quarter on
-     another).  The forward gives the plain gather's bits; the backward is
-     within atol 1e-6 plus rtol 1e-5 times the float64 sum of the
-     cotangents' magnitudes of a float64 index_add_, gives the int64
-     index_add_'s bits for integer cotangents in [-8, 8], and the same bits
-     on a second launch and from a CUDA graph's replay.  Logged at each
-     shape (uniform, and one row): the median CUDA-event ms of each kernel
-     (the backward's sort included), of the plain versions, of F.embedding,
-     embedding_dense_backward and zeros + index_add_ (timed only), and the
-     bound; then both backward kernels, the small-table one (S1) and the
-     large-table one (S2), timed side by side on 65,536 uniform lanes over
-     tables of 3 to 4,096 rows of 3 and on the bench's one light row
-     (131,072 lanes): the measured ground for select.AUTO_LUT_ROWS, the
-     row count up to which the small-table backward is taken.
+     one row, long runs (half the lanes on one row, a quarter on another)
+     and masked (half the lanes -1, clamped to row 0).  The forward gives
+     the plain gather's bits; the backward's radix sort leaves the order
+     of torch.sort(stable=True) and of select.radix_order_plain; the
+     backward gives the bits of the sorted route (torch.sort, then the same
+     segmented sum: select.lut_gather_large_bwd_sorted_cuda), is within
+     atol 1e-6 plus rtol 1e-5 times the float64 sum of the cotangents'
+     magnitudes of a float64 index_add_, gives the int64 index_add_'s bits
+     for integer cotangents in [-8, 8], and the same bits on a second
+     launch and from a CUDA graph's replay.  Logged at each shape (uniform,
+     and one row): the device ms of each kernel (and ms per call), of PR
+     10's route, of the plain versions, of F.embedding,
+     embedding_dense_backward and zeros + index_add_ (timed only), the
+     bound, and the graph nodes a backward call makes (the nodes of a
+     CUDA graph that captures one call: the memset and one launch a radix
+     pass, at most 5); then both backward kernels, the
+     small-table one (S1) and the large-table one (S2), timed side by side
+     on 65,536 uniform lanes over tables of 3 to 65,536 rows of 3 and on
+     the bench's one light row (131,072 lanes): the measured ground for
+     select.AUTO_LUT_ROWS, the row count up to which the small-table
+     backward is taken.
+With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
+with git archive into the git-ignored out/): phase 22's three cells, each
+tree in a fresh process (`--turn TREE OUT`, which imports TREE's
+nart_tpu_torch), in turns P, C, C, P: the graphed forward film and the
+graphed fwd+bwd's loss, leaves, rays and rounds against the first P
+turn's (the films, loss, rays and rounds bit for bit, the leaves to rtol
+1e-5 / atol 1e-7), with each turn's wall s and device ms (torch.profiler).
 The line before the last is the kernels' JSON record (`launches`: a
 traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
 fwd+bwd; launches_sharded: phases 13-15, launches_bench: phase 18); the
@@ -248,8 +276,9 @@ SOURCES = {k: SOURCE if k in TRAVERSAL else
            LARGE_SOURCE if k in LARGE else LUT_SOURCE for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
-LUT_NAMES = ("lut_gather_kernel", "lut_partial_kernel", "lut_final_kernel")
-LARGE_NAMES = ("lut_seg_kernel", "lut_carry_kernel")
+LUT_NAMES = ("lut_gather_many_kernel", "lut_partial_kernel",
+             "lut_final_kernel")
+LARGE_NAMES = ("lut_sort_kernel", "lut_seg_kernel", "lut_carry_kernel")
 # torch.sort's kernels (the path round's ray sort, and S2's order of lanes)
 SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
               "bitonicSort")
@@ -274,8 +303,11 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps, warmup=2):
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
+def call_ms(fn, reps, warmup=2):
+    """Per call, host included: the median milliseconds of fn() over reps
+    single calls, each between two CUDA events (a call whose device work
+    is shorter than its host work reads the host: what an eager caller,
+    such as a per-round loop, pays)."""
     import torch
 
     for _ in range(warmup):
@@ -290,6 +322,89 @@ def cuda_ms(fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _replay_ms(run, launches, replays):
+    """{"ms", "min", "max"}: the median, min and max over `replays` runs of
+    run() between two CUDA events, over `launches`."""
+    import torch
+
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return {"ms": statistics.median(times), "min": min(times),
+            "max": max(times), "launches": launches}
+
+
+def device_ms(fn, launches=100, replays=5):
+    """Device time of a call of fn: two warm calls on a side stream, then
+    `launches` calls captured into one CUDA graph and the graph replayed
+    (once to warm, then `replays` times between CUDA events): replay ms
+    over launches, no host work between the launches.  Returns {"ms" (the
+    median), "min", "max", "launches", "method": "graph"}.  fn must not
+    read the card from the host (a capture refuses that)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = _replay_ms(graph.replay, launches, replays)
+    del graph
+    return dict(out, method="graph")
+
+
+def stream_ms(fn, launches=3, replays=3):
+    """device_ms for a call that reads the card from the host (and so
+    cannot be captured): `launches` eager calls between two CUDA events, a
+    call long enough that the host's share is small.  "method": "stream"."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(launches):
+            fn()
+
+    return dict(_replay_ms(run, launches, replays), method="stream")
+
+
+def launches_for(per_call_ms, target_ms=20.0, most=100):
+    """Calls to capture into one timed graph: about target_ms of work, 3 to
+    `most` calls."""
+    return max(3, min(most, int(target_ms / max(per_call_ms, 1e-3))))
+
+
+def kernel_ms(fn, reps):
+    """A call's readings: its device ms (device_ms over about 20 ms of
+    calls) and, per call with the host included (call_ms), ms_per_call."""
+    per_call = call_ms(fn, reps)
+    t = device_ms(fn, launches_for(per_call))
+    return dict(t, ms_per_call=per_call)
+
+
+def fmt(t):
+    """A device reading for the log: median [min-max] ms, per call."""
+    s = f"{t['ms']:.4f} [{t['min']:.4f}-{t['max']:.4f}] ms"
+    if "ms_per_call" in t:
+        s += f" (per call, host included: {t['ms_per_call']:.4f})"
+    return s
 
 
 def random_rays(n, rng, center, spread):
@@ -497,42 +612,52 @@ def kernel_checks(device, sizes):
     _, err_ab = compare_stats("soup, any-hit walk", acc_b, rb, occb,
                               any_hit=True)
 
-    # times at the main-path shapes
+    # times at the main-path shapes: each kernel's device ms (many launches
+    # in one graph) and its ms per call with the host included; the plain
+    # versions (tens to hundreds of ms a call) one call a graph, but the
+    # counter walks', which read the card from the host (a capture refuses
+    # that), a few eager calls between two events
     reps = sizes["reps"]
-    t_k1 = cuda_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
-    t_p1 = cuda_ms(lambda: ca.closest_hit_plain(*cam, acc), max(3, reps // 4))
-    t_k2 = cuda_ms(lambda: ca.intersect_clusters_any(*sh, acc), reps)
-    t_p2 = cuda_ms(lambda: ca.any_hit_plain(*sh, acc), max(3, reps // 4))
-    t_kb = cuda_ms(lambda: ca.intersect_clusters(*rb, acc_b), reps)
-    t_pb = cuda_ms(lambda: ca.closest_hit_plain(*rb, acc_b), 3, warmup=1)
-    t_k3 = cuda_ms(lambda: kernel_stats.traversal_stats(*cam, acc), reps)
-    t_p3 = cuda_ms(lambda: ca.closest_hit_stats_plain(*cam, acc), 3, warmup=1)
-    t_k4 = cuda_ms(lambda: kernel_stats.traversal_stats(*sh, acc, any_hit=True),
-                   reps)
-    t_p4 = cuda_ms(lambda: ca.any_hit_stats_plain(*sh, acc), 3, warmup=1)
+    t_k1 = kernel_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
+    t_p1 = device_ms(lambda: ca.closest_hit_plain(*cam, acc), 1, 3)
+    t_k2 = kernel_ms(lambda: ca.intersect_clusters_any(*sh, acc), reps)
+    t_p2 = device_ms(lambda: ca.any_hit_plain(*sh, acc), 1, 3)
+    t_kb = kernel_ms(lambda: ca.intersect_clusters(*rb, acc_b), reps)
+    t_pb = device_ms(lambda: ca.closest_hit_plain(*rb, acc_b), 1, 3)
+    t_k3 = kernel_ms(lambda: kernel_stats.traversal_stats(*cam, acc), reps)
+    t_p3 = stream_ms(lambda: ca.closest_hit_stats_plain(*cam, acc))
+    t_k4 = kernel_ms(lambda: kernel_stats.traversal_stats(*sh, acc,
+                                                          any_hit=True),
+                     reps)
+    t_p4 = stream_ms(lambda: ca.any_hit_stats_plain(*sh, acc))
     # the closest-hit kernel once more, after the counter kernel ran: the
     # template must not have changed it
-    t_k1b = cuda_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
-    log(f"time closest-hit {n} camera rays: kernel {t_k1:.4f} ms, plain "
-        f"{t_p1:.4f} ms")
-    log(f"time any-hit {m} secondary rays: kernel {t_k2:.4f} ms, plain "
-        f"{t_p2:.4f} ms")
-    log(f"time closest-hit soup {nb} rays: kernel {t_kb:.4f} ms, plain "
-        f"{t_pb:.4f} ms")
-    log(f"time counter kernel {n} camera rays: kernel {t_k3:.4f} ms, plain "
-        f"{t_p3:.4f} ms; closest-hit again {t_k1b:.4f} ms")
-    log(f"time any-hit counter kernel {m} secondary rays: kernel {t_k4:.4f} "
-        f"ms, plain {t_p4:.4f} ms")
+    t_k1b = kernel_ms(lambda: ca.intersect_clusters(*cam, acc), reps)
+    log(f"time closest-hit {n} camera rays: kernel {fmt(t_k1)}, plain "
+        f"{fmt(t_p1)}")
+    log(f"time any-hit {m} secondary rays: kernel {fmt(t_k2)}, plain "
+        f"{fmt(t_p2)}")
+    log(f"time closest-hit soup {nb} rays: kernel {fmt(t_kb)}, plain "
+        f"{fmt(t_pb)}")
+    log(f"time counter kernel {n} camera rays: kernel {fmt(t_k3)}, plain "
+        f"{fmt(t_p3)}; closest-hit again {fmt(t_k1b)}")
+    log(f"time any-hit counter kernel {m} secondary rays: kernel "
+        f"{fmt(t_k4)}, plain {fmt(t_p4)}")
+
+    def rec(t, t_plain):
+        return dict(ms=t["ms"], ms_min=t["min"], ms_max=t["max"],
+                    ms_per_call=t["ms_per_call"], plain_ms=t_plain["ms"])
+
     records = {
-        "closest_hit": dict(max_abs_err=max(err_c, err_c2), ms=t_k1,
-                            plain_ms=t_p1, **bound(acc, n, 20, st_cam)),
-        "any_hit": dict(max_abs_err=err_a, ms=t_k2, plain_ms=t_p2,
+        "closest_hit": dict(max_abs_err=max(err_c, err_c2), **rec(t_k1, t_p1),
+                            **bound(acc, n, 20, st_cam)),
+        "any_hit": dict(max_abs_err=err_a, **rec(t_k2, t_p2),
                         **bound(acc, m, 1, st_any)),
         "closest_hit_stats": dict(max_abs_err=max(err_s, err_s2, err_sb),
-                                  ms=t_k3, plain_ms=t_p3,
+                                  **rec(t_k3, t_p3),
                                   **bound(acc, n, 24, st_cam)),
         "any_hit_stats": dict(max_abs_err=max(err_a1, err_a2, err_ab),
-                              ms=t_k4, plain_ms=t_p4,
+                              **rec(t_k4, t_p4),
                               **bound(acc, m, 21, st_any)),
     }
     for k, r in records.items():
@@ -764,7 +889,7 @@ def device_busy(label, fn, wall_s, top=5):
     The profiler's raw events are summed by name (key_averages takes ~50
     us an event, minutes for a forward's million kernels).  Returns (the
     number of kernels and copies, the busy share, the launches of
-    indexing_backward_kernel*)."""
+    indexing_backward_kernel*, the busy ms)."""
     import torch
 
     with torch.profiler.profile(
@@ -805,7 +930,7 @@ def device_busy(label, fn, wall_s, top=5):
         log(f"    {what}: {ms:.3f} ms in {launches[what]} launches "
             f"= {100.0 * ms / busy_ms:.2f}% of the device time")
     return (count, busy_ms / (1e3 * wall_s),
-            launches["indexing_backward_kernel*"])
+            launches["indexing_backward_kernel*"], busy_ms)
 
 
 def training_path(spp):
@@ -1056,7 +1181,7 @@ def window_busy(label, run, count):
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels, _, _ = device_busy(label, run, wall)
+    kernels, _, _, _ = device_busy(label, run, wall)
     log(f"    {kernels / count:.0f} kernels and copies a round, "
         f"{1e3 * wall / count:.3f} ms a round untraced")
 
@@ -1819,8 +1944,8 @@ def _graphed_against_per_round(label, make, traversal):
     g["first_wall_s"] = first["wall_s"]
     g.update({k: v for k, v in machine_totals(sess.machines).items()
               if k.startswith("capture")})
-    _, g["busy"], _ = device_busy(f"{label}, graphed forward", sess.render,
-                                  g["wall_s"])
+    _, g["busy"], _, g["device_ms"] = device_busy(
+        f"{label}, graphed forward", sess.render, g["wall_s"])
     del sess
     base = cached_mib()
     sess = make(True)
@@ -2000,8 +2125,9 @@ def _replay_cell(label, fn, traversal, large):
         check_replay_launches(label, g["launches"], g["rounds"],
                               g["rounds_run"], runner)
     check_large_launches(label, g["launches"], runner, large)
-    _, g["busy"], g["indexing_backward"] = device_busy(
-        f"{label}, graphed fwd+bwd", lambda: fn(False, machines), g["wall_s"])
+    (_, g["busy"], g["indexing_backward"],
+     g["device_ms"]) = device_busy(f"{label}, graphed fwd+bwd",
+                                   lambda: fn(False, machines), g["wall_s"])
     if g["indexing_backward"]:
         raise AssertionError(
             f"{label}: {g['indexing_backward']} launches of PyTorch's "
@@ -2086,6 +2212,115 @@ def graphed_replay():
             "volume_blob 1280x720 @ 4 spp",
             call(vol.scene, None, p_vol), False, True),
     }
+
+
+def turn(out_path):
+    """One process of the parent-and-change turns (`chip_smoke.py --turn
+    TREE OUT`: TREE's nart_tpu_torch is imported; this file's fixtures):
+    for each of phase 22's cells, the graphed forward film (a render that
+    captures, then a timed one) and the graphed fwd+bwd on a kept machine
+    (a warm call that measures and captures, a timed call, the same call
+    under torch.profiler: the card's device ms, indexing_backward_kernel*
+    launches); the loss, the leaves, the films, rays, rounds, wall s and
+    device ms are saved with torch.save to out_path."""
+    import torch
+
+    from nart_tpu_torch import bench, grad, render, scene
+
+    name, glass = bench.bench_scene()
+    p_glass = render.RenderParams(image_width=512, image_height=512, spp=16,
+                                  bounces=10, filter_width=2.0,
+                                  roughening_factor=0.2)
+    macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    (p_mac,) = render.load_sessions(MACBETH, {"spp": 4})[:1]
+    cells = (
+        ("macbeth 1280x720 @ 4 spp",
+         lambda: render.RenderSession(macbeth, p_mac, DEVICE), None),
+        (f"{name} 512x512 @ 16 spp",
+         lambda: render.RenderSession(glass, p_glass, DEVICE), bench.CHUNK),
+        ("volume_blob 1280x720 @ 4 spp",
+         lambda: volume_session({"image_width": 1280, "image_height": 720,
+                                 "spp": 4})[1], None))
+    out = {}
+    for label, make, chunk_spp in cells:
+        sess = make()
+        sess.render()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = sess.render()
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t0
+        params = sess.params
+        w, h = params.image_width, params.image_height
+        samples = _image_samples(params, DEVICE)[:chunk_spp]
+        cot = _rgb_cot(samples)
+        theta = grad.get_params(sess.scene)
+        machines = {}
+
+        def call():
+            return grad.radiance_weighted_loss_and_grad(
+                sess.scene, theta, sess.accel, samples, cot, params, w, h,
+                machines=machines)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, rays, rounds = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, busy, indexing, dev_ms = device_busy(f"turn, {label}", call, wall)
+        out[label] = dict(
+            film=film.cpu(), loss=torch.as_tensor(loss).cpu(),
+            leaves=grad.flatten_leaves(grads).cpu(), rays=int(rays),
+            rounds=int(rounds), forward_wall_s=fwd_wall, wall_s=wall,
+            device_ms=dev_ms, busy=busy, indexing_backward=indexing)
+        del sess, machines
+    torch.save(out, out_path)
+
+
+def turns(parent):
+    """Phase 22's cells in the parent's tree (P) and this one (C), in turns
+    P, C, C, P, each a fresh process (`turn`): the films, rays, rounds and
+    loss the parent's bits, the leaves the parent's bits or within rtol
+    1e-5 / atol 1e-7, indexing_backward_kernel* never launched; logged:
+    each turn's forward wall s, fwd+bwd wall s and device ms."""
+    import torch
+
+    order = [("P", parent), ("C", HERE), ("C", HERE), ("P", parent)]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (tree_label, tree) in enumerate(order):
+            out = os.path.join(tmp, f"{i}.pt")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--turn", os.path.abspath(tree), out],
+                           check=True)
+            log(f"[turn {i + 1} ({tree_label}): "
+                f"{time.perf_counter() - t0:.1f} s]")
+            runs.append((tree_label, torch.load(out)))
+    ref = next(r for lab, r in runs if lab == "P")
+    for label in ref:
+        for i, (tree_label, r) in enumerate(runs):
+            c = r[label]
+            a, b = c["leaves"], ref[label]["leaves"]
+            same = dict(
+                film=torch.equal(c["film"], ref[label]["film"]),
+                loss=torch.equal(c["loss"], ref[label]["loss"]),
+                rays_rounds=(c["rays"], c["rounds"]) == (
+                    ref[label]["rays"], ref[label]["rounds"]),
+                leaves=torch.equal(a, b))
+            outside = int((~torch.isclose(a, b, rtol=1e-5, atol=1e-7)).sum())
+            log(f"    {label}, turn {i + 1} ({tree_label}): forward "
+                f"{c['forward_wall_s']:.4f} s; fwd+bwd {c['wall_s']:.4f} s, "
+                f"device {c['device_ms']:.3f} ms, busy {100 * c['busy']:.2f}%"
+                f", {c['rays']} rays, {c['rounds']} rounds, loss "
+                f"{float(c['loss'])!r}; against P1: {same}, leaves max abs "
+                f"diff {float((a - b).abs().max()):.3g}, {outside} of "
+                f"{a.numel()} outside rtol 1e-5 / atol 1e-7")
+            if not (same["film"] and same["loss"] and same["rays_rounds"]
+                    and not outside and not c["indexing_backward"]):
+                raise AssertionError(f"{label}, turn {i + 1}: the change "
+                                     "differs from the parent")
 
 
 def _macbeth_mesh_ids(device, lanes):
@@ -2223,6 +2458,27 @@ def lut_checks(device):
                     f"{float(err_pos.max())} (positive)")
             err_f = max(err_f, float((out - plain).abs().max()))
             err_b = max(err_b, float(err.max()), float(err_pos.max()))
+    # the many-table forward: one launch reads every width at once, the
+    # bits of one launch a table and of the plain gathers, in a graph too
+    for label, idx, n in cases:
+        tables = [torch.from_numpy(rng.normal(size=(n, w) if w > 1 else (n,))
+                                   .astype(np.float32)).to(device)
+                  for w in LUT_MANY_WIDTHS]
+        outs = select.lut_gather_many_cuda(tables, idx)
+        singles = [select.lut_gather_cuda(t, idx) for t in tables]
+        captured = _captured_many(select.lut_gather_many_cuda, tables, idx)
+        torch.cuda.synchronize()
+        for t, o, o1, og in zip(tables, outs, singles, captured):
+            if not (torch.equal(o, select.lut_gather_plain(t, idx))
+                    and torch.equal(o, o1) and torch.equal(o, og)):
+                raise AssertionError(
+                    f"many-table look-up {label}, rows of "
+                    f"{tuple(t.shape[1:])}: other bits than the plain "
+                    "gather, one launch a table or a graph's replay")
+    log(f"many-table forward, {len(cases)} cases, {len(LUT_MANY_WIDTHS)} "
+        f"tables of widths {LUT_MANY_WIDTHS} in one launch: the plain "
+        "gathers' bits, those of one launch a table, and from a CUDA graph's "
+        "replay")
     log(f"look-up kernels, {len(cases) * len(LUT_WIDTHS)} cases (N in "
         f"{LUT_LANES}, n in {LUT_ROWS}, rows of {LUT_WIDTHS}; uniform, one "
         f"row, macbeth's mesh ids): the forward the plain gather's bits; the "
@@ -2233,7 +2489,8 @@ def lut_checks(device):
         "the same bits on a second launch and from a CUDA graph's replay")
 
     # times: the main path's shape (macbeth's mesh ids, the per-mesh rows
-    # of 3), the bench's one light row, a table of 64 rows
+    # of 3), the bench's one light row, a table of 64 rows; device ms (many
+    # launches in one graph), and the kernels' ms per call, host included
     emb_bwd = torch.ops.aten.embedding_dense_backward
     shapes = [("macbeth mesh ids", mesh, n_mesh),
               ("one light row", torch.zeros(LUT_LANES[1], dtype=torch.int64,
@@ -2249,37 +2506,72 @@ def lut_checks(device):
         g = torch.from_numpy(
             rng.normal(size=(lanes, 3)).astype(np.float32)).to(device)
         t = {
-            "fwd": cuda_ms(lambda: select.lut_gather_cuda(table, idx), reps),
-            "bwd": cuda_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n),
-                           reps),
-            "fwd_plain": cuda_ms(lambda: select.lut_gather_plain(table, idx),
-                                 reps),
-            "bwd_plain": cuda_ms(
-                lambda: select.lut_gather_bwd_plain(g, idx, n), reps),
-            "fwd_library": cuda_ms(
-                lambda: torch.nn.functional.embedding(idx, table), reps),
-            "bwd_library": cuda_ms(lambda: emb_bwd(g, idx, n, -1, False),
-                                   reps),
+            "fwd": kernel_ms(lambda: select.lut_gather_cuda(table, idx),
+                             reps),
+            "bwd": kernel_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n),
+                             reps),
+            "fwd_plain": device_ms(
+                lambda: select.lut_gather_plain(table, idx)),
+            "bwd_plain": kernel_ms(
+                lambda: select.lut_gather_bwd_plain(g, idx, n), 3),
+            "fwd_library": device_ms(
+                lambda: torch.nn.functional.embedding(idx, table)),
+            "bwd_library": device_ms(lambda: emb_bwd(g, idx, n, -1, False)),
         }
         fb, bb = lut_bound(lanes, n, 3, False), lut_bound(lanes, n, 3, True)
         log(f"time look-up {label}, N={lanes}, n={n}, rows of 3: forward "
-            f"kernel {t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
-            f"F.embedding {t['fwd_library']:.4f} ms, bound "
+            f"kernel {fmt(t['fwd'])}, plain {fmt(t['fwd_plain'])}, "
+            f"F.embedding {fmt(t['fwd_library'])}, bound "
             f"{fb['bound_ms']:.6f} ms ({fb['bound_by']}); backward kernel "
-            f"{t['bwd']:.4f} ms, plain (index_put_, indexing_backward) "
-            f"{t['bwd_plain']:.4f} ms, embedding_dense_backward "
-            f"{t['bwd_library']:.4f} ms, bound {bb['bound_ms']:.6f} ms "
-            f"({bb['bound_by']}); F.embedding fwd+bwd "
-            f"{t['fwd_library'] + t['bwd_library']:.4f} ms")
+            f"{fmt(t['bwd'])}, plain (index_put_, indexing_backward) "
+            f"{fmt(t['bwd_plain'])}, embedding_dense_backward "
+            f"{fmt(t['bwd_library'])}, bound {bb['bound_ms']:.6f} ms "
+            f"({bb['bound_by']})")
         if records is None:
             records = {
-                "lut_gather": dict(max_abs_err=err_f, ms=t["fwd"],
-                                   plain_ms=t["fwd_plain"],
-                                   library_ms=t["fwd_library"], **fb),
-                "lut_gather_bwd": dict(max_abs_err=err_b, ms=t["bwd"],
-                                       plain_ms=t["bwd_plain"],
-                                       library_ms=t["bwd_library"], **bb),
+                "lut_gather": dict(max_abs_err=err_f, **_rec(t, "fwd"), **fb),
+                "lut_gather_bwd": dict(max_abs_err=err_b, **_rec(t, "bwd"),
+                                       **bb),
             }
+    # the many-table forward at the main path's two reads: make_bsdf's six
+    # float per-mesh tables at macbeth's mesh ids, and area_pack_sample's ten
+    # float light fields on the bench's one light row
+    many = {}
+    for label, idx, n, widths in (
+            ("make_bsdf's per-mesh tables, macbeth mesh ids", mesh, n_mesh,
+             (3, 3, 3, 1, 1, 3)),
+            ("area_pack_sample's light fields, one light row",
+             shapes[1][1], 1, (1, 1, 1, 1, 3, 3, 3, 3, 3, 1))):
+        tables = [torch.from_numpy(rng.normal(size=(n, w) if w > 1 else (n,))
+                                   .astype(np.float32)).to(device)
+                  for w in widths]
+        t = {
+            "one": kernel_ms(
+                lambda: select.lut_gather_many_cuda(tables, idx), reps),
+            "each": kernel_ms(lambda: [select.lut_gather_cuda(x, idx)
+                                       for x in tables], reps),
+            "plain": device_ms(lambda: [select.lut_gather_plain(x, idx)
+                                        for x in tables]),
+            "embedding": device_ms(lambda: [
+                torch.nn.functional.embedding(idx, x.reshape(n, -1))
+                for x in tables]),
+        }
+        lanes = idx.shape[0]
+        nbytes = lanes * 8 + sum(4 * w * (lanes + n) for w in widths)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"time many-table look-up, {label}: {len(widths)} tables of "
+            f"widths {widths}, N={lanes}, n={n}: one launch {fmt(t['one'])}, "
+            f"one launch a table {fmt(t['each'])}, plain (table[idx] each) "
+            f"{fmt(t['plain'])}, F.embedding each {fmt(t['embedding'])}, "
+            f"bound {bound_ms:.6f} ms (bytes: {nbytes})")
+        many[label] = dict(tables=len(widths), ms=t["one"]["ms"],
+                           ms_min=t["one"]["min"], ms_max=t["one"]["max"],
+                           ms_per_call=t["one"]["ms_per_call"],
+                           one_launch_a_table_ms=t["each"]["ms"],
+                           plain_ms=t["plain"]["ms"],
+                           embedding_each_ms=t["embedding"]["ms"],
+                           bound_ms=bound_ms, bytes=nbytes)
+    records["lut_gather"]["many"] = many
     for k, r in records.items():
         log(f"bound {k}: {r['bound_ms']:.6f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes; {r['operations']} operations): the kernel "
@@ -2287,29 +2579,98 @@ def lut_checks(device):
     return records
 
 
+def _rec(t, key):
+    """A look-up record's times from phase 23's or 24's readings t: the
+    kernel's device ms with its spread and its ms per call, host included;
+    the plain version's and the library call's device ms."""
+    k = t[key]
+    return dict(ms=k["ms"], ms_min=k["min"], ms_max=k["max"],
+                ms_per_call=k["ms_per_call"], plain_ms=t[key + "_plain"]["ms"],
+                library_ms=t[key + "_library"]["ms"])
+
+
+def _captured_many(fwd, tables, idx):
+    """fwd(tables, idx) captured into a CUDA graph (after a warm launch on a
+    side stream) and replayed once: copies of its outputs."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd(tables, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fwd(tables, idx)
+    graph.replay()
+    torch.cuda.synchronize()
+    return [o.clone() for o in outs]
+
+
 def _large_indices(kind, n, lanes, rng, device):
-    """A large-table case's rows: uniform, all on one row, or long runs
-    (half the lanes on one row, a quarter on another, the rest uniform)."""
+    """A large-table case's rows: uniform, all on one row, long runs (half
+    the lanes on one row, a quarter on another, the rest uniform), or
+    masked (half the lanes -1, clamped to row 0, as a masked fetch's)."""
     import torch
 
     if kind == "uniform":
         idx = rng.integers(0, n, lanes)
     elif kind == "one row":
         idx = np.full(lanes, rng.integers(0, n))
-    else:
+    elif kind == "runs":
         idx = rng.integers(0, n, lanes)
         pick = rng.random(lanes)
         idx[pick < 0.5] = rng.integers(0, n)
         idx[(pick >= 0.5) & (pick < 0.75)] = rng.integers(0, n)
+    else:
+        idx = rng.integers(0, n, lanes)
+        idx[rng.random(lanes) < 0.5] = -1
     return torch.from_numpy(idx).to(device)
+
+
+def _sorted_route(g, idx, n):
+    """The sorted route of the large-table backward, the yardstick the radix
+    route is held to: a stable torch.sort of the clamped rows as int32,
+    then the segmented sum and the carry given that order."""
+    import torch
+
+    from nart_tpu_torch import select
+
+    keys, perm = torch.sort(idx.clamp(0, n - 1).to(torch.int32), stable=True)
+    return select.lut_gather_large_bwd_sorted_cuda(g, keys, perm, n)
+
+
+def graph_nodes(fn):
+    """The nodes (kernels, memsets, copies) of a CUDA graph that captures
+    one call of fn after a warm call on a side stream, as the driver counts
+    them (cuGraphGetNodes on the kept graph)."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {rc}")
+    return count.value
 
 
 def large_lut_checks(device):
     """Phase 24: the large-table look-ups (the forward kernel, and the
-    backward kernel S2) against their plain versions at the main path's
-    shapes, and the two backward kernels against each other on small
-    tables.  Returns S2's record at the env map's shape (the most launches
-    a macbeth round), with every shape's times under "shapes" and the
+    backward kernel S2) against their plain versions and the sorted route
+    (torch.sort, then the same segmented sum) at the main path's shapes,
+    and the two backward kernels against each other on small tables.
+    Returns S2's record at the env map's shape (the most launches a
+    macbeth round), with every shape's times under "shapes" and the
     backward kernels' side by side under "against_small", and the forward
     kernel's times at these shapes ("lut_gather_shapes")."""
     import torch
@@ -2318,32 +2679,37 @@ def large_lut_checks(device):
 
     rng = np.random.default_rng(24)
     err_f = err_b = 0.0
-    kinds = ("uniform", "one row", "runs")
+    kinds = ("uniform", "one row", "runs", "masked")
     for label, lanes, n, width in LARGE_SHAPES:
         table = torch.from_numpy(
             rng.normal(size=(n, width)).astype(np.float32)).to(device)
         for kind in kinds:
             idx = _large_indices(kind, n, lanes, rng, device)
+            ci = idx.clamp(0, n - 1)
             shape = (n, width)
             g = torch.from_numpy(
                 rng.normal(size=(lanes, width)).astype(np.float32)).to(device)
             g_int = torch.from_numpy(
                 rng.integers(-LUT_INT, LUT_INT + 1, (lanes, width))).to(device)
             out = select.lut_gather_cuda(table, idx)
-            d1 = select.lut_gather_large_bwd_cuda(g, idx, n)
+            d1, keys, lanes_sorted = select.lut_gather_large_bwd_order_cuda(
+                g, idx, n)
             d2 = select.lut_gather_large_bwd_cuda(g, idx, n)
             d_int = select.lut_gather_large_bwd_cuda(g_int.float(), idx, n)
+            d_sorted = _sorted_route(g, idx, n)
             # the backward's sort is captured with it
             out_g, d_g = _captured_lut(select.lut_gather_cuda,
                                        select.lut_gather_large_bwd_cuda,
                                        table, g, idx, n)
-            plain = select.lut_gather_plain(table, idx)
+            plain = select.lut_gather_plain(table, ci)
             want_int = torch.zeros(shape, dtype=torch.int64,
-                                   device=device).index_add_(0, idx, g_int)
+                                   device=device).index_add_(0, ci, g_int)
+            keys_t, perm_t = torch.sort(ci.to(torch.int32), stable=True)
+            keys_p, lanes_p = select.radix_order_plain(idx, n)
 
             def f64_sum(x):
                 return torch.zeros(shape, dtype=torch.float64,
-                                   device=device).index_add_(0, idx,
+                                   device=device).index_add_(0, ci,
                                                              x.double())
 
             want, scale = f64_sum(g), f64_sum(g.abs())
@@ -2352,6 +2718,18 @@ def large_lut_checks(device):
             if not torch.equal(out, plain):
                 raise AssertionError(f"{where}: the forward kernel differs "
                                      "from the plain gather")
+            if not (torch.equal(keys, keys_t)
+                    and torch.equal(lanes_sorted.long(), perm_t)
+                    and torch.equal(keys, keys_p)
+                    and torch.equal(lanes_sorted, lanes_p)):
+                raise AssertionError(
+                    f"{where}: the radix sort's order is not "
+                    "torch.sort(stable=True)'s or radix_order_plain's")
+            if not torch.equal(d1, d_sorted):
+                raise AssertionError(
+                    f"{where}: other bits than the sorted route (torch.sort "
+                    "and the same segmented sum), max abs diff "
+                    f"{float((d1 - d_sorted).abs().max())}")
             if not (torch.equal(d1, d2) and torch.equal(d_g, d1)
                     and torch.equal(out_g, out)):
                 raise AssertionError(f"{where}: other bits on a second "
@@ -2371,15 +2749,19 @@ def large_lut_checks(device):
             del want, scale, want_int
     log(f"large-table look-up kernels, {len(LARGE_SHAPES) * len(kinds)} "
         f"cases ({', '.join(s[0] for s in LARGE_SHAPES)}; {', '.join(kinds)}"
-        f"): the forward the plain gather's bits; the backward against the "
-        f"float64 index_add_ within atol {LUT_ATOL} plus rtol {LUT_RTOL} "
-        f"times the sum of the cotangents' magnitudes, max abs err "
+        f"): the forward the plain gather's bits; the radix sort's order "
+        f"torch.sort(stable=True)'s and radix_order_plain's; the backward "
+        f"the bits of the sorted route (torch.sort, then the same segmented "
+        f"sum), within atol {LUT_ATOL} plus rtol {LUT_RTOL} times the sum of "
+        f"the cotangents' magnitudes of the float64 index_add_, max abs err "
         f"{err_b:.3g}, integer cotangents in [-{LUT_INT}, {LUT_INT}] the "
         "int64 index_add_'s bits; the same bits on a second launch and from "
         "a CUDA graph's replay")
 
     # times at each shape: uniform rows, and every lane on one row (the
-    # plain backward's worst case)
+    # plain backward's worst case); device ms (many launches in one graph)
+    # of the radix route, the sorted route, the plain version and the library
+    # calls, and the radix route's ms per call, host included
     emb_bwd = torch.ops.aten.embedding_dense_backward
     reps = SIZES["reps"]
     shapes = {}
@@ -2392,44 +2774,60 @@ def large_lut_checks(device):
             idx = _large_indices(kind, n, lanes, rng, device)
             touched = int(torch.unique(idx).numel())
             t = {
-                "fwd": cuda_ms(
+                "fwd": kernel_ms(
                     lambda: select.lut_gather_cuda(table, idx), reps),
-                "bwd": cuda_ms(
+                "bwd": kernel_ms(
                     lambda: select.lut_gather_large_bwd_cuda(g, idx, n),
                     reps),
-                "fwd_plain": cuda_ms(
-                    lambda: select.lut_gather_plain(table, idx), reps),
-                "bwd_plain": cuda_ms(
-                    lambda: select.lut_gather_bwd_plain(g, idx, n), reps),
-                "fwd_library": cuda_ms(
-                    lambda: torch.nn.functional.embedding(idx, table), reps),
-                "bwd_library": cuda_ms(
-                    lambda: emb_bwd(g, idx, n, -1, False), reps),
-                "bwd_index_add": cuda_ms(
-                    lambda: g.new_zeros((n, width)).index_add_(0, idx, g),
-                    reps),
+                "bwd_sorted": kernel_ms(lambda: _sorted_route(g, idx, n),
+                                      reps),
+                "fwd_plain": device_ms(
+                    lambda: select.lut_gather_plain(table, idx)),
+                "bwd_plain": kernel_ms(
+                    lambda: select.lut_gather_bwd_plain(g, idx, n), 3),
+                "fwd_library": device_ms(
+                    lambda: torch.nn.functional.embedding(idx, table)),
+                "bwd_library": device_ms(
+                    lambda: emb_bwd(g, idx, n, -1, False)),
+                "bwd_index_add": device_ms(
+                    lambda: g.new_zeros((n, width)).index_add_(0, idx, g)),
             }
+            nodes = graph_nodes(
+                lambda: select.lut_gather_large_bwd_cuda(g, idx, n))
+            nodes_sorted = graph_nodes(lambda: _sorted_route(g, idx, n))
+            want = 1 + select.radix_schedule(n)[1]  # memset, radix passes
+            if nodes != want or nodes > 5:
+                raise AssertionError(
+                    f"large look-up {label}: {nodes} graph nodes a call, "
+                    f"{want} expected, at most 5")
             # the forward moves the rows it reads, the backward writes the
             # whole dense (n, C) table
             fb = lut_bound(lanes, touched, width, False)
             bb = lut_bound(lanes, n, width, True)
             log(f"time large look-up {label} ({kind}), N={lanes}, n={n}, "
                 f"rows of {width}, {touched} rows touched: forward kernel "
-                f"{t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
-                f"F.embedding {t['fwd_library']:.4f} ms, bound "
-                f"{fb['bound_ms']:.6f} ms ({fb['bound_by']}); backward "
-                f"kernel (its sort included) {t['bwd']:.4f} ms, plain "
-                f"(index_put_, indexing_backward) {t['bwd_plain']:.4f} ms, "
-                f"embedding_dense_backward {t['bwd_library']:.4f} ms, "
-                f"zeros + index_add_ {t['bwd_index_add']:.4f} ms, bound "
+                f"{fmt(t['fwd'])}, plain {fmt(t['fwd_plain'])}, F.embedding "
+                f"{fmt(t['fwd_library'])}, bound {fb['bound_ms']:.6f} ms "
+                f"({fb['bound_by']}); backward, the radix route "
+                f"{fmt(t['bwd'])} in {nodes} graph nodes, the sorted route "
+                f"(torch.sort, same segmented sum) {fmt(t['bwd_sorted'])} in "
+                f"{nodes_sorted} nodes, sorted / radix "
+                f"{t['bwd_sorted']['ms'] / t['bwd']['ms']:.3f}x; plain "
+                f"(index_put_, indexing_backward) {fmt(t['bwd_plain'])}, "
+                f"embedding_dense_backward {fmt(t['bwd_library'])}, zeros + "
+                f"index_add_ {fmt(t['bwd_index_add'])}, bound "
                 f"{bb['bound_ms']:.6f} ms ({bb['bound_by']}), "
-                f"{100.0 * bb['bound_ms'] / t['bwd']:.3f}% of it reached")
+                f"{100.0 * bb['bound_ms'] / t['bwd']['ms']:.3f}% of it "
+                "reached")
             shapes[f"{label}, {kind}"] = {
-                "fwd": dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
-                            library_ms=t["fwd_library"], **fb),
-                "bwd": dict(ms=t["bwd"], plain_ms=t["bwd_plain"],
-                            library_ms=t["bwd_library"],
-                            index_add_ms=t["bwd_index_add"], **bb)}
+                "fwd": dict(**_rec(t, "fwd"), **fb),
+                "bwd": dict(**_rec(t, "bwd"), **bb,
+                            sorted_route_ms=t["bwd_sorted"]["ms"],
+                            sorted_route_ms_per_call=t["bwd_sorted"][
+                                "ms_per_call"],
+                            index_add_ms=t["bwd_index_add"]["ms"],
+                            nodes_per_call=nodes,
+                            sorted_route_nodes_per_call=nodes_sorted)}
 
     # the two backward kernels side by side where both apply (rows of 3):
     # where the small-table one stops paying for its tiles' passes over the
@@ -2451,14 +2849,15 @@ def large_lut_checks(device):
                          <= LUT_ATOL + LUT_RTOL * scale).all()):
                 raise AssertionError(f"backward kernels at n={n}: off the "
                                      "float64 sum")
-        t_small = cuda_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n), reps)
-        t_large = cuda_ms(
-            lambda: select.lut_gather_large_bwd_cuda(g, idx, n), reps)
-        against[f"N={lanes}, n={n}, {kind}"] = dict(small_ms=t_small,
-                                                     large_ms=t_large)
+        t_small = device_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n))
+        t_large = device_ms(
+            lambda: select.lut_gather_large_bwd_cuda(g, idx, n))
+        against[f"N={lanes}, n={n}, {kind}"] = dict(small_ms=t_small["ms"],
+                                                     large_ms=t_large["ms"])
         log(f"time backward kernels, N={lanes}, n={n} rows of 3, {kind}: "
-            f"small-table (S1) {t_small:.4f} ms, large-table (S2, its sort "
-            f"included) {t_large:.4f} ms, S2 / S1 {t_large / t_small:.3f}")
+            f"small-table (S1) {fmt(t_small)}, large-table (S2, the radix "
+            f"route) {fmt(t_large)}, S2 / S1 "
+            f"{t_large['ms'] / t_small['ms']:.3f}")
 
     main = shapes[f"{LARGE_SHAPES[0][0]}, uniform"]
     return {
@@ -2481,6 +2880,8 @@ VOLUME_WINDOW = (40, 20)
 LUT_LANES = (65536, 131072)
 LUT_ROWS = (1, 3, 4, 16, 64)
 LUT_WIDTHS = (1, 3)
+# phase 23's many-table forward: the tables' row widths, read in one launch
+LUT_MANY_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 8, 3, 1, 4, 8, 2, 3, 1, 8)
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 LUT_INT = 8  # integer cotangents in [-8, 8]: sums below 2^20, exact
 # phase 24's shapes, the main path's: (label, lanes, rows, row width)
@@ -2584,5 +2985,19 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--turn"]:
+        sys.path.insert(0, sys.argv[2])
+        turn(sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--turns"]:
+        sys.path.insert(0, HERE)
+        from nart_tpu_torch import cuda_build as _cb  # noqa: F401
+
+        log(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+        turns(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

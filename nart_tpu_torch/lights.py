@@ -415,33 +415,44 @@ def refresh_area_pack(pack, lights):
                                           pack.le.device))
 
 
-def _pack_st(pack, lut, delta):
-    """Disk-parameterisation st of the selected row (lut: the rows'
-    small_lut)."""
-    r = lut(pack.radius)
-    u = (delta * lut(pack.ux)).sum(-1) / r
-    v = (delta * lut(pack.uy)).sum(-1) / r
+def _pack_rows(pack, sel, fields):
+    """The named fields' rows of the packed lights sel (N,) selects, and
+    the fields _pack_le reads (the texture's only where the pack has an
+    atlas), in one look-up (the float tables in one launch on the card;
+    select.small_lut): a dict by field name."""
+    names = tuple(fields) + ("le",)
+    if pack.tex_atlas.shape[0] > 1:
+        names += ("intensity", "tex_off", "tex_w", "tex_h")
+    rows = small_lut(sel, pack.radius.shape[0])(
+        *[getattr(pack, f) for f in names])
+    return dict(zip(names, rows))
+
+
+def _pack_st(row, delta):
+    """Disk-parameterisation st of the selected rows (row: _pack_rows with
+    radius, ux, uy)."""
+    r = row["radius"]
+    u = (delta * row["ux"]).sum(-1) / r
+    v = (delta * row["uy"]).sum(-1) / r
     return torch.stack([(u + 1.0) * 0.5, 1.0 - (v + 1.0) * 0.5], dim=-1)
 
 
-def _pack_le(pack, lut, st):
-    """Le * intensity of the selected row: constant table or one atlas
+def _pack_le(pack, row, st):
+    """Le * intensity of the selected rows: constant table or one atlas
     look-up (GetValue's clamps and v-flip; through the look-up kernels,
     select.small_lut, as _tex_lookup)."""
-    le = lut(pack.le)
+    le = row["le"]
     atlas = pack.tex_atlas
     if atlas.shape[0] <= 1:
         return le
-    off = lut(pack.tex_off)
-    w = lut(pack.tex_w)
-    h = lut(pack.tex_h)
+    off, w, h = row["tex_off"], row["tex_w"], row["tex_h"]
     u = torch.clamp(st[..., 0], 1e-4, 0.9999)
     v = torch.clamp(1.0 - st[..., 1], 1e-4, 0.9999)
     iu = (w.to(torch.float32) * u).to(torch.int64)
     iv = (h.to(torch.float32) * v).to(torch.int64)
     texel = off.clamp(min=0) + iv * w + iu
     fetched = small_lut(texel, atlas.shape[0])(atlas)
-    fetched = fetched * lut(pack.intensity)[..., None]
+    fetched = fetched * row["intensity"][..., None]
     return torch.where((off >= 0)[..., None], fetched, le)
 
 
@@ -462,20 +473,19 @@ def area_pack_nearest(pack: AreaLightPack, o, d, t_lim):
     t_best = t_ok.min(dim=-1).values
     sel = torch.argmin(t_ok, dim=-1)  # first minimum
     hit = t_best < t_lim
-    lut = small_lut(sel, pack.radius.shape[0])
+    row = _pack_rows(pack, sel, ("radius", "ux", "uy"))
     delta_sel = delta[torch.arange(delta.shape[0], device=d.device), sel]
-    st = _pack_st(pack, lut, delta_sel)
-    le = torch.where(hit[:, None], _pack_le(pack, lut, st), 0.0)
+    st = _pack_st(row, delta_sel)
+    le = torch.where(hit[:, None], _pack_le(pack, row, st), 0.0)
     return le, torch.where(hit, t_best, t_lim), hit
 
 
 def area_pack_eval(pack: AreaLightPack, sel, p, wi):
     """Li of the per-lane selected packed light (sel: (N,) pack rows, read
-    through one small_lut)."""
-    lut = small_lut(sel, pack.radius.shape[0])
-    center = lut(pack.center)
-    n = lut(pack.n)
-    radius = lut(pack.radius)
+    in one look-up)."""
+    row = _pack_rows(pack, sel, ("center", "n", "radius", "inner_k2",
+                                 "area_pdf", "ux", "uy"))
+    center, n, radius = row["center"], row["n"], row["radius"]
     wi_dot_n = (wi * n).sum(-1)
     plane_d = (center * n).sum(-1)
     t = _safe_div(plane_d - (p * n).sum(-1), wi_dot_n)
@@ -484,11 +494,11 @@ def area_pack_eval(pack: AreaLightPack, sel, p, wi):
     dist2 = (delta * delta).sum(-1)
     r2 = radius * radius
     ok = (wi_dot_n < 0.0) & (t >= 0.0) & (dist2 <= r2)
-    ok &= dist2 >= lut(pack.inner_k2) * r2  # 0 for disks: no-op
-    pdf = torch.where(ok, lut(pack.area_pdf) * _safe_div(t * t, -wi_dot_n),
+    ok &= dist2 >= row["inner_k2"] * r2  # 0 for disks: no-op
+    pdf = torch.where(ok, row["area_pdf"] * _safe_div(t * t, -wi_dot_n),
                       0.0)
-    st = _pack_st(pack, lut, delta)
-    le = torch.where((pdf > 0.0)[..., None], _pack_le(pack, lut, st), 0.0)
+    st = _pack_st(row, delta)
+    le = torch.where((pdf > 0.0)[..., None], _pack_le(pack, row, st), 0.0)
     t_out = torch.where(pdf > 0.0, t, INF)
     return LightEval(le=le, pdf=pdf, t=t_out)
 
@@ -496,20 +506,21 @@ def area_pack_eval(pack: AreaLightPack, sel, p, wi):
 def area_pack_sample(pack: AreaLightPack, sel, p, u2):
     """Sample_Li of the per-lane selected packed light (disk and ring share
     the warp up to the ring's annulus remap and double-pi pdf quirk)."""
-    lut = small_lut(sel, pack.radius.shape[0])
-    radius = lut(pack.radius)
-    is_ring = lut(pack.is_ring)
-    k = torch.sqrt(lut(pack.inner_k2))
+    row = _pack_rows(pack, sel, ("radius", "is_ring", "inner_k2",
+                                 "pdf0_ring_scale", "area_pdf", "center",
+                                 "ux", "uy", "n"))
+    radius, is_ring = row["radius"], row["is_ring"]
+    k = torch.sqrt(row["inner_k2"])
     xy_d = uniform_sample_disk(u2)
     xy_r, pdf_r = uniform_sample_ring(u2, k)
     xy = torch.where(is_ring[..., None], xy_r, xy_d)
-    pdf0 = torch.where(is_ring, pdf_r * lut(pack.pdf0_ring_scale),
-                       lut(pack.area_pdf))
+    pdf0 = torch.where(is_ring, pdf_r * row["pdf0_ring_scale"],
+                       row["area_pdf"])
     xy = xy * radius[..., None]
 
-    sample_world = (lut(pack.center) + xy[..., 0:1] * lut(pack.ux)
-                    + xy[..., 1:2] * lut(pack.uy))
-    n = lut(pack.n)
+    sample_world = (row["center"] + xy[..., 0:1] * row["ux"]
+                    + xy[..., 1:2] * row["uy"])
+    n = row["n"]
     wi = sample_world - p
     dist = torch.sqrt((wi * wi).sum(-1))
     wi = wi / torch.where(dist == 0.0, 1.0, dist)[..., None]
@@ -520,7 +531,7 @@ def area_pack_sample(pack: AreaLightPack, sel, p, u2):
     su = ((xy[..., 0] + 1.0) * 0.5) / radius
     sv = ((xy[..., 1] + 1.0) * 0.5) / radius
     st = torch.stack([su, 1.0 - sv], dim=-1)
-    le = torch.where(visible[..., None], _pack_le(pack, lut, st), 0.0)
+    le = torch.where(visible[..., None], _pack_le(pack, row, st), 0.0)
     return le, wi, pdf, dist
 
 

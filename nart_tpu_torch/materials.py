@@ -63,15 +63,25 @@ def mesh_lookup(scene: SceneData, mesh_id):
     return small_lut(mesh_id, scene.mat_type.shape[0])
 
 
-def _pattern(scene, const_table, tex_table, lut, st, slot, tex_half):
-    """Constant-or-texture pattern value per lane: (N, 3).  Slots no mesh
-    binds a texture to skip the fetch."""
-    val = lut(const_table)
-    if slot not in scene.tex_slots:
+# make_bsdf's pattern slots: (slot, constant table, texture-id table)
+_SLOTS = (("rho_d", "rho_d_const", "rho_d_tex"),
+          ("rho_s", "rho_s_const", "rho_s_tex"),
+          ("tau", "tau_const", "tau_tex"),
+          ("eta", "eta_const", "eta_tex"),
+          ("alpha", "alpha_const", "alpha_tex"),
+          ("normal", "normal_const", "normal_tex"))
+
+
+def _pattern(scene, val, tid, st, tex_half):
+    """Constant-or-texture pattern value per lane: val (the constant's row,
+    (N, 3) or (N,)) where tid (the texture-id row) is None or negative,
+    else the texel (its first channel for a scalar)."""
+    if tid is None:
         return val
-    tid = lut(tex_table).long()
-    return torch.where((tid >= 0)[..., None],
-                       tex_fetch(scene, tid, st, tex_half), val)
+    tex = tex_fetch(scene, tid.long(), st, tex_half)
+    if val.dim() == 1:
+        return torch.where(tid >= 0, tex[..., 0], val)
+    return torch.where((tid >= 0)[..., None], tex, val)
 
 
 def make_bsdf(scene: SceneData, mesh_id, st, sn, dpds, alpha_tweak,
@@ -84,36 +94,24 @@ def make_bsdf(scene: SceneData, mesh_id, st, sn, dpds, alpha_tweak,
         (plastic's specular slot threshold is 1e-3, plasticmaterial.cpp:39)
       * microfacet lobes get alpha0 = max(1e-4, alpha)
       * specular material has alpha = 0 (specularmaterial.cpp:26)
+    The per-mesh tables are read in one look-up (the float ones in one
+    launch on the card); slots no mesh binds a texture to skip the fetch.
     Returns (frame, desc).
     """
-    slots = scene.tex_slots
-    lut = mesh_lookup(scene, mesh_id)
-    mat = lut(scene.mat_type).long()
-
-    rho_d = _pattern(scene, scene.rho_d_const, scene.rho_d_tex, lut, st,
-                     "rho_d", tex_half)
-    rho_s = _pattern(scene, scene.rho_s_const, scene.rho_s_tex, lut, st,
-                     "rho_s", tex_half)
-    tau = _pattern(scene, scene.tau_const, scene.tau_tex, lut, st, "tau",
-                   tex_half)
-
-    def scalar(const_table, tex_table, slot):
-        val = lut(const_table)
-        if slot not in slots:
-            return val
-        tid = lut(tex_table).long()
-        return torch.where(tid >= 0, tex_fetch(scene, tid, st, tex_half)[..., 0],
-                           val)
-
-    eta = scalar(scene.eta_const, scene.eta_tex, "eta")
-    alpha = scalar(scene.alpha_const, scene.alpha_tex, "alpha")  # pre-squared
-    alpha = torch.where(mat == MAT_SPECULAR, 0.0, alpha)
+    textured = [slot in scene.tex_slots for slot, _, _ in _SLOTS]
+    rows = mesh_lookup(scene, mesh_id)(
+        scene.mat_type, scene.has_normal,
+        *[getattr(scene, const) for _, const, _ in _SLOTS],
+        *[getattr(scene, tex) for (_, _, tex), t in zip(_SLOTS, textured)
+          if t])
+    mat, has_n, tids = rows[0].long(), rows[1], iter(rows[2 + len(_SLOTS):])
+    rho_d, rho_s, tau, eta, alpha, n_val = (
+        _pattern(scene, val, next(tids) if t else None, st, tex_half)
+        for val, t in zip(rows[2:2 + len(_SLOTS)], textured))
+    alpha = torch.where(mat == MAT_SPECULAR, 0.0, alpha)  # pre-squared
     alpha_prime = 1.0 - (1.0 - alpha) * alpha_tweak
 
     # shading frame (+ optional normal map; glass never has one)
-    has_n = lut(scene.has_normal)
-    n_val = _pattern(scene, scene.normal_const, scene.normal_tex, lut, st,
-                     "normal", tex_half)
     nn = n_val * 2.0 - 1.0
     frame_plain = bxdf.build_frame(sn, dpds)
     frame_mapped = bxdf.build_frame(sn, dpds, nn)

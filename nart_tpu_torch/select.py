@@ -9,18 +9,21 @@ needs: a dense reduction over the lanes.  Tables of more than 64 rows
 (its ``auto_lut``) are plain gathers there, as are the texture table and
 the medium's density cells, whose backward is XLA's scatter-add.
 
-Here every float table's look-up is the autograd Function ``_LutGather``
-on every device.  On CUDA tensors its forward is csrc/small_lut.cu's
-``nart_lut_gather`` (the rows, the plain gather's bits; rows of 1 to 8
-values, any row count), counted in ``cuda_build.launch_counts`` as
-"lut_gather"; the table's shape picks its backward.  Tables of up to
-AUTO_LUT_ROWS rows of up to 4 values (S1) take ``nart_lut_gather_bwd``
-(the per-row sum of the lanes' cotangents in a fixed order: the same bits
-every run, no float atomics), counted as "lut_gather_bwd".  The others
-(S2: the env map, the texture table, the light atlas, the density cells,
-whose rows hold 8 values) take csrc/large_lut.cu's ``nart_lut_large_bwd``
-after a stable sort of the lanes by row (a segmented sum over the sorted
-lanes in a fixed order), counted as "lut_gather_large_bwd".  Inside a CUDA
+Here the float tables of one look-up, ``small_lut(idx, n)(a, b, ...)``,
+are read by one application of the autograd Function ``_LutGather`` on
+every device.  On CUDA tensors its forward is csrc/small_lut.cu's
+``nart_lut_gather_many``: up to MAX_TABLES tables in one launch (the
+rows, the plain gather's bits; rows of 1 to 8 values, any row count),
+counted in ``cuda_build.launch_counts`` as "lut_gather".  Its backward
+takes each table that needs a gradient on its own, and the table's shape
+picks the kernel.  Tables of up to AUTO_LUT_ROWS rows of up to 4 values
+(S1) take ``nart_lut_gather_bwd`` (the per-row sum of the lanes'
+cotangents in a fixed order: the same bits every run, no float atomics),
+counted as "lut_gather_bwd".  The others (S2: the env map, the texture
+table, the light atlas, the density cells, whose rows hold 8 values) take
+csrc/large_lut.cu's ``nart_lut_large_bwd`` (a stable radix sort of the
+lanes by the rows' own bits, then a segmented sum over the sorted lanes
+in a fixed order), counted as "lut_gather_large_bwd".  Inside a CUDA
 graph capture a launch counts at every replay.  PyTorch's own backward of
 ``table[idx]`` on the card is a sorted ``index_put_(accumulate=True)``
 that walks every run of equal indices serially, and the runs are tens of
@@ -55,6 +58,8 @@ from . import cuda_build
 AUTO_LUT_ROWS = 64
 SMALL_MAX_WIDTH = 4  # the small-table backward's largest row width C
 MAX_WIDTH = 8  # the forward's and the large-table backward's
+MAX_TABLES = 16  # tables one forward launch reads (small_lut.cu kMaxTables)
+LARGE_MAX_LANES = 2**30 - 1  # the large-table backward's lanes (large_lut.cu)
 
 
 def small_lut(idx, n):
@@ -62,37 +67,56 @@ def small_lut(idx, n):
     to [0, n - 1] as the JAX package's clip (and a gather) clamps, for any
     n: the counterpart of both the JAX package's small_lut and its auto_lut
     (whose plain gather above 64 rows is the same function).  Returns
-    lut(table): (n,) -> (N,) or (n, C) -> (N, C)."""
+    lut(*tables): each (n,) table -> (N,), (n, C) -> (N, C); one table
+    gives its rows, several a tuple.  The float tables of one call are
+    read by one look-up (one launch on the card, MAX_TABLES at a time)."""
     ci = idx.long().clamp(0, n - 1)
 
-    def lut(table):
-        if table.is_floating_point():
-            return _LutGather.apply(table, ci)
-        return table[ci]
+    def lut(*tables):
+        floats = [t for t in tables if t.is_floating_point()]
+        rows = iter([out for k in range(0, len(floats), MAX_TABLES)
+                     for out in _LutGather.apply(
+                         *floats[k:k + MAX_TABLES], ci)])
+        outs = tuple(next(rows) if t.is_floating_point() else t[ci]
+                     for t in tables)
+        return outs[0] if len(outs) == 1 else outs
 
     return lut
 
 
 
 class _LutGather(torch.autograd.Function):
-    """table[idx] for a float table and an in-range int64 idx: on the card
-    (float32 only) the look-up kernels, the backward the small-table one up
+    """(table[idx] for table in tables) for float tables and an in-range
+    int64 idx (the last argument): on the card (float32 only) one
+    many-table look-up kernel, each table's backward the small-table one up
     to AUTO_LUT_ROWS rows of up to SMALL_MAX_WIDTH values and the
-    large-table one otherwise; their plain versions on the CPU."""
+    large-table one otherwise; their plain versions on the CPU.  The rows
+    of a table that needs no gradient need none either (marked so: else
+    one trainable table among the read ones would make autograd trace, and
+    the backward differentiate, everything computed from the others), and
+    a table whose rows no gradient reaches gets none."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, *args):
+        *tables, idx = args
         ctx.save_for_backward(idx)
-        ctx.n = table.shape[0]
-        return lut_gather(table.contiguous(), idx.contiguous())
+        ctx.rows = [t.shape[0] for t in tables]
+        ctx.set_materialize_grads(False)
+        outs = tuple(lut_gather_many([t.contiguous() for t in tables],
+                                     idx.contiguous()))
+        ctx.mark_non_differentiable(*[
+            o for o, need in zip(outs, ctx.needs_input_grad) if not need])
+        return outs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
-        if not ctx.needs_input_grad[0]:
-            return None, None
+    def backward(ctx, *grads):
         (idx,) = ctx.saved_tensors
-        return lut_gather_bwd(g.contiguous(), idx, ctx.n), None
+        return tuple(
+            lut_gather_bwd(g.contiguous(), idx, n)
+            if g is not None and need else None
+            for g, n, need in zip(grads, ctx.rows, ctx.needs_input_grad)
+        ) + (None,)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +137,64 @@ def lut_gather_bwd_plain(g, idx, n):
         (idx,), g, accumulate=True)
 
 
+RADIX_TILE = 1024  # lanes a radix block ranks (large_lut.cu kTile)
+
+
+def radix_schedule(n):
+    """(B, P, D): the bits of the rows 0 .. n - 1 (at least 1, at most 31),
+    the radix passes of at most 8 bits, and the bits of each pass (the
+    last takes the rest), as large_lut.cu's schedule_of."""
+    bits = min(max(1, (n - 1).bit_length()), 31)
+    passes = -(-bits // 8)
+    return bits, passes, -(-bits // passes)
+
+
+def radix_order_plain(idx, n):
+    """(keys, lanes): idx's rows clamped to [0, n - 1] as int32, sorted
+    stably, and the lane of each sorted position as int32, by the passes
+    of nart_lut_large_bwd's radix sort and its counting ranks: a lane's
+    place in a pass is the digit's global offset, plus the digit's count in
+    the earlier tiles of RADIX_TILE lanes (the look-back), in the earlier
+    warps of its tile, and in the earlier lanes of its warp.  The same
+    permutation as torch.sort(stable=True)."""
+    keys = idx.clamp(0, n - 1).to(torch.int32)
+    lanes = torch.arange(keys.shape[0], dtype=torch.int32,
+                         device=keys.device)
+    bits, passes, width = radix_schedule(n)
+    n_pad = -(-keys.shape[0] // RADIX_TILE) * RADIX_TILE
+    tiles = n_pad // RADIX_TILE
+    for p in range(passes):
+        bins = 1 << min(width, bits - p * width)
+        d = (keys.long() >> (p * width)) & (bins - 1)
+        # past the end: a bin of its own, after the others
+        dw = torch.full((n_pad,), bins, dtype=torch.long,
+                        device=keys.device)
+        dw[:d.shape[0]] = d
+        dw = dw.view(tiles, RADIX_TILE // 32, 32)
+        earlier = torch.ones(32, 32, dtype=torch.bool,
+                             device=keys.device).tril(-1)
+        rank = ((dw[..., :, None] == dw[..., None, :]) & earlier).sum(-1)
+        warp_hist = torch.zeros(tiles * (RADIX_TILE // 32) * (bins + 1),
+                                dtype=torch.long, device=keys.device)
+        cell = (torch.arange(tiles * (RADIX_TILE // 32), device=keys.device)
+                .view(tiles, -1, 1) * (bins + 1) + dw)
+        warp_hist.index_add_(0, cell.reshape(-1),
+                             torch.ones_like(cell).reshape(-1))
+        warp_hist = warp_hist.view(tiles, RADIX_TILE // 32, bins + 1)
+        warp_before = warp_hist.cumsum(1) - warp_hist
+        tile_hist = warp_hist.sum(1)
+        tile_before = tile_hist.cumsum(0) - tile_hist
+        total = tile_hist.sum(0)
+        base = total.cumsum(0) - total
+        t_i = torch.arange(tiles, device=keys.device).view(-1, 1, 1)
+        w_i = torch.arange(RADIX_TILE // 32, device=keys.device).view(1, -1, 1)
+        pos = (base[dw] + tile_before[t_i, dw] + warp_before[t_i, w_i, dw]
+               + rank).reshape(-1)[:keys.shape[0]]
+        keys = torch.empty_like(keys).index_copy_(0, pos, keys)
+        lanes = torch.empty_like(lanes).index_copy_(0, pos, lanes)
+    return keys, lanes
+
+
 def _large(g, n):
     """Whether the backward of an (n,) or (n, C) table's look-up (g: the
     cotangent) takes the large-table kernel: more than AUTO_LUT_ROWS rows,
@@ -120,14 +202,20 @@ def _large(g, n):
     return n > AUTO_LUT_ROWS or (g.dim() > 1 and g.shape[1] > SMALL_MAX_WIDTH)
 
 
+def lut_gather_many(tables, idx):
+    """The forward look-up of several tables by one idx: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    dev = idx.device
+    if dev.type == "cuda":
+        return lut_gather_many_cuda(tables, idx)
+    if dev.type == "cpu":
+        return [lut_gather_plain(t, idx) for t in tables]
+    raise ValueError(f"no look-up path for device {dev}")
+
+
 def lut_gather(table, idx):
-    """The forward look-up: the kernel on CUDA tensors, the plain version
-    on CPU tensors."""
-    if table.device.type == "cuda":
-        return lut_gather_cuda(table, idx)
-    if table.device.type == "cpu":
-        return lut_gather_plain(table, idx)
-    raise ValueError(f"no look-up path for device {table.device}")
+    """The forward look-up of one table (lut_gather_many of one)."""
+    return lut_gather_many([table], idx)[0]
 
 
 def lut_gather_bwd(g, idx, n):
@@ -149,10 +237,10 @@ def lut_gather_bwd(g, idx, n):
 
 def _kernel_lib():
     lib = cuda_build.load("small_lut")
-    if lib.nart_lut_gather.argtypes is None:
+    if lib.nart_lut_gather_many.argtypes is None:
         p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.nart_lut_gather.argtypes = [p, p, i64, i64, i, p, p]
-        lib.nart_lut_gather.restype = ctypes.c_int
+        lib.nart_lut_gather_many.argtypes = [p, p, p, p, i, p, i64, p]
+        lib.nart_lut_gather_many.restype = ctypes.c_int
         lib.nart_lut_gather_bwd.argtypes = [p, p, i64, i64, i, p, p, p]
         lib.nart_lut_gather_bwd.restype = ctypes.c_int
         lib.nart_lut_bwd_scratch.argtypes = [i64, i64, i]
@@ -164,10 +252,17 @@ def _large_kernel_lib():
     lib = cuda_build.load("large_lut")
     if lib.nart_lut_large_bwd.argtypes is None:
         p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.nart_lut_large_bwd.argtypes = [p, p, p, i64, i64, i, p, p, p]
+        lib.nart_lut_large_bwd.argtypes = [p, p, i64, i64, i, p, p, p]
         lib.nart_lut_large_bwd.restype = ctypes.c_int
-        lib.nart_lut_large_bwd_scratch.argtypes = [i64, i]
+        lib.nart_lut_large_bwd_scratch.argtypes = [i64, i64, i]
         lib.nart_lut_large_bwd_scratch.restype = ctypes.c_int64
+        lib.nart_lut_large_bwd_order.argtypes = [i64, i64, i, p]
+        lib.nart_lut_large_bwd_order.restype = None
+        lib.nart_lut_large_bwd_sorted.argtypes = [p, p, p, i64, i64, i, p, p,
+                                                  p]
+        lib.nart_lut_large_bwd_sorted.restype = ctypes.c_int
+        lib.nart_lut_large_bwd_sorted_scratch.argtypes = [i64, i]
+        lib.nart_lut_large_bwd_sorted_scratch.restype = ctypes.c_int64
     return lib
 
 
@@ -202,25 +297,46 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def lut_gather_cuda(table, idx):
-    """Launch nart_lut_gather: (n,) or (n, C) float32 table (C <= 8, any
-    n), (N,) int64 idx -> (N,) or (N, C)."""
-    c = _width("table", table, MAX_WIDTH)
-    _check_idx(idx, None, table)
-    n, lanes = table.shape[0], idx.shape[0]
-    if n < 1:
-        raise ValueError("the table has no rows")
-    out = torch.empty((lanes,) + tuple(table.shape[1:]), dtype=torch.float32,
-                      device=table.device)
+def lut_gather_many_cuda(tables, idx):
+    """Launch nart_lut_gather_many: 1 to MAX_TABLES (n_k,) or (n_k, C_k)
+    float32 tables (C_k <= 8, any n_k) on idx's card, (N,) int64 idx ->
+    a list of (N,) or (N, C_k), table_k's rows at idx clamped to
+    [0, n_k - 1].  The tables' and outputs' pointers go to the kernel by
+    value: nothing is copied to the card."""
+    k = len(tables)
+    if not 1 <= k <= MAX_TABLES:
+        raise ValueError(f"{k} tables (one launch reads 1 to {MAX_TABLES})")
+    _check_idx(idx, None, idx)
+    for j, t in enumerate(tables):
+        if t.device != idx.device:
+            raise ValueError(f"tables[{j}] is on {t.device}, idx on "
+                             f"{idx.device}")
+    widths = [_width(f"tables[{j}]", t, MAX_WIDTH)
+              for j, t in enumerate(tables)]
+    if any(t.shape[0] < 1 for t in tables):
+        raise ValueError("a table has no rows")
+    lanes = idx.shape[0]
+    outs = [torch.empty((lanes,) + tuple(t.shape[1:]), dtype=torch.float32,
+                        device=idx.device) for t in tables]
     if lanes == 0:
-        return out
-    rc = _kernel_lib().nart_lut_gather(table.data_ptr(), idx.data_ptr(),
-                                       lanes, n, c, out.data_ptr(),
-                                       _stream(table))
+        return outs
+    ptrs = ctypes.c_void_p * k
+    rc = _kernel_lib().nart_lut_gather_many(
+        ptrs(*[t.data_ptr() for t in tables]),
+        ptrs(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int64 * k)(*[t.shape[0] for t in tables]),
+        (ctypes.c_int * k)(*widths), k, idx.data_ptr(), lanes, _stream(idx))
     if rc != 0:
-        raise RuntimeError(f"nart_lut_gather launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"nart_lut_gather_many launch failed: CUDA error {rc}")
     cuda_build.count_launch("lut_gather")
-    return out
+    return outs
+
+
+def lut_gather_cuda(table, idx):
+    """nart_lut_gather_many of one table: (n,) or (n, C) -> (N,) or
+    (N, C)."""
+    return lut_gather_many_cuda([table], idx)[0]
 
 
 def lut_gather_bwd_cuda(g, idx, n):
@@ -249,33 +365,91 @@ def lut_gather_bwd_cuda(g, idx, n):
     return d_table
 
 
-def lut_gather_large_bwd_cuda(g, idx, n):
-    """Launch nart_lut_large_bwd: (N,) or (N, C) float32 g (C <= 8), (N,)
-    int64 idx -> (n,) or (n, C), the per-row sums.  The lanes are first
-    ordered by row with a stable torch.sort of the clamped rows as int32
-    (the permutation PyTorch's own backward sorts by).  The sort's outputs
-    and the kernels' scratch come from the caching allocator (inside a
-    capture, from the graph's pool); nothing is read on the host."""
+def _check_large(g, idx, n):
     c = _width("g", g, MAX_WIDTH)
     _check_idx(idx, g.shape[0], g)
     if not 1 <= n < 2**31:
         raise ValueError(f"the table has {n} rows (the kernels take 1 to "
                          "2^31 - 1)")
-    lanes = g.shape[0]
-    if lanes == 0:
+    return c
+
+
+def lut_gather_large_bwd_cuda(g, idx, n):
+    """Launch nart_lut_large_bwd: (N,) or (N, C) float32 g (C <= 8), (N,)
+    int64 idx (clamped to [0, n - 1] by the kernel) -> (n,) or (n, C), the
+    per-row sums: a stable radix sort of the lanes by row, then a
+    fixed-order segmented sum, in 1 + radix_schedule(n)[1] graph nodes (a
+    memset, a launch a radix pass).
+    Its scratch comes from the caching allocator (inside a capture, from
+    the graph's pool); nothing is read on the host."""
+    c = _check_large(g, idx, n)
+    if g.shape[0] == 0:
         return g.new_zeros((n,) + tuple(g.shape[1:]))
+    return _large_bwd_launch(g, idx, n, c)[0]
+
+
+def _large_bwd_launch(g, idx, n, c):
+    lanes = g.shape[0]
+    if lanes > LARGE_MAX_LANES:
+        raise ValueError(f"{lanes} lanes (the kernel takes up to "
+                         f"{LARGE_MAX_LANES})")
     lib = _large_kernel_lib()
-    keys, perm = torch.sort(idx.clamp(0, n - 1).to(torch.int32), stable=True)
-    scratch = torch.empty(lib.nart_lut_large_bwd_scratch(lanes, c),
-                          dtype=torch.float32, device=g.device)
+    scratch = torch.empty(lib.nart_lut_large_bwd_scratch(lanes, n, c),
+                          dtype=torch.int32, device=g.device)
     d_table = torch.empty((n,) + tuple(g.shape[1:]), dtype=torch.float32,
                           device=g.device)
-    rc = lib.nart_lut_large_bwd(g.data_ptr(), keys.data_ptr(),
-                                perm.data_ptr(), lanes, n, c,
+    rc = lib.nart_lut_large_bwd(g.data_ptr(), idx.data_ptr(), lanes, n, c,
                                 scratch.data_ptr(), d_table.data_ptr(),
                                 _stream(g))
     if rc != 0:
         raise RuntimeError(
             f"nart_lut_large_bwd launch failed: CUDA error {rc}")
+    cuda_build.count_launch("lut_gather_large_bwd")
+    return d_table, scratch
+
+
+def lut_gather_large_bwd_order_cuda(g, idx, n):
+    """lut_gather_large_bwd_cuda, and the order its radix sort left in its
+    scratch: (d_table, keys, lanes), keys the sorted clamped rows and lanes
+    the lane of each sorted position (int32; radix_order_plain's and
+    torch.sort(stable=True)'s)."""
+    c = _check_large(g, idx, n)
+    lanes = g.shape[0]
+    if lanes == 0:
+        raise ValueError("no lanes to sort")
+    d_table, scratch = _large_bwd_launch(g, idx, n, c)
+    at = (ctypes.c_int64 * 2)()
+    _large_kernel_lib().nart_lut_large_bwd_order(lanes, n, c, at)
+    return (d_table, scratch[at[0]:at[0] + lanes],
+            scratch[at[1]:at[1] + lanes])
+
+
+def lut_gather_large_bwd_sorted_cuda(g, keys, perm, n):
+    """Launch nart_lut_large_bwd_sorted: the same sums given the lanes'
+    clamped rows sorted stably, keys (N,) int32, and the permutation, perm
+    (N,) int64 (torch.sort(stable=True)'s): the route before the radix
+    sort, the reference nart_lut_large_bwd is held to.  No path calls it;
+    its launches count as "lut_gather_large_bwd"."""
+    c = _check_large(g, perm, n)
+    if not (keys.is_cuda and keys.dtype == torch.int32
+            and keys.shape == perm.shape and keys.is_contiguous()
+            and keys.device == g.device):
+        raise ValueError("keys must be a contiguous (N,) int32 tensor on g's "
+                         "card")
+    lanes = g.shape[0]
+    if lanes == 0:
+        return g.new_zeros((n,) + tuple(g.shape[1:]))
+    lib = _large_kernel_lib()
+    scratch = torch.empty(lib.nart_lut_large_bwd_sorted_scratch(lanes, c),
+                          dtype=torch.float32, device=g.device)
+    d_table = torch.empty((n,) + tuple(g.shape[1:]), dtype=torch.float32,
+                          device=g.device)
+    rc = lib.nart_lut_large_bwd_sorted(g.data_ptr(), keys.data_ptr(),
+                                       perm.data_ptr(), lanes, n, c,
+                                       scratch.data_ptr(), d_table.data_ptr(),
+                                       _stream(g))
+    if rc != 0:
+        raise RuntimeError(
+            f"nart_lut_large_bwd_sorted launch failed: CUDA error {rc}")
     cuda_build.count_launch("lut_gather_large_bwd")
     return d_table

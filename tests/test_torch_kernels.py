@@ -14,7 +14,11 @@ small-table look-ups: the forward the plain gather's bits, the backward the
 float64 per-row sum to rtol 1e-5 / atol 1e-6 and the same bits run to run
 and from a CUDA graph's replay; the large-table look-ups the same, on
 tables of 65 to 100,000 rows of 1 to 8 values, with runs of one row that
-cross many of the backward's 1,024-lane blocks.
+cross many of the backward's 1,024-lane blocks.  The large-table
+backward's radix sort leaves torch.sort(stable=True)'s order and its sums
+have the bits of the sorted route (torch.sort, then the same segmented
+sum); the many-table forward has the bits of one launch a table, and its
+wrapper refuses what the kernel does not take.
 """
 
 import os
@@ -292,7 +296,8 @@ def test_macbeth_golden_through_kernels(cuda):
 @pytest.mark.parametrize("n,width", [(1, 3), (4, 1), (4, 3), (64, 4),
                                      (100, 3)])
 def test_lut_kernels_against_plain(cuda, n, width):
-    """nart_lut_gather: the plain gather's bits; nart_lut_gather_bwd: the
+    """nart_lut_gather_many of one table: the plain gather's bits;
+    nart_lut_gather_bwd: the
     float64 per-row sum to rtol 1e-5 / atol 1e-6 (positive cotangents; for
     signed ones, whose sums cancel, atol plus rtol times the sum of their
     magnitudes), integer cotangents' sums bit for bit, the same bits on a
@@ -375,7 +380,8 @@ def _large_case(kind, n, lanes, g):
     (65, 3, 65536), (8192, 3, 65536), (29791, 8, 32768 + 5),
     (100000, 1, 3000), (343, 5, 1024), (27, 8, 2048)])
 def test_large_lut_kernels_against_plain(cuda, n, width, lanes, kind):
-    """nart_lut_gather on large tables and rows of up to 8 values: the plain
+    """nart_lut_gather_many on large tables and rows of up to 8 values: the
+    plain
     gather's bits (indices clamped); nart_lut_large_bwd: integer
     cotangents' sums the int64 index_add_'s bits, float ones the float64
     per-row sum to atol plus rtol times the sum of their magnitudes, the
@@ -429,3 +435,79 @@ def test_large_lut_kernels_against_plain(cuda, n, width, lanes, kind):
     leaf = table.clone().requires_grad_()
     (ga,) = torch.autograd.grad(tsel.small_lut(idx, n)(leaf), leaf, cot)
     assert torch.equal(ga, d1)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one row", "runs"])
+@pytest.mark.parametrize("n,width,lanes", [
+    (1, 3, 3000), (8192, 3, 65536), (29791, 8, 32768 + 5),
+    (9047075, 3, 65536), (65, 3, 1024), (300, 5, 1025), (2**20 + 3, 1,
+                                                          200000)])
+def test_large_bwd_radix_order_and_sorted_route(cuda, n, width, lanes, kind):
+    """nart_lut_large_bwd's radix sort leaves, in its scratch, the clamped
+    rows in torch.sort(stable=True)'s order with its permutation (and
+    radix_order_plain's); its sums have the bits of the sorted route on
+    that permutation (torch.sort, then nart_lut_large_bwd_sorted: the
+    same segmented sum and carry)."""
+    g = np.random.default_rng(n + lanes + width)
+    idx = torch.from_numpy(_large_case(kind, n, lanes, g)).to(cuda)
+    cot = torch.from_numpy(
+        g.normal(size=(lanes, width)).astype(np.float32)).to(cuda)
+    d, keys, order = tsel.lut_gather_large_bwd_order_cuda(cot, idx, n)
+    want_keys, perm = torch.sort(idx.clamp(0, n - 1).to(torch.int32),
+                                 stable=True)
+    d_sorted = tsel.lut_gather_large_bwd_sorted_cuda(cot, want_keys, perm, n)
+    plain_keys, plain_order = tsel.radix_order_plain(idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want_keys)
+    assert torch.equal(order.long(), perm)
+    assert torch.equal(keys, plain_keys) and torch.equal(order, plain_order)
+    assert torch.equal(d, d_sorted)
+
+
+def test_many_table_forward_against_single_launches(cuda):
+    """nart_lut_gather_many: 16 tables of 1 to 8 values (some of 4 and 8
+    read as float4, one a view 4 bytes off alignment, read as floats) in
+    one launch have the bits of one launch a table and of the plain
+    gathers, also from a CUDA graph's replay; one launch counted."""
+    g = np.random.default_rng(16)
+    lanes, n = 65536 + 17, 37
+    idx = torch.from_numpy(g.integers(-3, n + 3, lanes)).to(cuda)
+    widths = (1, 2, 3, 4, 5, 6, 7, 8, 3, 1, 4, 8, 2, 3, 1, 8)
+    tables = [torch.from_numpy(g.normal(size=(n, w) if w > 1 else (n,))
+                               .astype(np.float32)).to(cuda) for w in widths]
+    tables[11] = torch.from_numpy(g.normal(size=n * 8 + 1).astype(
+        np.float32)).to(cuda)[1:].view(n, 8)  # 4 bytes off alignment
+    before = cuda_build.launch_counts["lut_gather"]
+    outs = tsel.lut_gather_many_cuda(tables, idx)
+    assert cuda_build.launch_counts["lut_gather"] == before + 1
+    singles = [tsel.lut_gather_cuda(t, idx) for t in tables]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsel.lut_gather_many_cuda(tables, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tsel.lut_gather_many_cuda(tables, idx)
+    graph.replay()
+    torch.cuda.synchronize()
+    ci = idx.clamp(0, n - 1)
+    for t, o, o1, oc in zip(tables, outs, singles, captured):
+        assert torch.equal(o, t[ci])
+        assert torch.equal(o, o1) and torch.equal(o, oc)
+
+
+def test_many_table_wrapper_refuses(cuda):
+    """The many-table wrapper refuses more than MAX_TABLES tables, a table
+    on another device than idx, a non-contiguous table and rows of more
+    than 8 values."""
+    idx = torch.zeros(64, dtype=torch.int64, device=cuda)
+    t = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError, match="tables"):
+        tsel.lut_gather_many_cuda([t] * (tsel.MAX_TABLES + 1), idx)
+    with pytest.raises(ValueError, match="is on"):
+        tsel.lut_gather_many_cuda([t, t.cpu()], idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsel.lut_gather_many_cuda([t, torch.zeros(3, 4, device=cuda).T], idx)
+    with pytest.raises(ValueError, match="rows of 9"):
+        tsel.lut_gather_many_cuda([t, torch.zeros(4, 9, device=cuda)], idx)

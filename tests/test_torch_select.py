@@ -14,7 +14,12 @@ look-up is the autograd Function _LutGather on every device; on the CPU
 its forward and backward run their plain versions.  A differentiable path
 round (textured plastic under a textured env map, both tables of more than
 64 texels) and a volume flight step read no trainable table through
-PyTorch's own indexing backward.  The kernels (csrc/small_lut.cu,
+PyTorch's own indexing backward.  Several tables read by one index are
+one look-up (one launch on the card): the bits and gradients of one
+look-up a table, and make_bsdf one look-up a call.  The large-table
+backward's radix sort, by its plain mirror (select.radix_order_plain):
+torch.sort(stable=True)'s permutation, and, summed row by row in that
+order, the plain backward's bits.  The kernels (csrc/small_lut.cu,
 csrc/large_lut.cu) against the plain versions on the card are in
 tests/test_torch_kernels.py (no jax there), which skips without a card.
 """
@@ -327,3 +332,191 @@ def test_lut_runs_counts_the_large_backward_look_ups():
         assert 1 <= rec["run"] <= rec["lanes"]
         assert 0 <= rec["row"] < n
 
+
+
+# the large-table backward's radix sort, by its plain mirror: the rows the
+# path reads (the env map, the density cells, the texture) and the edges
+RADIX_ROWS = (1, 8192, 29791, 9047075)
+
+
+def _radix_idx(kind, n, lanes, g):
+    if kind == "uniform":
+        return g.integers(0, n, lanes)
+    if kind == "one row":
+        return np.full(lanes, g.integers(0, n))
+    idx = g.integers(0, n, lanes)  # masked: -1, clamped to row 0
+    idx[g.random(lanes) < 0.5] = -1
+    return idx
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one row", "masked"])
+@pytest.mark.parametrize("n", RADIX_ROWS)
+@pytest.mark.parametrize("lanes", [1, 3000, 2 * tsel.RADIX_TILE + 5])
+def test_radix_order_is_torch_sort(n, kind, lanes):
+    """select.radix_order_plain (the passes and counting ranks of
+    nart_lut_large_bwd's radix sort: 1, 2, 2 and 3 passes over 1, 13, 15
+    and 24 bits) gives torch.sort(stable=True)'s keys and permutation of
+    the clamped rows, for lane counts that are no multiple of its tiles."""
+    g = np.random.default_rng(n + lanes + len(kind))
+    idx = torch.from_numpy(_radix_idx(kind, n, lanes, g))
+    keys, order = tsel.radix_order_plain(idx, n)
+    want_keys, want_order = torch.sort(
+        idx.clamp(0, n - 1).to(torch.int32), stable=True)
+    assert keys.dtype == order.dtype == torch.int32
+    assert torch.equal(keys, want_keys)
+    assert torch.equal(order.long(), want_order)
+
+
+def test_radix_schedule():
+    """The passes of at most 8 bits over ceil(log2 n) bits (at least 1)."""
+    assert [tsel.radix_schedule(n) for n in RADIX_ROWS] == [
+        (1, 1, 1), (13, 2, 7), (15, 2, 8), (24, 3, 8)]
+    assert tsel.radix_schedule(2**31 - 1) == (31, 4, 8)
+    assert tsel.radix_schedule(257) == (9, 2, 5)
+
+
+@pytest.mark.parametrize("n,width", [(8192, 3), (29791, 8), (65, 1)])
+def test_radix_order_then_row_sums_is_the_plain_backward(n, width):
+    """The mirror's order, then each row's cotangents summed in that order
+    (a serial sum over the sorted lanes), gives the plain backward's bits:
+    the stable order keeps every row's lanes in lane order."""
+    g = np.random.default_rng(n)
+    lanes = 3 * tsel.RADIX_TILE + 7
+    idx = torch.from_numpy(_radix_idx("masked", n, lanes, g))
+    cot = torch.from_numpy(g.normal(size=(lanes, width)).astype(np.float32))
+    if width == 1:
+        cot = cot[:, 0]
+    keys, order = tsel.radix_order_plain(idx, n)
+    sums = cot.new_zeros((n,) + tuple(cot.shape[1:])).index_add_(
+        0, keys.long(), cot[order.long()])
+    assert torch.equal(sums, tsel.lut_gather_bwd_plain(
+        cot, idx.clamp(0, n - 1), n))
+
+
+@pytest.mark.parametrize("n", [4, 100])
+def test_many_table_look_up(n):
+    """lut(a, b, c, ...) in one look-up (one _LutGather application) gives
+    the bits of one look-up a table, int and bool tables among the float
+    ones included, and each float table's gradient the bits of its own
+    look-up's; a table no gradient reaches gets none."""
+    g = np.random.default_rng(n)
+    idx = torch.from_numpy(_indices(n, g))
+    shapes = [(n, 3), (n,), (n, 8), (n, 1), (n, 4)]
+    tables = [torch.from_numpy(g.normal(size=s).astype(np.float32))
+              for s in shapes]
+    ints = torch.from_numpy(g.integers(-5, 5, n))
+    flags = torch.from_numpy(g.random(n) < 0.5)
+    cots = [torch.from_numpy(g.normal(size=(LANES,) + s[1:])
+                             .astype(np.float32)) for s in shapes]
+    lut = tsel.small_lut(idx, n)
+
+    many = [t.clone().requires_grad_() for t in tables]
+    unused = tables[0].clone().requires_grad_()
+    counts = {"apply": 0}
+    inner = tsel._LutGather.apply
+
+    def counted(*args):
+        counts["apply"] += 1
+        return inner(*args)
+
+    tsel._LutGather.apply = counted
+    try:
+        a, i, b, f, c, d, e, u = lut(many[0], ints, many[1], flags, many[2],
+                                     many[3], many[4], unused)
+    finally:
+        tsel._LutGather.apply = inner
+    assert counts["apply"] == 1
+    assert torch.equal(i, ints[idx.clamp(0, n - 1)])
+    assert torch.equal(f, flags[idx.clamp(0, n - 1)])
+    outs = (a, b, c, d, e)
+    # rows of a table that needs no gradient need none: nothing computed
+    # from them alone is traced
+    mixed = lut(many[0], tables[1])
+    assert mixed[0].requires_grad and not mixed[1].requires_grad
+    grads = torch.autograd.grad(
+        sum((o * k).sum() for o, k in zip(outs, cots)), many + [unused],
+        allow_unused=True)
+    assert grads[-1] is None
+    for t, o, k, gm in zip(tables, outs, cots, grads):
+        one = t.clone().requires_grad_()
+        out1 = lut(one)
+        (g1,) = torch.autograd.grad(out1, one, k)
+        assert torch.equal(o, out1.detach())
+        assert torch.equal(gm, g1)
+
+
+def test_make_bsdf_is_one_look_up():
+    """make_bsdf reads its per-mesh tables in one look-up (the float ones
+    in one launch on the card): one _LutGather application a call on an
+    untextured scene, one more a texture slot's fetch of the float32
+    texture table."""
+    counts = {"apply": 0}
+    inner = tsel._LutGather.apply
+
+    def counted(*args):
+        counts["apply"] += 1
+        return inner(*args)
+
+    g = np.random.default_rng(3)
+    n = 64
+    args = (torch.from_numpy(g.normal(size=(n, 2)).astype(np.float32)),
+            torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32)),
+            torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32)),
+            torch.full((n,), 0.5))
+    tsel._LutGather.apply = counted
+    try:
+        plain = testing.simple_scene(("lambert", "plastic", "glass",
+                                      "glossy"))
+        tm.make_bsdf(plain, torch.from_numpy(g.integers(-1, 5, n)), *args)
+        assert counts["apply"] == 1
+        counts["apply"] = 0
+        textured = _textured_env_scene()
+        tm.make_bsdf(textured, torch.zeros(n, dtype=torch.int64), *args)
+        assert counts["apply"] == 2  # the tables, rho_d's texel fetch
+    finally:
+        tsel._LutGather.apply = inner
+
+
+def test_many_table_wrapper_refuses_more_tables_than_a_launch_reads():
+    """nart_lut_gather_many reads at most MAX_TABLES tables: the wrapper
+    refuses more before it looks at the device (small_lut splits them)."""
+    t = torch.zeros(4, 3)
+    idx = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="tables"):
+        tsel.lut_gather_many_cuda([t] * (tsel.MAX_TABLES + 1), idx)
+    outs = tsel.small_lut(idx, 4)(*[t] * (tsel.MAX_TABLES + 1))
+    assert len(outs) == tsel.MAX_TABLES + 1
+    assert all(torch.equal(o, t[idx]) for o in outs)
+
+
+@pytest.mark.parametrize("scene", ["macbeth", "simple_glass"])
+def test_path_round_look_ups(scene):
+    """A forward path round reads its float tables in 4 look-ups (4
+    launches on the card): make_bsdf's per-mesh tables, and macbeth's env
+    map three times or simple_glass's three packed-light sites."""
+    import os
+
+    if scene == "macbeth":
+        root = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
+        sc = tscene.load_scene(os.path.join(root, "macbeth.json"),
+                               asset_root=root)
+        params = trender.RenderParams(image_width=24, image_height=16, spp=1)
+    else:
+        sc = testing.simple_scene(("glass", "glass", "lambert"),
+                                  priorities=[2, 3, 0])
+        params = trender.RenderParams(image_width=16, image_height=16,
+                                      spp=1, bounces=10)
+    counts = {"apply": 0}
+    inner = tsel._LutGather.apply
+
+    def counted(*args):
+        counts["apply"] += 1
+        return inner(*args)
+
+    tsel._LutGather.apply = counted
+    try:
+        sess = trender.RenderSession(sc, params, "cpu", per_round=True)
+        sess.image()
+    finally:
+        tsel._LutGather.apply = inner
+    assert counts["apply"] == 4 * sess.stats["rounds"] > 0
