@@ -172,20 +172,33 @@ Phases (any failure raises and exits non-zero):
      the mesh ids of 65,536 macbeth camera rays' hits.  The forward kernel
      gives the plain gather's bits, and, reading 16 tables of 1 to 8
      values in one launch (nart_lut_gather_many), the bits of one launch a
-     table; the backward kernel is within rtol 1e-5 / atol 1e-6 of a
-     float64 index_add_ of the same cotangents (positive ones; for signed
-     ones, whose sums cancel, within atol plus rtol times the float64 sum
-     of their magnitudes), and for integer cotangents in [-8, 8] (float32
-     sums exact in any order) the int64 index_add_'s bits; the same bits
-     on a second launch and from a CUDA graph's replay.  Logged at three
-     shapes (macbeth's mesh ids, the bench's one light row at 131,072
-     lanes, 64 rows): the device ms of each kernel (and its ms per call),
-     of the plain versions (table[idx]; index_put_(accumulate=True), whose
-     indexing_backward kernel is the plain backward), of F.embedding and
-     embedding_dense_backward (the library yardstick, timed only), and the
+     table; the backward kernel (nart_lut_gather_bwd_many, all of a
+     look-up's small tables in one launch) gives the bits of the
+     two-launch route (nart_lut_gather_bwd, one table a call) table by
+     table, is within rtol 1e-5 / atol 1e-6 of a float64 index_add_ of
+     the same cotangents (positive ones; for signed ones, whose sums
+     cancel, within atol plus rtol times the float64 sum of their
+     magnitudes), and for integer
+     cotangents in [-8, 8] (float32 sums exact in any order) gives the
+     int64 index_add_'s bits; the same bits on a second launch and from a
+     CUDA graph's replay: one table at a time in every case above, the
+     rows of 1 and of 3 together, a 16-table mix of 1 to 64 rows of 1 to
+     4 values, make_bsdf's five trainable per-mesh tables at macbeth's
+     mesh ids and a light's le and intensity on one row at 131,072 lanes.
+     Logged at three shapes (macbeth's mesh ids, the bench's one light
+     row at 131,072 lanes, 64 rows): the device ms of each kernel (and its
+     ms per call), of the two-launch route, of the plain versions
+     (table[idx]; index_put_(accumulate=True), whose indexing_backward
+     kernel is the plain backward), of F.embedding, embedding_dense_backward
+     and zeros + index_add_ (the library yardsticks, timed only), and the
      bound; then the many-table forward at make_bsdf's six per-mesh tables
      and area_pack_sample's ten light fields: one launch against one
-     launch a table, the plain gathers and F.embedding a table;
+     launch a table, the plain gathers and F.embedding a table; then the
+     many-table backward at the 16-table mix, make_bsdf's five and the
+     light's two: one launch against, a table at a time, the two-launch
+     route, the plain backward, embedding_dense_backward and zeros +
+     index_add_, with the graph nodes a call (one kernel node, else it
+     fails) and the bound;
  24. large-table look-ups (the forward of csrc/small_lut.cu, the backward
      of csrc/large_lut.cu) against their plain versions on the card at the
      main path's shapes: macbeth's env map (65,536 lanes, 8,192 rows of 3)
@@ -207,7 +220,8 @@ Phases (any failure raises and exits non-zero):
      bound, and the graph nodes a backward call makes (the nodes of a
      CUDA graph that captures one call: the memset and one launch a radix
      pass, at most 5); then both backward kernels, the
-     small-table one (S1) and the large-table one (S2), timed side by side
+     small-table one (S1's two-launch route: the many-table kernel takes
+     at most 64 rows) and the large-table one (S2), timed side by side
      on 65,536 uniform lanes over tables of 3 to 65,536 rows of 3 and on
      the bench's one light row (131,072 lanes): the measured ground for
      select.AUTO_LUT_ROWS, the row count up to which the small-table
@@ -276,8 +290,8 @@ SOURCES = {k: SOURCE if k in TRAVERSAL else
            LARGE_SOURCE if k in LARGE else LUT_SOURCE for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
-LUT_NAMES = ("lut_gather_many_kernel", "lut_partial_kernel",
-             "lut_final_kernel")
+LUT_NAMES = ("lut_gather_many_kernel", "lut_bwd_many_kernel",
+             "lut_partial_kernel", "lut_final_kernel")
 LARGE_NAMES = ("lut_sort_kernel", "lut_seg_kernel", "lut_carry_kernel")
 # torch.sort's kernels (the path round's ray sort, and S2's order of lanes)
 SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
@@ -851,12 +865,14 @@ def check_replay_launches(label, counts, rounds, ran, runner):
             f"{rounds} live, backward graph {runner.back_launches}: K1 and "
             "K2 launch once a forward round run and never in the backward")
     # the small tables' look-ups: the forward kernel in the forward's
-    # rounds, both kernels in the backward's round graph
+    # rounds, both kernels in the backward's round graph (the small-table
+    # backward's two-launch reference never)
     fwd, back = runner.launches, runner.back_launches
     if not (fwd.get("lut_gather", 0) > 0 and not fwd.get("lut_gather_bwd", 0)
             and back.get("lut_gather", 0) > 0
             and back.get("lut_gather_bwd", 0) > 0
-            and counts["lut_gather_bwd"] > 0):
+            and counts["lut_gather_bwd"] > 0
+            and not counts["lut_gather_bwd_reference"]):
         raise AssertionError(
             f"{label}: look-up launches {counts}, per forward replay {fwd}, "
             f"per backward round {back}")
@@ -2362,17 +2378,95 @@ def _captured_lut(fwd, bwd, table, g, idx, n):
 
 
 def lut_bound(lanes, n, width, backward):
-    """Least time the card could take (ms) for a look-up and what sets it.
-    Bytes: idx (8 B a lane) read once, the lanes' values (4 * width B a
-    lane: the output, or the cotangent read) and the (n, width) table
-    (read, or written) once.  Operations: none in the forward (a copy), one
-    float32 addition a lane's value in the backward, over 67 TFLOP/s."""
-    nbytes = lanes * (8 + 4 * width) + 4 * n * width
+    """Least time the card could take (ms) for a look-up and what sets it:
+    lut_many_bound of one (n, width) table."""
+    return lut_many_bound(lanes, [(n, width)], backward)
+
+
+def _bwd_one(g, idx, n):
+    """The small-table backward of one table: the many-table kernel of
+    one (the path's route)."""
+    from nart_tpu_torch import select
+
+    return select.lut_gather_bwd_many_cuda([g], idx, [n])[0]
+
+
+def lut_many_bound(lanes, shapes, backward):
+    """Least time the card could take (ms) for one look-up of tables
+    (rows, width) by one idx, and what sets it.  Bytes: idx (8 B a lane)
+    read once, each table's lanes' values (4 * width B a lane: the output,
+    or the cotangent read) and its (rows, width) table (read, or written)
+    once.  Operations: none in the forward (a copy), one float32 addition
+    a lane's value in the backward, over 67 TFLOP/s."""
+    width = sum(w for _, w in shapes)
+    nbytes = lanes * (8 + 4 * width) + 4 * sum(n * w for n, w in shapes)
     ops = lanes * width if backward else 0
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops}
+
+
+def _many_bwd_checks(label, idx, shapes, rng):
+    """The many-table backward of tables (rows, width) read by idx: each
+    table's sums the two-launch route's bits (one call a table, on the
+    clamped rows), within rtol / atol of the float64 sum (signed
+    cotangents: rtol times the sum of magnitudes; positive ones), integer
+    cotangents' sums exact, the same bits on a second call and from a CUDA
+    graph's replay.
+    Returns the max abs error against the float64 sums."""
+    import torch
+
+    from nart_tpu_torch import select
+
+    device = idx.device
+    lanes = idx.shape[0]
+    rows = [n for n, _ in shapes]
+    lane_shapes = [(lanes, w) if w > 1 else (lanes,) for _, w in shapes]
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+         for s in lane_shapes]
+    g_pos = [torch.from_numpy(rng.random(s, dtype=np.float32)).to(device)
+             for s in lane_shapes]
+    g_int = [torch.from_numpy(rng.integers(-LUT_INT, LUT_INT + 1, s)).to(
+        device) for s in lane_shapes]
+    many = select.lut_gather_bwd_many_cuda
+    d1, d2 = many(g, idx, rows), many(g, idx, rows)
+    d_pos = many(g_pos, idx, rows)
+    d_int = many([x.float() for x in g_int], idx, rows)
+    captured = _captured_many(lambda x, i: many(x, i, rows), g, idx)
+    err = 0.0
+    for k, n in enumerate(rows):
+        ci = idx.clamp(0, n - 1)
+        shape = (n,) + tuple(g[k].shape[1:])
+        ref = select.lut_gather_bwd_cuda(g[k], ci, n)
+
+        def f64_sum(x):
+            return torch.zeros(shape, dtype=torch.float64,
+                               device=device).index_add_(0, ci, x.double())
+
+        want_int = torch.zeros(shape, dtype=torch.int64,
+                               device=device).index_add_(0, ci, g_int[k])
+        e = (d1[k].double() - f64_sum(g[k])).abs()
+        e_pos = (d_pos[k].double() - f64_sum(g_pos[k])).abs()
+        where = f"many-table backward {label}, table {k} ({shape})"
+        if not torch.equal(d1[k], ref):
+            raise AssertionError(f"{where}: other bits than the two-launch "
+                                 "route")
+        if not (torch.equal(d1[k], d2[k])
+                and torch.equal(d1[k], captured[k])):
+            raise AssertionError(f"{where}: other bits on a second call or "
+                                 "from a graph's replay")
+        if not torch.equal(d_int[k], want_int.float()):
+            raise AssertionError(f"{where}: integer sums off the int64 "
+                                 "index_add_")
+        if not (bool((e <= LUT_ATOL + LUT_RTOL * f64_sum(g[k].abs())).all())
+                and torch.allclose(d_pos[k].double(), f64_sum(g_pos[k]),
+                                   rtol=LUT_RTOL, atol=LUT_ATOL)):
+            raise AssertionError(f"{where}: off the float64 sum by "
+                                 f"{float(e.max())} (signed), "
+                                 f"{float(e_pos.max())} (positive)")
+        err = max(err, float(e.max()), float(e_pos.max()))
+    return err
 
 
 def lut_checks(device):
@@ -2415,15 +2509,15 @@ def lut_checks(device):
             g_int = torch.from_numpy(
                 rng.integers(-LUT_INT, LUT_INT + 1, lanes_shape)).to(device)
             out = select.lut_gather_cuda(table, idx)
-            d1 = select.lut_gather_bwd_cuda(g, idx, n)
-            d2 = select.lut_gather_bwd_cuda(g, idx, n)
-            d_pos = select.lut_gather_bwd_cuda(g_pos, idx, n)
-            d_int = select.lut_gather_bwd_cuda(g_int.float(), idx, n)
+            d1 = _bwd_one(g, idx, n)
+            d2 = _bwd_one(g, idx, n)
+            d_pos = _bwd_one(g_pos, idx, n)
+            d_int = _bwd_one(g_int.float(), idx, n)
+            d_ref = select.lut_gather_bwd_cuda(g, idx, n)
             want_int = torch.zeros(shape, dtype=torch.int64,
                                    device=device).index_add_(0, idx, g_int)
-            out_g, d_g = _captured_lut(select.lut_gather_cuda,
-                                       select.lut_gather_bwd_cuda, table, g,
-                                       idx, n)
+            out_g, d_g = _captured_lut(select.lut_gather_cuda, _bwd_one,
+                                       table, g, idx, n)
             plain = select.lut_gather_plain(table, idx)
 
             def f64_sum(x):
@@ -2442,6 +2536,11 @@ def lut_checks(device):
                     and torch.equal(out_g, out)):
                 raise AssertionError(f"{where}: other bits on a second "
                                      "launch or from a graph's replay")
+            if not torch.equal(d1, d_ref):
+                raise AssertionError(
+                    f"{where}: the many-table backward's bits differ from "
+                    "the two-launch route's, max abs diff "
+                    f"{float((d1 - d_ref).abs().max())}")
             if not torch.equal(d_int, want_int.float()):
                 raise AssertionError(
                     f"{where}: the backward kernel's sums of integer "
@@ -2479,10 +2578,32 @@ def lut_checks(device):
         f"tables of widths {LUT_MANY_WIDTHS} in one launch: the plain "
         "gathers' bits, those of one launch a table, and from a CUDA graph's "
         "replay")
+    # the many-table backward: every case's tables in one launch, held to
+    # the two-launch route table by table
+    light = torch.zeros(LUT_LANES[1], dtype=torch.int64, device=device)
+    many_bwd = [("16 tables", torch.from_numpy(rng.integers(
+                    -3, 67, LUT_LANES[0])).to(device), LUT_BWD_MIX),
+                ("make_bsdf's five trainable tables, macbeth mesh ids",
+                 mesh, [(n_mesh, w) for w in MAKE_BSDF_WIDTHS]),
+                ("le and intensity, one light row", light, [(1, 3), (1, 1)])]
+    for label, idx, shapes in many_bwd:
+        err_b = max(err_b, _many_bwd_checks(label, idx, shapes, rng))
+    for label, idx, n in cases:
+        err_b = max(err_b, _many_bwd_checks(
+            label, idx, [(n, w) for w in LUT_WIDTHS], rng))
+    log(f"many-table backward, {len(many_bwd) + len(cases)} cases ("
+        f"{', '.join(c[0] for c in many_bwd)}; the rows of {LUT_WIDTHS} of "
+        "each case above together): each table's sums the bits of the "
+        "two-launch route (one call a table), "
+        f"within rtol {LUT_RTOL} / atol {LUT_ATOL} of the float64 sums, "
+        "integer sums exact, the same bits on a second call and from a CUDA "
+        "graph's replay")
     log(f"look-up kernels, {len(cases) * len(LUT_WIDTHS)} cases (N in "
         f"{LUT_LANES}, n in {LUT_ROWS}, rows of {LUT_WIDTHS}; uniform, one "
         f"row, macbeth's mesh ids): the forward the plain gather's bits; the "
-        f"backward against the float64 index_add_ within rtol {LUT_RTOL} / "
+        f"backward (the many-table kernel of one table) the two-launch "
+        f"route's bits, against the float64 index_add_ within rtol "
+        f"{LUT_RTOL} / "
         f"atol {LUT_ATOL} (positive cotangents; signed ones: rtol times the "
         f"sum of their magnitudes), max abs err {err_b:.3g}, and integer "
         f"cotangents in [-{LUT_INT}, {LUT_INT}] the int64 index_add_'s bits; "
@@ -2508,8 +2629,9 @@ def lut_checks(device):
         t = {
             "fwd": kernel_ms(lambda: select.lut_gather_cuda(table, idx),
                              reps),
-            "bwd": kernel_ms(lambda: select.lut_gather_bwd_cuda(g, idx, n),
-                             reps),
+            "bwd": kernel_ms(lambda: _bwd_one(g, idx, n), reps),
+            "bwd_reference": kernel_ms(
+                lambda: select.lut_gather_bwd_cuda(g, idx, n), reps),
             "fwd_plain": device_ms(
                 lambda: select.lut_gather_plain(table, idx)),
             "bwd_plain": kernel_ms(
@@ -2517,21 +2639,28 @@ def lut_checks(device):
             "fwd_library": device_ms(
                 lambda: torch.nn.functional.embedding(idx, table)),
             "bwd_library": device_ms(lambda: emb_bwd(g, idx, n, -1, False)),
+            "bwd_index_add": device_ms(
+                lambda: g.new_zeros((n, 3)).index_add_(0, idx, g)),
         }
         fb, bb = lut_bound(lanes, n, 3, False), lut_bound(lanes, n, 3, True)
         log(f"time look-up {label}, N={lanes}, n={n}, rows of 3: forward "
             f"kernel {fmt(t['fwd'])}, plain {fmt(t['fwd_plain'])}, "
             f"F.embedding {fmt(t['fwd_library'])}, bound "
             f"{fb['bound_ms']:.6f} ms ({fb['bound_by']}); backward kernel "
-            f"{fmt(t['bwd'])}, plain (index_put_, indexing_backward) "
-            f"{fmt(t['bwd_plain'])}, embedding_dense_backward "
-            f"{fmt(t['bwd_library'])}, bound {bb['bound_ms']:.6f} ms "
-            f"({bb['bound_by']})")
+            f"{fmt(t['bwd'])}, the two-launch route "
+            f"{fmt(t['bwd_reference'])}, plain (index_put_, "
+            f"indexing_backward) {fmt(t['bwd_plain'])}, "
+            f"embedding_dense_backward {fmt(t['bwd_library'])}, zeros + "
+            f"index_add_ {fmt(t['bwd_index_add'])}, bound "
+            f"{bb['bound_ms']:.6f} ms ({bb['bound_by']})")
         if records is None:
             records = {
                 "lut_gather": dict(max_abs_err=err_f, **_rec(t, "fwd"), **fb),
-                "lut_gather_bwd": dict(max_abs_err=err_b, **_rec(t, "bwd"),
-                                       **bb),
+                "lut_gather_bwd": dict(
+                    max_abs_err=err_b, **_rec(t, "bwd"), **bb,
+                    reference_ms=t["bwd_reference"]["ms"],
+                    reference_ms_per_call=t["bwd_reference"]["ms_per_call"],
+                    index_add_ms=t["bwd_index_add"]["ms"]),
             }
     # the many-table forward at the main path's two reads: make_bsdf's six
     # float per-mesh tables at macbeth's mesh ids, and area_pack_sample's ten
@@ -2572,6 +2701,63 @@ def lut_checks(device):
                            embedding_each_ms=t["embedding"]["ms"],
                            bound_ms=bound_ms, bytes=nbytes)
     records["lut_gather"]["many"] = many
+    # the many-table backward at the main path's two: make_bsdf's five
+    # trainable per-mesh tables at macbeth's mesh ids, and a light's le and
+    # intensity on the bench's one light row; and the 16-table mix.  One
+    # launch for all, and, a table at a time, the two-launch route, the
+    # plain version, embedding_dense_backward and zeros + index_add_; graph
+    # nodes a call
+    many = {}
+    for label, idx, shapes in many_bwd:
+        lanes = idx.shape[0]
+        rows = [n for n, _ in shapes]
+        g = [torch.from_numpy(rng.normal(size=(lanes, w) if w > 1 else lanes)
+                              .astype(np.float32)).to(device)
+             for _, w in shapes]
+        cis = [idx.clamp(0, n - 1) for n in rows]
+        t = {
+            "one": kernel_ms(
+                lambda: select.lut_gather_bwd_many_cuda(g, idx, rows), reps),
+            "reference": kernel_ms(lambda: [
+                select.lut_gather_bwd_cuda(x, ci, n)
+                for x, ci, n in zip(g, cis, rows)], reps),
+            "plain": kernel_ms(lambda: [
+                select.lut_gather_bwd_plain(x, ci, n)
+                for x, ci, n in zip(g, cis, rows)], 3),
+            "embedding": device_ms(lambda: [
+                emb_bwd(x.reshape(lanes, -1), ci, n, -1, False)
+                for x, ci, n in zip(g, cis, rows)]),
+            "index_add": device_ms(lambda: [
+                x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, ci, x)
+                for x, ci, n in zip(g, cis, rows)]),
+        }
+        nodes = graph_nodes(
+            lambda: select.lut_gather_bwd_many_cuda(g, idx, rows))
+        nodes_ref = graph_nodes(lambda: [
+            select.lut_gather_bwd_cuda(x, ci, n)
+            for x, ci, n in zip(g, cis, rows)])
+        if nodes != 1:
+            raise AssertionError(f"many-table backward {label}: {nodes} graph "
+                                 "nodes a call, not one kernel node")
+        b = lut_many_bound(lanes, shapes, True)
+        log(f"time many-table backward, {label}: {len(shapes)} tables "
+            f"(rows, width) {shapes}, N={lanes}: one launch {fmt(t['one'])} "
+            f"in {nodes} graph node; the two-launch route a table "
+            f"{fmt(t['reference'])} in {nodes_ref} nodes, plain (index_put_ "
+            f"each) {fmt(t['plain'])}, embedding_dense_backward each "
+            f"{fmt(t['embedding'])}, zeros + index_add_ each "
+            f"{fmt(t['index_add'])}, bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}: {b['bytes']} bytes), "
+            f"{100.0 * b['bound_ms'] / t['one']['ms']:.3f}% of it reached")
+        many[label] = dict(
+            tables=len(shapes), ms=t["one"]["ms"], ms_min=t["one"]["min"],
+            ms_max=t["one"]["max"], ms_per_call=t["one"]["ms_per_call"],
+            reference_each_ms=t["reference"]["ms"],
+            reference_each_ms_per_call=t["reference"]["ms_per_call"],
+            plain_ms=t["plain"]["ms"], embedding_each_ms=t["embedding"]["ms"],
+            index_add_each_ms=t["index_add"]["ms"], nodes_per_call=nodes,
+            reference_nodes_per_call=nodes_ref, **b)
+    records["lut_gather_bwd"]["many"] = many
     for k, r in records.items():
         log(f"bound {k}: {r['bound_ms']:.6f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes; {r['operations']} operations): the kernel "
@@ -2855,7 +3041,8 @@ def large_lut_checks(device):
         against[f"N={lanes}, n={n}, {kind}"] = dict(small_ms=t_small["ms"],
                                                      large_ms=t_large["ms"])
         log(f"time backward kernels, N={lanes}, n={n} rows of 3, {kind}: "
-            f"small-table (S1) {fmt(t_small)}, large-table (S2, the radix "
+            f"small-table (S1's two-launch route, which takes any n) "
+            f"{fmt(t_small)}, large-table (S2, the radix "
             f"route) {fmt(t_large)}, S2 / S1 "
             f"{t_large['ms'] / t_small['ms']:.3f}")
 
@@ -2882,6 +3069,13 @@ LUT_ROWS = (1, 3, 4, 16, 64)
 LUT_WIDTHS = (1, 3)
 # phase 23's many-table forward: the tables' row widths, read in one launch
 LUT_MANY_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 8, 3, 1, 4, 8, 2, 3, 1, 8)
+# phase 23's many-table backward: 16 tables (rows, width) of rows 1 to 64
+# and widths 1 to 4, and make_bsdf's five trainable per-mesh tables' widths
+# (rho_d, rho_s, tau, eta, alpha)
+LUT_BWD_MIX = ((1, 3), (3, 1), (64, 4), (16, 2), (4, 3), (33, 1), (64, 1),
+               (2, 4), (7, 3), (48, 2), (5, 4), (64, 3), (1, 1), (20, 3),
+               (12, 4), (9, 2))
+MAKE_BSDF_WIDTHS = (3, 3, 3, 1, 1)
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 LUT_INT = 8  # integer cotangents in [-8, 8]: sums below 2^20, exact
 # phase 24's shapes, the main path's: (label, lanes, rows, row width)

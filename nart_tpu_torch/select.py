@@ -15,20 +15,30 @@ every device.  On CUDA tensors its forward is csrc/small_lut.cu's
 ``nart_lut_gather_many``: up to MAX_TABLES tables in one launch (the
 rows, the plain gather's bits; rows of 1 to 8 values, any row count),
 counted in ``cuda_build.launch_counts`` as "lut_gather".  Its backward
-takes each table that needs a gradient on its own, and the table's shape
-picks the kernel.  Tables of up to AUTO_LUT_ROWS rows of up to 4 values
-(S1) take ``nart_lut_gather_bwd`` (the per-row sum of the lanes'
-cotangents in a fixed order: the same bits every run, no float atomics),
-counted as "lut_gather_bwd".  The others (S2: the env map, the texture
-table, the light atlas, the density cells, whose rows hold 8 values) take
-csrc/large_lut.cu's ``nart_lut_large_bwd`` (a stable radix sort of the
+sorts the tables that need a gradient by shape.  Those of up to
+AUTO_LUT_ROWS rows of up to 4 values (S1) go together to
+``lut_gather_bwd_many``, on the card one cooperative launch of
+``nart_lut_gather_bwd_many`` for all of them (one graph node), counted as
+"lut_gather_bwd": 512-lane blocks of 8 warps sum each row's lanes (a
+shuffle tree over each warp's group of 32, added to the warp's slot, the
+warps added 0..7 into the block's partial); after a grid-wide barrier the
+blocks sum the partials (lane l the blocks l, l + 32, ..., then a shuffle
+tree): a fixed order, the same bits every run, no float atomics, the bits
+of the two-launch route it replaced, ``nart_lut_gather_bwd``, which stays
+as the reference (``lut_gather_bwd_cuda``, counted as
+"lut_gather_bwd_reference"; no path calls it).  The kernel's limits are
+read from the library at its first load and must be this module's
+(MAX_TABLES, AUTO_LUT_ROWS, SMALL_MAX_WIDTH).
+The others (S2: the env map, the texture table, the light atlas, the
+density cells, whose rows hold 8 values) take csrc/large_lut.cu's
+``nart_lut_large_bwd`` one table at a time (a stable radix sort of the
 lanes by the rows' own bits, then a segmented sum over the sorted lanes
 in a fixed order), counted as "lut_gather_large_bwd".  Inside a CUDA
 graph capture a launch counts at every replay.  PyTorch's own backward of
 ``table[idx]`` on the card is a sorted ``index_put_(accumulate=True)``
 that walks every run of equal indices serially, and the runs are tens of
 thousands of lanes long.  On CPU tensors the Function runs the plain
-versions, ``table[idx]`` and that ``index_put_``: the bits of
+versions, ``table[idx]`` and that ``index_put_`` a table: the bits of
 ``table[idx]`` under autograd.  There is no fallback between the two: a
 CUDA tensor launches the kernels or raises.  Int and bool tables are read
 by plain indexing on any device: they carry no gradient, and a gather's
@@ -58,7 +68,7 @@ from . import cuda_build
 AUTO_LUT_ROWS = 64
 SMALL_MAX_WIDTH = 4  # the small-table backward's largest row width C
 MAX_WIDTH = 8  # the forward's and the large-table backward's
-MAX_TABLES = 16  # tables one forward launch reads (small_lut.cu kMaxTables)
+MAX_TABLES = 16  # tables one launch reads (small_lut.cu kMaxTables)
 LARGE_MAX_LANES = 2**30 - 1  # the large-table backward's lanes (large_lut.cu)
 
 
@@ -88,13 +98,14 @@ def small_lut(idx, n):
 class _LutGather(torch.autograd.Function):
     """(table[idx] for table in tables) for float tables and an in-range
     int64 idx (the last argument): on the card (float32 only) one
-    many-table look-up kernel, each table's backward the small-table one up
-    to AUTO_LUT_ROWS rows of up to SMALL_MAX_WIDTH values and the
-    large-table one otherwise; their plain versions on the CPU.  The rows
-    of a table that needs no gradient need none either (marked so: else
-    one trainable table among the read ones would make autograd trace, and
-    the backward differentiate, everything computed from the others), and
-    a table whose rows no gradient reaches gets none."""
+    many-table look-up kernel; the backward one many-table launch for the
+    tables of up to AUTO_LUT_ROWS rows of up to SMALL_MAX_WIDTH values and
+    one large-table launch for each of the others; their plain versions on
+    the CPU.  The rows of a table that needs no gradient need none either
+    (marked so: else one trainable table among the read ones would make
+    autograd trace, and the backward differentiate, everything computed
+    from the others), and a table whose rows no gradient reaches gets
+    none."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -112,11 +123,21 @@ class _LutGather(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *grads):
         (idx,) = ctx.saved_tensors
-        return tuple(
-            lut_gather_bwd(g.contiguous(), idx, n)
-            if g is not None and need else None
-            for g, n, need in zip(grads, ctx.rows, ctx.needs_input_grad)
-        ) + (None,)
+        want = [k for k, (g, need) in enumerate(zip(grads,
+                                                     ctx.needs_input_grad))
+                if g is not None and need]
+        small = [k for k in want if not _large(grads[k], ctx.rows[k])]
+        out = [None] * (len(grads) + 1)
+        if small:
+            sums = lut_gather_bwd_many([grads[k].contiguous() for k in small],
+                                       idx, [ctx.rows[k] for k in small])
+            for k, d in zip(small, sums):
+                out[k] = d
+        for k in want:
+            if out[k] is None:
+                out[k] = lut_gather_bwd(grads[k].contiguous(), idx,
+                                        ctx.rows[k])
+        return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -219,15 +240,47 @@ def lut_gather(table, idx):
 
 
 def lut_gather_bwd(g, idx, n):
-    """The backward look-up: a kernel on CUDA tensors (by the table's
-    shape), the plain version on CPU tensors."""
+    """The backward look-up of one table: the large-table kernel on CUDA
+    tensors, or lut_gather_bwd_many of one for a small table; the plain
+    version on CPU tensors."""
+    if not _large(g, n):
+        return lut_gather_bwd_many([g], idx, [n])[0]
     if g.device.type == "cuda":
-        if _large(g, n):
-            return lut_gather_large_bwd_cuda(g, idx, n)
-        return lut_gather_bwd_cuda(g, idx, n)
+        return lut_gather_large_bwd_cuda(g, idx, n)
     if g.device.type == "cpu":
         return lut_gather_bwd_plain(g, idx, n)
     raise ValueError(f"no look-up path for device {g.device}")
+
+
+def _check_small(grads, rows):
+    """What the many-table backward takes: 1 to MAX_TABLES cotangents (N,)
+    or (N, C), C <= SMALL_MAX_WIDTH, of tables of 1 to AUTO_LUT_ROWS rows."""
+    if not 1 <= len(grads) <= MAX_TABLES or len(rows) != len(grads):
+        raise ValueError(f"{len(grads)} tables, {len(rows)} row counts (one "
+                         f"launch sums 1 to {MAX_TABLES})")
+    for j, (g, n) in enumerate(zip(grads, rows)):
+        c = 1 if g.dim() == 1 else g.shape[-1]
+        if g.dim() not in (1, 2) or not 1 <= c <= SMALL_MAX_WIDTH:
+            raise ValueError(f"grads[{j}]: shape {tuple(g.shape)} (the "
+                             f"kernel takes rows of 1 to {SMALL_MAX_WIDTH} "
+                             "values)")
+        if not 1 <= n <= AUTO_LUT_ROWS:
+            raise ValueError(f"grads[{j}]: a table of {n} rows (the kernel "
+                             f"takes 1 to {AUTO_LUT_ROWS})")
+
+
+def lut_gather_bwd_many(grads, idx, rows):
+    """The backward look-up of a look-up's small tables, each (rows[k],) or
+    (rows[k], C_k) read by idx (g_k its cotangent): one launch of the
+    many-table kernel on CUDA tensors, the plain version a table on CPU
+    tensors.  Refuses what the kernel does not take on every device (on
+    the card, the kernel's wrapper checks)."""
+    if idx.device.type == "cuda":
+        return lut_gather_bwd_many_cuda(grads, idx, rows)
+    _check_small(grads, rows)
+    if idx.device.type == "cpu":
+        return [lut_gather_bwd_plain(g, idx, n) for g, n in zip(grads, rows)]
+    raise ValueError(f"no look-up path for device {idx.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +298,21 @@ def _kernel_lib():
         lib.nart_lut_gather_bwd.restype = ctypes.c_int
         lib.nart_lut_bwd_scratch.argtypes = [i64, i64, i]
         lib.nart_lut_bwd_scratch.restype = ctypes.c_int64
+        lib.nart_lut_gather_bwd_many.argtypes = [p, p, p, p, i, p, i64, p, i,
+                                                 p]
+        lib.nart_lut_gather_bwd_many.restype = ctypes.c_int
+        lib.nart_lut_bwd_many_scratch.argtypes = [i64, i64]
+        lib.nart_lut_bwd_many_scratch.restype = ctypes.c_int64
+        limits = [ctypes.c_int() for _ in range(3)]
+        lib.nart_lut_bwd_many_limits.argtypes = [p, p, p]
+        lib.nart_lut_bwd_many_limits.restype = None
+        lib.nart_lut_bwd_many_limits(*[ctypes.byref(x) for x in limits])
+        got = tuple(x.value for x in limits)
+        want = (MAX_TABLES, AUTO_LUT_ROWS, SMALL_MAX_WIDTH)
+        if got != want:
+            raise RuntimeError(
+                f"nart_lut_gather_bwd_many takes (tables, rows, width) {got}, "
+                f"select.py routes {want} to it")
     return lib
 
 
@@ -339,10 +407,59 @@ def lut_gather_cuda(table, idx):
     return lut_gather_many_cuda([table], idx)[0]
 
 
-def lut_gather_bwd_cuda(g, idx, n):
-    """Launch nart_lut_gather_bwd: (N,) or (N, C) float32 g, (N,) int64
-    idx -> (n,) or (n, C), the per-row sums.  Its scratch comes from the
+def lut_gather_bwd_many_cuda(grads, idx, rows):
+    """Launch nart_lut_gather_bwd_many: 1 to MAX_TABLES (N,) or (N, C_k)
+    contiguous float32 cotangents (C_k <= SMALL_MAX_WIDTH) of tables of
+    rows[k] <= AUTO_LUT_ROWS rows, (N,) int64 idx, all on one card -> a
+    list of (rows[k],) or (rows[k], C_k), the per-row sums, in one
+    cooperative launch (one kernel node), counted as "lut_gather_bwd".  The
+    pointers, rows and widths go by value; the scratch comes from the
     caching allocator (inside a capture, from the graph's pool)."""
+    _check_idx(idx, None, idx)
+    k, lanes, device = len(grads), idx.shape[0], idx.device
+    if not 1 <= k <= MAX_TABLES or len(rows) != k:
+        raise ValueError(f"{k} tables, {len(rows)} row counts (one launch "
+                         f"sums 1 to {MAX_TABLES})")
+    widths, outs = [], []
+    for j, (g, n) in enumerate(zip(grads, rows)):
+        shape = g.shape
+        if g.device != device or shape[0] != lanes:
+            raise ValueError(f"grads[{j}]: {tuple(shape)} on {g.device}, "
+                             f"idx {(lanes,)} on {device}")
+        c = _width(f"grads[{j}]", g)
+        if not 1 <= n <= AUTO_LUT_ROWS:
+            raise ValueError(f"grads[{j}]: a table of {n} rows (the kernel "
+                             f"takes 1 to {AUTO_LUT_ROWS})")
+        widths.append(c)
+        outs.append(torch.empty((n,) + shape[1:], dtype=torch.float32,
+                                device=device))
+    if lanes == 0:
+        return [o.zero_() for o in outs]
+    lib = _kernel_lib()
+    total = sum(n * c for n, c in zip(rows, widths))
+    scratch = torch.empty(lib.nart_lut_bwd_many_scratch(lanes, total),
+                          dtype=torch.float32, device=device)
+    ptrs = ctypes.c_void_p * k
+    rc = lib.nart_lut_gather_bwd_many(
+        ptrs(*[g.data_ptr() for g in grads]),
+        ptrs(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int64 * k)(*rows), (ctypes.c_int * k)(*widths), k,
+        idx.data_ptr(), lanes, scratch.data_ptr(), device.index,
+        _stream(idx))
+    if rc != 0:
+        raise RuntimeError(
+            f"nart_lut_gather_bwd_many launch failed: CUDA error {rc}")
+    cuda_build.count_launch("lut_gather_bwd")
+    return outs
+
+
+def lut_gather_bwd_cuda(g, idx, n):
+    """Launch nart_lut_gather_bwd, the two-launch route of one table: (N,)
+    or (N, C) float32 g (C <= 4, any n), (N,) int64 idx -> (n,) or (n, C),
+    the per-row sums.  The reference the many-table kernel is held to (the
+    same bits); no path calls it, and its launches count as
+    "lut_gather_bwd_reference".  Its scratch comes from the caching
+    allocator (inside a capture, from the graph's pool)."""
     c = _width("g", g)
     _check_idx(idx, g.shape[0], g)
     if n < 1:
@@ -361,7 +478,7 @@ def lut_gather_bwd_cuda(g, idx, n):
     if rc != 0:
         raise RuntimeError(
             f"nart_lut_gather_bwd launch failed: CUDA error {rc}")
-    cuda_build.count_launch("lut_gather_bwd")
+    cuda_build.count_launch("lut_gather_bwd_reference")
     return d_table
 
 

@@ -17,8 +17,10 @@ tables of 65 to 100,000 rows of 1 to 8 values, with runs of one row that
 cross many of the backward's 1,024-lane blocks.  The large-table
 backward's radix sort leaves torch.sort(stable=True)'s order and its sums
 have the bits of the sorted route (torch.sort, then the same segmented
-sum); the many-table forward has the bits of one launch a table, and its
-wrapper refuses what the kernel does not take.
+sum); the many-table forward has the bits of one launch a table, the
+many-table backward those of the two-launch route (one table a call) in
+one kernel node, and their wrappers refuse what the kernels do not
+take.
 """
 
 import os
@@ -297,14 +299,15 @@ def test_macbeth_golden_through_kernels(cuda):
                                      (100, 3)])
 def test_lut_kernels_against_plain(cuda, n, width):
     """nart_lut_gather_many of one table: the plain gather's bits;
-    nart_lut_gather_bwd: the
-    float64 per-row sum to rtol 1e-5 / atol 1e-6 (positive cotangents; for
-    signed ones, whose sums cancel, atol plus rtol times the sum of their
-    magnitudes), integer cotangents' sums bit for bit, the same bits on a
-    second launch and from a CUDA graph's replay; each launch counted.  n =
-    100 spans two row tiles; the autograd Function takes it to the
-    large-table kernels, the others to these, and its gradient is the
-    backward kernel's that it picks."""
+    nart_lut_gather_bwd (the two-launch route, counted as
+    "lut_gather_bwd_reference"): the float64 per-row sum to rtol 1e-5 /
+    atol 1e-6 (positive cotangents; for signed ones, whose sums cancel,
+    atol plus rtol times the sum of their magnitudes), integer cotangents'
+    sums bit for bit, the same bits on a second launch and from a CUDA
+    graph's replay; each launch counted.  n = 100 spans two row tiles; the
+    autograd Function takes it to the large-table kernels, the others to
+    the many-table backward, and its gradient is the bits of the two-launch
+    route or of the large-table kernel."""
     g = np.random.default_rng(n)
     lanes = 65536 + 17  # a ragged last block
     table = torch.from_numpy(
@@ -318,8 +321,8 @@ def test_lut_kernels_against_plain(cuda, n, width):
     d2 = tsel.lut_gather_bwd_cuda(cot, idx, n)
     torch.cuda.synchronize()
     assert cuda_build.launch_counts["lut_gather"] == before["lut_gather"] + 1
-    assert (cuda_build.launch_counts["lut_gather_bwd"]
-            == before["lut_gather_bwd"] + 2)
+    assert (cuda_build.launch_counts["lut_gather_bwd_reference"]
+            == before["lut_gather_bwd_reference"] + 2)
     assert torch.equal(out, table[idx])
 
     def f64_sum(x):
@@ -511,3 +514,93 @@ def test_many_table_wrapper_refuses(cuda):
         tsel.lut_gather_many_cuda([t, torch.zeros(3, 4, device=cuda).T], idx)
     with pytest.raises(ValueError, match="rows of 9"):
         tsel.lut_gather_many_cuda([t, torch.zeros(4, 9, device=cuda)], idx)
+
+
+def _graph_nodes(fn):
+    """The nodes of a CUDA graph that captures one call of fn (after a warm
+    call on a side stream), by cuGraphGetNodes on the kept graph."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    assert ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None,
+        ctypes.byref(count)) == 0
+    return count.value
+
+
+@pytest.mark.parametrize("mix", ["16 tables", "largest", "make_bsdf",
+                                 "make_bsdf, 2^20 lanes"])
+def test_many_table_backward_against_the_two_launch_route(cuda, mix):
+    """nart_lut_gather_bwd_many: every table's sums have the bits of the
+    two-launch route (nart_lut_gather_bwd, one table a call), integer
+    cotangents' sums the int64 index_add_'s, the same bits on a second
+    launch and from a CUDA graph's replay, one launch counted as
+    "lut_gather_bwd", one kernel node a call.  16 tables of 1 to 64 rows
+    of 1 to 4 values; the largest (16 tables of 64 rows of 4: 128 KB of
+    warp slots, above the 48 KB a launch gets without opting in);
+    make_bsdf's five (3 rows), also on 2^20 lanes: more 512-lane ranges
+    than blocks fit the card at once, so a block sums several."""
+    g = np.random.default_rng(len(mix))
+    lanes = 2**20 + 17 if "2^20" in mix else 65536 + 17
+    shapes = {"16 tables": [(int(r), int(w)) for r, w in zip(
+                  g.integers(1, 65, 16), g.integers(1, 5, 16))],
+              "largest": [(64, 4)] * 16}.get(
+                  mix, [(3, 3), (3, 3), (3, 3), (3, 1), (3, 1)])
+    rows = [n for n, _ in shapes]
+    idx = torch.from_numpy(g.integers(-3, max(rows) + 3, lanes)).to(cuda)
+    cots = [torch.from_numpy(g.normal(size=(lanes, w) if w > 1 else lanes)
+                             .astype(np.float32)).to(cuda)
+            for _, w in shapes]
+    ints = [torch.from_numpy(g.integers(-8, 9, c.shape)).to(cuda)
+            for c in cots]
+    before = dict(cuda_build.launch_counts)
+    d1 = tsel.lut_gather_bwd_many_cuda(cots, idx, rows)
+    assert cuda_build.launch_counts["lut_gather_bwd"] == (
+        before["lut_gather_bwd"] + 1)
+    d2 = tsel.lut_gather_bwd_many_cuda(cots, idx, rows)
+    d_int = tsel.lut_gather_bwd_many_cuda([x.float() for x in ints], idx,
+                                          rows)
+    refs = [tsel.lut_gather_bwd_cuda(c, idx.clamp(0, n - 1), n)
+            for c, n in zip(cots, rows)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsel.lut_gather_bwd_many_cuda(cots, idx, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d3 = tsel.lut_gather_bwd_many_cuda(cots, idx, rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, n in enumerate(rows):
+        ci = idx.clamp(0, n - 1)
+        assert torch.equal(d1[k], refs[k]), (k, n)
+        assert torch.equal(d1[k], d2[k]) and torch.equal(d1[k], d3[k])
+        want = torch.zeros((n,) + tuple(ints[k].shape[1:]), dtype=torch.int64,
+                           device=cuda).index_add_(0, ci, ints[k])
+        assert torch.equal(d_int[k], want.float())
+    assert _graph_nodes(
+        lambda: tsel.lut_gather_bwd_many_cuda(cots, idx, rows)) == 1
+
+
+def test_many_table_backward_refuses(cuda):
+    """The many-table backward's wrapper refuses more than MAX_TABLES
+    tables, rows of more than 4 values, tables of more than 64 rows, a
+    cotangent on another device than idx or of other lanes."""
+    idx = torch.zeros(64, dtype=torch.int64, device=cuda)
+    g = torch.zeros(64, 3, device=cuda)
+    for grads, rows in (([g] * (tsel.MAX_TABLES + 1), [4] * 17),
+                        ([g, torch.zeros(64, 5, device=cuda)], [4, 4]),
+                        ([g], [tsel.AUTO_LUT_ROWS + 1]),
+                        ([g, g.cpu()], [4, 4]),
+                        ([g, g[:32]], [4, 4])):
+        with pytest.raises(ValueError):
+            tsel.lut_gather_bwd_many_cuda(grads, idx, rows)

@@ -19,7 +19,12 @@ one look-up (one launch on the card): the bits and gradients of one
 look-up a table, and make_bsdf one look-up a call.  The large-table
 backward's radix sort, by its plain mirror (select.radix_order_plain):
 torch.sort(stable=True)'s permutation, and, summed row by row in that
-order, the plain backward's bits.  The kernels (csrc/small_lut.cu,
+order, the plain backward's bits.  A look-up's small trainable tables
+take one backward dispatch (select.lut_gather_bwd_many: one launch on the
+card), its large table its own, their gradients the JAX VJPs; a
+differentiable macbeth round's backward makes one such dispatch
+(make_bsdf's look-up); the dispatcher refuses what the kernel does not
+take on every device.  The kernels (csrc/small_lut.cu,
 csrc/large_lut.cu) against the plain versions on the card are in
 tests/test_torch_kernels.py (no jax there), which skips without a card.
 """
@@ -520,3 +525,124 @@ def test_path_round_look_ups(scene):
     finally:
         tsel._LutGather.apply = inner
     assert counts["apply"] == 4 * sess.stats["rounds"] > 0
+
+
+def _recording(name, calls):
+    """tsel.<name> wrapped so that each call's (rows, cotangent shapes) is
+    appended to calls; returns the original."""
+    inner = getattr(tsel, name)
+
+    def rec(grads, idx, rows):
+        calls.append((list(rows), [tuple(g.shape[1:]) for g in grads]))
+        return inner(grads, idx, rows)
+
+    def rec_one(g, idx, n):
+        calls.append(([n], [tuple(g.shape[1:])]))
+        return inner(g, idx, n)
+
+    setattr(tsel, name, rec if name == "lut_gather_bwd_many" else rec_one)
+    return inner
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_small_tables_backward_is_one_dispatch(n):
+    """One look-up of small trainable tables (n to 64 rows of 1 to 4 values),
+    a float table that needs no gradient and a table of 100 rows (S2's):
+    each trainable table's gradient is the VJP of the JAX package's
+    small_lut (auto_lut above 64 rows) on the same indices to rtol 1e-5 /
+    atol 1e-6 (positive cotangents: with n = 1 all 1,000 lanes sum into one
+    row, and a signed float32 sum that cancels differs between two orders
+    by more than rtol times its value); the small trainable tables'
+    backward is one lut_gather_bwd_many call with those tables alone, in
+    their order, and the large table's its own lut_gather_bwd call."""
+    g = np.random.default_rng(40 + n)
+    small = [(n,), (7, 2), (16, 3), (33, 4), (64, 1), (64, 3)]
+    shapes = small[:3] + [(100, 3)] + small[3:]
+    tables = [g.normal(size=s).astype(np.float32) for s in shapes]
+    fixed = torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32))
+    idx = _indices(n, g)
+    ci = np.clip(idx, 0, n - 1)
+    cots = [g.uniform(0.0, 1.0, (LANES,) + s[1:]).astype(np.float32)
+            for s in shapes]
+
+    leaves = [torch.from_numpy(t).requires_grad_() for t in tables]
+    outs = tsel.small_lut(torch.from_numpy(idx), n)(
+        *leaves[:2], fixed, *leaves[2:])
+    assert not outs[2].requires_grad
+    outs = outs[:2] + outs[3:]
+    many, one = [], []
+    inner_many = _recording("lut_gather_bwd_many", many)
+    inner_one = _recording("lut_gather_bwd", one)
+    try:
+        grads = torch.autograd.grad(
+            sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cots)),
+            leaves)
+    finally:
+        tsel.lut_gather_bwd_many = inner_many
+        tsel.lut_gather_bwd = inner_one
+    assert many == [([s[0] for s in small], [s[1:] for s in small])]
+    assert one == [([100], [(3,)])]
+    jidx = jnp.asarray(ci.astype(np.int32))
+    for t, c, gt in zip(tables, cots, grads):
+        rows = t.shape[0]
+        fn = jsel.small_lut if rows <= tsel.AUTO_LUT_ROWS else jsel.auto_lut
+        _, vjp = jax.vjp(fn(jidx, rows), jnp.asarray(t))
+        (gj,) = vjp(jnp.asarray(c))
+        assert np.abs(np.asarray(gj)).sum() > 0.0
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=RTOL,
+                                   atol=ATOL, err_msg=str(t.shape))
+
+
+def test_path_round_backward_is_one_small_table_dispatch():
+    """A per-round fwd+bwd of macbeth (24x16 @ 1 spp) on the CPU: every
+    backward round makes exactly one small-table backward dispatch (one
+    launch on the card), make_bsdf's look-up, with the five trainable
+    per-mesh tables (rho_d, rho_s, tau of 3 values, eta, alpha of 1) of
+    the scene's mesh count."""
+    import os
+
+    from nart_tpu_torch import bench
+
+    root = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth")
+    sc = tscene.load_scene(os.path.join(root, "macbeth.json"),
+                           asset_root=root)
+    params = trender.RenderParams(image_width=24, image_height=16, spp=1)
+    samples = trender.image_samples(24, 16, 24 + 2 * int(np.ceil(
+        params.filter_width)), 1, "cpu")
+    many = []
+    inner = _recording("lut_gather_bwd_many", many)
+    try:
+        _, grads, _, rounds = tgrad.radiance_weighted_loss_and_grad(
+            sc, tgrad.get_params(sc), tca.build_clusters(sc.tri_v.numpy()),
+            samples, bench.rgb_cot(1, 24 * 16, "cpu"), params, 24, 16,
+            device="cpu", per_round=True)
+    finally:
+        tsel.lut_gather_bwd_many = inner
+    n_mesh = sc.mat_type.shape[0]
+    assert rounds > 0
+    assert many == [([n_mesh] * 5, [(3,), (3,), (3,), (), ()])] * rounds
+    assert float(grads["rho_d_const"].abs().sum()) > 0.0
+
+
+@pytest.mark.parametrize("bad", ["17 tables", "rows of 5", "65 rows",
+                                 "meta device"])
+def test_small_table_backward_refusals(bad):
+    """lut_gather_bwd_many (and its CUDA wrapper) refuse, before any
+    launch and on every device, more than MAX_TABLES tables, rows of more
+    than 4 values, tables of more than 64 rows, and a device that is
+    neither the card nor the CPU."""
+    idx = torch.zeros(8, dtype=torch.int64)
+    g3 = torch.ones(8, 3)
+    grads, rows = {
+        "17 tables": ([g3] * (tsel.MAX_TABLES + 1), [4] * 17),
+        "rows of 5": ([g3, torch.ones(8, 5)], [4, 4]),
+        "65 rows": ([g3, g3], [4, tsel.AUTO_LUT_ROWS + 1]),
+        "meta device": ([g3.to("meta")], [4]),
+    }[bad]
+    if bad == "meta device":
+        idx = idx.to("meta")
+    cuda_build.reset_launch_counts()
+    for fn in (tsel.lut_gather_bwd_many, tsel.lut_gather_bwd_many_cuda):
+        with pytest.raises(ValueError):
+            fn(grads, idx, rows)
+    assert not any(cuda_build.launch_counts.values())
