@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero):
   1. device: require CUDA; print the card's name and nvidia-smi's
      "name, power.limit" line;
   2. build: compile the CUDA kernels from nart_tpu_torch/csrc into
-     build/nart_tpu_torch, one nvcc a source, all started together (timed);
+     build/nart_tpu_torch, one nvcc a source, all started together (timed):
+     cluster_hit.cu, small_lut.cu, large_lut.cu and bvh_walk.cu;
   3. kernels against their plain PyTorch versions on the card: (a) the
      macbeth scene's clusters with 65,536 camera rays and 131,072
      random-direction rays from the hit points (25% with t_max = 0);
@@ -67,9 +68,17 @@ Phases (any failure raises and exits non-zero):
      gathers' backward), K1 launched once in every round the measuring
      and the replay's forwards ran, and one central finite difference to
      5%;
-  8. the "spp" and "regen" modes through the kernels: macbeth at 128x72,
-     2 spp; the "regen" film equals the "spp" film (rtol 1e-5 / atol
-     1e-6), both image means within 3% of the "balanced" image's;
+  8. the "regen" and "spp" machines at full width: macbeth 1280x720 @ 4
+     spp in "regen" (path.trace_regen) and "spp" (path.trace_lockstep),
+     volume_blob 1280x720 @ 2 spp in "spp" (volume.trace_lockstep), each
+     rendered through the session's kept machines (twice: the first render
+     captures) and on the per-round loop (per_round=True): the films, the
+     per-pixel RNG states and the stats the same bits, one capture a
+     machine, K1 and K2 launched once in every round the card ran (none in
+     the volume); logged for both routes: wall s, device ms (busy share)
+     under torch.profiler, rounds run, peak MiB, capture s.  The "regen"
+     film equals the "spp" film bit for bit, and both image means are
+     within 3% of the "balanced" image's;
   9. volume golden: tests/golden/volume_blob.json at its own 96x96, 32 spp
      against volume_blob_96x96_32spp.exr with test_volume_golden's
      criteria (mean rel < 0.02, >= 95% of 16x16 blocks within 0.05).  The
@@ -94,8 +103,10 @@ Phases (any failure raises and exits non-zero):
      ranks of Layout(4, 1) and Layout(2, 2) (sharding.render_shard) summed
      against the one-process film (atol/rtol 1e-6), each rank's seconds and
      rounds and the rounds' balance over the row ranks logged; macbeth
-     "regen" at 320x180, 2 spp, Layout(2, 2), the same check, and a second
-     run of its shards bit-equal to the first; volume_blob at 1280x720,
+     "regen" at 320x180, 2 spp, Layout(2, 2), the same check, the strips of
+     one row count replaying one kept machine of the session (one capture
+     a shape), and a second run of its shards bit-equal to the first, with
+     no capture; volume_blob at 1280x720,
      2 spp, Layout(4, 1), the same check;
  14. (b) two ranks sharing the card under gloo (NCCL refuses two ranks on
      one GPU), spawned as `chip_smoke.py --rank R PORT DIR`:
@@ -109,11 +120,25 @@ Phases (any failure raises and exits non-zero):
      --timing lines are logged;
  16. (d) checkpoint and resume: macbeth 1280x720, 4 spp "balanced",
      checkpoint_every=2, resumed in a new session from the first save, and
-     "regen" at 128x72, 2 spp, every 1: the films equal the uninterrupted
-     ones bit for bit; save and load seconds and the file size logged;
- 17. (e) accel="bvh" (the plain lockstep LBVH walk) against the cluster
-     kernels: macbeth at 128x72, 1 spp, the images by test_golden's
-     _compare criteria (tight and golden), the wall times side by side;
+     "regen" at 128x72, 2 spp, every 1 (both on the graphed machines): the
+     films equal the uninterrupted ones bit for bit; save and load seconds
+     and the file size logged;
+ 17. (e) B1, the LBVH walk's kernel (csrc/bvh_walk.cu), against the plain
+     walk (bvh.intersect_bvh_plain) on 65,536 macbeth camera rays and on
+     the random 40,000-triangle soup (a sixteenth of its 65,536 rays, 25%
+     with t_max = 0): triangle ids on >= 99.99% of rays, t/u/v to rtol
+     1e-4 / atol 1e-5, the any-hit entry the closest hit's validity
+     exactly, bit-equality reported (and against the plain walk on the
+     CPU, 8,192 camera rays); B1's device ms and ms per call (both
+     entries) beside the plain walk's (stream_ms) and its bound from the
+     plain walk's own counts; then accel="bvh" against the cluster kernels,
+     both graphed: macbeth at 1280x720, 1 spp, one capture each, B1
+     launched twice in every round the card ran (closest hit and
+     occlusion) and K1-K4 never, the images by test_golden's _compare
+     criteria (tight and golden), the wall times side by side; and a
+     "bvh" fwd+bwd (macbeth 320x180 @ 1) on a kept replay machine against
+     the per-round replay by phase 22's criteria, B1 twice a forward round
+     run and never in the backward;
  18. the bench as a user runs it: `python -m nart_tpu_torch.bench` in a
      subprocess at NART_BENCH_SIZE=128, NART_BENCH_SPP=4, once in each
      mode (fwd, fwdbwd): its last line parses with the five keys and a
@@ -133,7 +158,10 @@ Phases (any failure raises and exits non-zero):
      and the graphed volume.trace_vol_static on volume_blob (1280x720, 1
      spp): from the first replay on, exactly ceil(rounds / k) reads of the
      runner's alive flag and the end's two reads (rays, rounds), nothing
-     else; the set-up's are logged; then radiance_weighted_loss_and_grad
+     else; the set-up's are logged; the same for the "regen" machine
+     (macbeth 1280x720, a chunk of 2 spp) and the "spp" machines (macbeth
+     and volume_blob 1280x720, one sample), whose end reads rays alone;
+     then radiance_weighted_loss_and_grad
      (fwd+bwd) on kept replay machines, macbeth and volume_blob at
      1280x720, 1 spp, the scene on the card: one flag read before the
      first replay, ceil(rounds / k) after it, the end's one read, nothing
@@ -235,7 +263,9 @@ turn's (the films, loss, rays and rounds bit for bit, the leaves to rtol
 1e-5 / atol 1e-7), with each turn's wall s and device ms (torch.profiler).
 The line before the last is the kernels' JSON record (`launches`: a
 traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
-fwd+bwd; launches_sharded: phases 13-15, launches_bench: phase 18); the
+fwd+bwd, B1's in phase 17's graphed "bvh" render; each must be > 0;
+launches_modes: phase 8's graphed "regen" and "spp" renders,
+launches_sharded: phases 13-15, launches_bench: phase 18); the
 last line is {"ok": true, "device": {...}}.  Needs the repository
 checkout (it imports nart_tpu_torch from beside this file); imports nothing
 of JAX.
@@ -264,6 +294,7 @@ CORNELL = os.path.join(HERE, "tests", "golden", "cornell.json")
 SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
 LARGE_SOURCE = "nart_tpu_torch/csrc/large_lut.cu"
+BVH_SOURCE = "nart_tpu_torch/csrc/bvh_walk.cu"
 DEVICE = "cuda"  # every phase runs on the card
 LARGE_SITES = ("nart_tpu/materials.py:60", "nart_tpu/lights.py:73",
                "nart_tpu/media.py:81")
@@ -282,12 +313,15 @@ REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             "lut_gather_bwd": "nart_tpu/select.py:59",
             # no Pallas kernel: XLA's scatter-add, the transpose of those
             # plain gathers
-            "lut_gather_large_bwd": ", ".join(LARGE_SITES)}
+            "lut_gather_large_bwd": ", ".join(LARGE_SITES),
+            # no Pallas kernel: the "bvh" kind's walk, XLA's while_loop
+            "bvh_hit": "nart_tpu/accel.py:171"}
 KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
-LARGE = KERNELS[6:]  # the kernel of large_lut.cu
-SOURCES = {k: SOURCE if k in TRAVERSAL else
-           LARGE_SOURCE if k in LARGE else LUT_SOURCE for k in KERNELS}
+LARGE = ("lut_gather_large_bwd",)  # the kernel of large_lut.cu
+SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
+           else BVH_SOURCE if k == "bvh_hit" else LUT_SOURCE
+           for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
 LUT_NAMES = ("lut_gather_many_kernel", "lut_bwd_many_kernel",
@@ -1108,47 +1142,137 @@ def card_against_cpu():
         raise AssertionError(f"replay {g_ad} vs finite difference {g_fd}")
 
 
-def modes_path(size):
-    """Phase 8: returns the launches of the "spp" and "regen" runs."""
+def _mode_cell(label, make, calls, traversal):
+    """One cell of phase 8: make(per_round) -> a session of the mode.  The
+    graphed session renders twice (the first render captures its
+    machines' graphs) and the per-round loop once, each once more under
+    the profiler; the films, the per-pixel RNG states and the stats must
+    be the same bits, with one capture a machine (a chunk shape), and the
+    traversal kernels (traversal: a path cell) launched once in every
+    round the card ran, or never (the volume).  calls: the machine calls
+    of a render (the rounds past the end, fewer than k, are a call's).
+    Returns the graphed route's film and its timed render's launches."""
     import torch
 
-    from nart_tpu_torch import cuda_build, film, render, scene
+    from nart_tpu_torch import cuda_build, rounds
+
+    def timed(sess):
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launch_counts()
+        before = machine_totals(sess.machines)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = sess.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = machine_totals(sess.machines)
+        return film, {
+            "wall_s": wall, "stats": dict(sess.stats), "state": sess.state,
+            "launches": dict(cuda_build.launch_counts),
+            "rounds_run": after["rounds_run"] - before["rounds_run"],
+            "replays": after["replays"] - before["replays"],
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+    out = {}
+    for name, per_round in (("graphed", False), ("per-round loop", True)):
+        sess = make(per_round)
+        first = timed(sess)[1]["wall_s"] if not per_round else None
+        film, r = timed(sess)
+        totals = machine_totals(sess.machines)
+        r.update(film=film, first_wall_s=first, machines=len(sess.machines),
+                 captures=totals["captures"], capture_s=totals["capture_s"])
+        _, r["busy"], _, r["device_ms"] = device_busy(
+            f"{label}, {name}", sess.render, r["wall_s"])
+        out[name] = r
+        del sess
+    g, e = out["graphed"], out["per-round loop"]
+    for name, r in out.items():
+        log(f"    {label}, {name}: {r['wall_s']:.4f} s, device "
+            f"{r['device_ms']:.3f} ms (busy {100 * r['busy']:.2f}%), "
+            f"{r['stats']}, {r['rounds_run']} rounds run "
+            f"({1e3 * r['wall_s'] / r['rounds_run']:.3f} ms each), "
+            f"{r['replays']} replays, peak {r['peak_mib']:.1f} MiB, "
+            f"{r['captures']} captures ({r['capture_s']:.4f} s), launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    log(f"    {label}: first graphed render {g['first_wall_s']:.4f} s; "
+        f"per-round / graphed wall {e['wall_s'] / g['wall_s']:.3f}x, "
+        f"device {e['device_ms'] / g['device_ms']:.3f}x")
+    if not (torch.equal(g["film"], e["film"])
+            and torch.equal(g["state"], e["state"])
+            and g["stats"] == e["stats"]):
+        raise AssertionError(f"{label}: the graphed film, states or stats "
+                             f"differ from the per-round loop's ({g['stats']}"
+                             f" / {e['stats']})")
+    if not (g["captures"] == g["machines"] >= 1 and e["captures"] == 0):
+        raise AssertionError(f"{label}: {g['captures']} captures for "
+                             f"{g['machines']} machines")
+    k = rounds.ROUNDS_PER_CHECK
+    if not e["rounds_run"] <= g["rounds_run"] < e["rounds_run"] + k * calls:
+        raise AssertionError(f"{label}: rounds run {g['rounds_run']} / "
+                             f"{e['rounds_run']} in {calls} calls")
+    for name, r in out.items():
+        if traversal:
+            want = {r["rounds_run"]}
+            if {r["launches"][k] for k in KERNELS[:2]} != want:
+                raise AssertionError(f"{label}, {name}: launches "
+                                     f"{r['launches']}, {want} rounds run")
+        else:
+            _no_traversal(f"{label}, {name}", r["launches"])
+    return g["film"], g["launches"]
+
+
+def modes_path(spp, spp_volume):
+    """Phase 8: the "regen" and "spp" machines at full width, each against
+    its per-round loop (_mode_cell): macbeth 1280x720 in "regen" and "spp"
+    at spp samples, volume_blob "spp" at spp_volume; the "regen" film must
+    be the "spp" film's bits, both image means within 3% of the "balanced"
+    image's.  Returns the launches of the graphed "spp" and "regen"
+    renders, summed."""
+    import torch
+
+    from nart_tpu_torch import film, render, scene
 
     sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
-    w, h, spp = size
-    films, means, counts = {}, {}, {}
-    for mode in ("balanced", "spp", "regen"):
-        params = render.resolve_params(
-            {}, dict(image_width=w, image_height=h, spp=spp, wavefront=mode))
-        sess = render.RenderSession(sc, params, DEVICE)
-        cuda_build.reset_launch_counts()
-        t0 = time.perf_counter()
-        films[mode] = sess.render()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts[mode] = dict(cuda_build.launch_counts)
-        img = film.finalize(films[mode], w, h, sess.filter_bounds)
-        means[mode] = float(img[..., :3].mean())
-        if not bool(torch.isfinite(img).all()):
-            raise AssertionError(f"{mode}: the image is not finite")
-        log(f"mode {mode}: macbeth {w}x{h} {spp} spp in {dt:.3f} s, "
-            f"{sess.stats}, image mean {means[mode]:.6f}, launches "
-            f"{counts[mode]}")
-        if min(counts[mode][k] for k in KERNELS[:2] + ("lut_gather",)) <= 0:
+    films, counts = {}, dict.fromkeys(KERNELS, 0)
+    for mode in ("regen", "spp"):
+        (params,) = render.load_sessions(MACBETH, {"spp": spp,
+                                                   "wavefront": mode})[:1]
+        calls = params.spp if mode == "spp" else -(
+            -params.spp // render.chunk_size(params))
+        films[mode], launches = _mode_cell(
+            f"macbeth {params.image_width}x{params.image_height} {mode} @ "
+            f"{spp} spp",
+            lambda per_round: render.RenderSession(sc, params, DEVICE,
+                                                   per_round),
+            calls, True)
+        for k in KERNELS:
+            counts[k] += launches[k]
+        if min(launches[k] for k in KERNELS[:2] + ("lut_gather",)) <= 0:
             raise AssertionError(f"{mode}: K1, K2 and the look-up kernel "
                                  "not all launched")
-    if not torch.allclose(films["regen"], films["spp"], rtol=1e-5,
-                          atol=1e-6):
+    if not torch.equal(films["regen"], films["spp"]):
         worst = float((films["regen"] - films["spp"]).abs().max())
         raise AssertionError(f"regen film != spp film (max diff {worst})")
-    log("regen film == spp film within rtol 1e-5 / atol 1e-6 (bit-equal: "
-        f"{bool(torch.equal(films['regen'], films['spp']))})")
+    log("    the regen film equals the spp film bit for bit")
+    (params,) = render.load_sessions(MACBETH, {"spp": spp})[:1]
+    sess = render.RenderSession(sc, params, DEVICE)
+    films["balanced"] = sess.render()
+    means = {m: float(film.finalize(f, params.image_width,
+                                    params.image_height,
+                                    sess.filter_bounds)[..., :3].mean())
+             for m, f in films.items()}
+    log(f"    image means {means}")
     for mode in ("spp", "regen"):
         rel = abs(means[mode] - means["balanced"]) / means["balanced"]
         if not rel < 0.03:
             raise AssertionError(f"{mode} mean {means[mode]} vs balanced "
                                  f"{means['balanced']}: {rel:.4f} apart")
-    return {k: counts["spp"][k] + counts["regen"][k] for k in KERNELS}
+    overrides = {"image_width": 1280, "image_height": 720,
+                 "spp": spp_volume, "wavefront": "spp"}
+    _mode_cell(f"volume_blob 1280x720 spp @ {spp_volume} spp",
+               lambda per_round: volume_session(overrides, per_round)[1],
+               spp_volume, False)
+    return counts
 
 
 def volume_session(overrides=None, per_round=False):
@@ -1461,16 +1585,34 @@ def sharded_virtual(spp):
     single_r = sess_r.render()
     layout = sharding.Layout(2, 2)
     label = f"macbeth 320x180 regen {layout}"
+    kept = dict(sess_r.machines)
     cuda_build.reset_launch_counts()
     film_r, _ = _virtual_ranks(sess_r, layout, label)
     for k in KERNELS:
         counts[k] += cuda_build.launch_counts[k]
     _close_films(label, film_r, single_r)
+    # the shards' strips of one shape replay one kept machine of the
+    # session, captured once (the ranks' row counts: sharding._block)
+    rows_of = sharding.Layout(layout.world_size, 1)  # "regen" deals rows
+    shapes = {int(sharding._block(rows_of, r, sess_r.render_w,
+                                  sess_r.render_h, sess_r.filter_bounds,
+                                  sess_r.params.spp)[1].shape[0])
+              for r in range(layout.world_size)}
+    new = {key: m for key, m in sess_r.machines.items() if key not in kept}
+    totals = machine_totals(new)
+    log(f"    {label}: strips of {sorted(shapes)} rows, {len(new)} new kept "
+        f"machines for the shards: {totals}")
+    if len(new) != len(shapes) or totals["captures"] != len(new):
+        raise AssertionError(f"{label}: {len(new)} machines, {totals} for "
+                             f"strips of {sorted(shapes)} rows")
     again = [sharding.render_shard(sess_r, layout, r)[0]
              for r in range(layout.world_size)]
     if not torch.equal(sum(again), film_r):
         raise AssertionError("a second run of the regen shards differs")
-    log("    macbeth 320x180 regen: a second run of the shards is bit-equal")
+    if machine_totals(sess_r.machines)["captures"] != len(sess_r.machines):
+        raise AssertionError("the second run of the regen shards captured")
+    log("    macbeth 320x180 regen: a second run of the shards is bit-equal, "
+        "on the same machines (no capture)")
     params_v, sess_v = volume_session({"image_width": 1280,
                                        "image_height": 720, "spp": spp})
     single_v = sess_v.render()
@@ -1675,17 +1817,135 @@ def checkpoint_resume():
         if done != every or not torch.equal(resumed, full):
             raise AssertionError(f"{label}: resumed from {done} spp, film "
                                  "differs from the uninterrupted one")
+        # both on the graphed route: the session's machines captured
+        if machine_totals(sess.machines)["captures"] < 1:
+            raise AssertionError(f"{label}: the render captured no graph")
         log(f"checkpoint {label}: macbeth {params.image_width}x"
             f"{params.image_height} {params.spp} spp, saved at {done}: "
             f"{size} bytes, save {t_save:.3f} s, load {t_load:.3f} s; the "
             "resumed film equals the uninterrupted one bit for bit")
 
 
-def bvh_accel(size):
-    """Phase 17 (e)."""
+def _once_ms(fn):
+    """(fn()'s result, its milliseconds between two CUDA events): one call
+    of a function that reads the card from the host (the plain walk)."""
     import torch
 
-    from nart_tpu_torch import cuda_build, render
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def bvh_bound(tree, n_rays, counts):
+    """B1's least time (ms) and what sets it, as bound() reckons the
+    cluster kernels': each ray read once (o, d, t_min, t_max: 32 B) and its
+    Hit written once (t, u, v, tri: 20 B), the tree once (node boxes,
+    triangles, order); operations: the plain walk's own work on these rays
+    (bvh.intersect_bvh_plain's counts: a slab test a node popped, two a
+    inner node passed; leaf_size triangles a leaf passed, each charged
+    TRI_OPS_MIN, the least that rejects one)."""
+    tree_bytes = sum(x.numel() * x.element_size() for x in
+                     (tree.node_lo, tree.node_hi, tree.tri_v, tree.order))
+    nbytes = n_rays * (32 + 20) + tree_bytes
+    ops = (SLAB_OPS * (counts["nodes"] + 2 * counts["inner"])
+           + TRI_OPS_MIN * tree.leaf_size * counts["leaves"])
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def _bvh_against_plain(label, rays, tree):
+    """B1's closest hit and occlusion against the plain walk (timed once
+    between events): returns (agreement, max abs err, bit-equal, the plain
+    walk's ms)."""
+    import torch
+
+    from nart_tpu_torch import bvh
+
+    hk = bvh.intersect_bvh(*rays, tree)
+    occ = bvh.occluded_bvh(*rays, tree)
+    hp, plain_ms = _once_ms(lambda: bvh.intersect_bvh_plain(*rays, tree))
+    frac, err = compare_closest(f"B1 {label}", hk, hp)
+    if not torch.equal(occ, hk.tri >= 0):
+        raise AssertionError(f"B1 {label}: the any-hit walk != the closest "
+                             "hit's validity")
+    equal = all(torch.equal(a, b) for a, b in zip(hk, hp))
+    log(f"(e) B1 {label}, {rays[0].shape[0]} rays: tri agree {frac:.6f}, "
+        f"hits {int((hp.tri >= 0).sum())}, max abs err {err:.3g}, bit-equal "
+        f"{equal}; occlusion == closest-hit validity: exact; the plain walk "
+        f"{plain_ms:.3f} ms (one call, host included)")
+    return frac, err, equal, plain_ms
+
+
+def bvh_accel(size):
+    """Phase 17 (e): B1 (csrc/bvh_walk.cu) against the plain walk on
+    macbeth's camera rays and on the 40,000-triangle soup, timed beside
+    it with its bound; then the graphed "bvh" render beside the cluster
+    one.  Returns (B1's record, the bvh render's launches)."""
+    import torch
+
+    from nart_tpu_torch import bvh, cuda_build, render, scene
+
+    rng = np.random.default_rng(0)
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    tree = bvh.build_bvh(sc.tri_v.numpy()).to(DEVICE)
+    n = SIZES["camera_rays"]
+    cam = camera_rays(sc, n, rng, DEVICE)
+    log(f"(e) macbeth LBVH: {tree.n_leaves} leaves of {tree.leaf_size}, "
+        f"depth {tree.depth}")
+    _, err, equal, _ = _bvh_against_plain("macbeth camera rays", cam, tree)
+    # and on the CPU: B1 rounds every operation on its own, the plain
+    # walk's torch.linalg.cross rounds its products' difference once
+    # (fused) on either device, so t may differ in its last bits there
+    few = tuple(x[:8192] for x in cam)
+    hk = bvh.intersect_bvh(*few, tree)
+    hc = bvh.intersect_bvh_plain(*(x.cpu() for x in few), tree.to("cpu"))
+    equal_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(hk, hc))
+    log(f"(e) B1 against the plain walk on the CPU, {few[0].shape[0]} of the "
+        f"camera rays: bit-equal {equal_cpu}")
+    counts = {}
+    bvh.intersect_bvh_plain(*cam, tree, counts=counts)
+    t_k = kernel_ms(lambda: bvh.intersect_bvh(*cam, tree), SIZES["reps"])
+    t_a = kernel_ms(lambda: bvh.occluded_bvh(*cam, tree), SIZES["reps"])
+    t_p = stream_ms(lambda: bvh.intersect_bvh_plain(*cam, tree), 1, 3)
+    rec = dict(max_abs_err=err, bit_equal=equal, bit_equal_cpu=equal_cpu,
+               ms=t_k["ms"],
+               ms_min=t_k["min"], ms_max=t_k["max"],
+               ms_per_call=t_k["ms_per_call"], plain_ms=t_p["ms"],
+               library_ms=None, any_hit_ms=t_a["ms"],
+               **bvh_bound(tree, n, counts))
+    log(f"time B1 closest-hit {n} macbeth camera rays: kernel {fmt(t_k)}, "
+        f"plain {fmt(t_p)}; any-hit entry {fmt(t_a)}")
+    log(f"bound bvh_hit: {rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+        f"({rec['bytes']} bytes; {rec['operations']} operations: {counts}): "
+        f"the kernel reaches {100.0 * rec['bound_ms'] / rec['ms']:.3f}% of "
+        "it")
+
+    nt = SIZES["soup_tris"]
+    tri = (rng.normal(size=(nt, 3, 3)) * 0.3
+           + rng.normal(size=(nt, 1, 3)) * 8.0).astype(np.float32)
+    tree_b = bvh.build_bvh(tri).to(DEVICE)
+    nb = SIZES["soup_rays"]
+    ob, db = random_rays(nb, rng, 0.0, 10.0)
+    rb = (torch.from_numpy(ob).to(DEVICE), torch.from_numpy(db).to(DEVICE),
+          torch.zeros(nb, device=DEVICE),
+          torch.from_numpy(np.where(rng.random(nb) < 0.25, 0.0, np.inf)
+                           .astype(np.float32)).to(DEVICE))
+    # the plain walk takes its slowest ray's thousands of node visits, a
+    # host read each, on the soup: a sixteenth of the rays against it
+    part = tuple(x[:nb // 16] for x in rb)
+    _, err_b, _, plain_b = _bvh_against_plain(
+        f"soup {nt} triangles (depth {tree_b.depth})", part, tree_b)
+    rec["max_abs_err"] = max(err, err_b)
+    t_b = kernel_ms(lambda: bvh.intersect_bvh(*rb, tree_b), 3)
+    log(f"time B1 closest-hit soup {nb} rays: kernel {fmt(t_b)}; the plain "
+        f"walk {plain_b:.3f} ms on {nb // 16} of them")
 
     w, h, spp = size
     imgs, secs = {}, {}
@@ -1693,24 +1953,97 @@ def bvh_accel(size):
         params, sess = next(render.render_scene_file(
             MACBETH, dict(image_width=w, image_height=h, spp=spp,
                           accel=kind), device=DEVICE))
+        sess.render()  # captures the session's graph
         cuda_build.reset_launch_counts()
+        before = machine_totals(sess.machines)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = sess.image()
         torch.cuda.synchronize()
         secs[kind] = time.perf_counter() - t0
+        after = machine_totals(sess.machines)
+        ran = after["rounds_run"] - before["rounds_run"]
+        launches = dict(cuda_build.launch_counts)
         imgs[kind] = img.cpu().numpy()
-        log(f"accel {kind}: macbeth {w}x{h} {spp} spp in {secs[kind]:.3f} s, "
-            f"{sess.stats}, launches {dict(cuda_build.launch_counts)}")
+        log(f"accel {kind}: macbeth {w}x{h} {spp} spp graphed in "
+            f"{secs[kind]:.4f} s, {sess.stats}, {ran} rounds run, "
+            f"{after}, launches { {k: v for k, v in launches.items() if v} }")
+        want = ({"bvh_hit": 2 * ran} if kind == "bvh" else
+                {"closest_hit": ran, "any_hit": ran})
+        if (after["captures"] != 1
+                or any(launches[k] != v for k, v in want.items())
+                or (kind == "bvh" and any(launches[k] for k in TRAVERSAL))):
+            raise AssertionError(f"accel {kind}: launches {launches}, {ran} "
+                                 f"rounds run, {after}")
         if kind == "bvh":
-            _no_traversal("the bvh render", cuda_build.launch_counts)
+            counts_bvh = launches
     if not np.isfinite(imgs["bvh"]).all():
         raise AssertionError("the bvh image is not finite")
     block_compare(imgs["bvh"], imgs["cluster"], 1e-3, 0.01, 0.95,
                   label="bvh vs cluster (tight)")
     block_compare(imgs["bvh"], imgs["cluster"], 0.03, 0.12, 0.95,
                   label="bvh vs cluster (golden)")
-    log(f"bvh / cluster wall time {secs['bvh'] / secs['cluster']:.2f}x")
+    log(f"bvh / cluster wall time, both graphed: "
+        f"{secs['bvh'] / secs['cluster']:.3f}x")
+    bvh_replay()
+    return rec, counts_bvh
+
+
+def bvh_replay():
+    """Phase 17 (e): a "bvh" fwd+bwd (grad.radiance_weighted_loss_and_grad,
+    macbeth 320x180 @ 1 spp, cot = 1 on RGB) on a kept replay machine,
+    whose forward now captures with B1, against the per-round replay:
+    phase 22's criteria (loss rtol 1e-6, every leaf rtol 1e-5 / atol
+    1e-7, equal rays and rounds); B1 launched twice in every forward round
+    the card ran and never in the backward, K1-K4 never."""
+    import dataclasses
+
+    import torch
+
+    from nart_tpu_torch import bvh, cuda_build, grad, render, scene
+
+    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    params = dataclasses.replace(
+        render.load_sessions(MACBETH, {"spp": 1})[0], image_width=320,
+        image_height=180, accel="bvh")
+    tree = bvh.build_bvh(sc.tri_v.numpy())
+    samples = _image_samples(params, DEVICE)
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sc)
+    out = {}
+    for per_round in (False, True):
+        machines = {}
+        call = lambda: grad.radiance_weighted_loss_and_grad(  # noqa: E731
+            sc, theta, tree, samples, cot, params, 320, 180,
+            machines=machines, per_round=per_round)
+        if not per_round:
+            call()  # measures the rounds, captures both graphs
+            runner = replay_runner(machines)
+            ran0 = runner.rounds_run
+        cuda_build.reset_launch_counts()
+        loss, grads, rays, rounds = call()
+        torch.cuda.synchronize()
+        out[per_round] = (float(loss), _leaves(grads), rays, rounds,
+                          dict(cuda_build.launch_counts))
+    (loss_g, leaves_g, *stats_g, counts_g) = out[False]
+    (loss_e, leaves_e, *stats_e, counts_e) = out[True]
+    ran = runner.rounds_run - ran0
+    log(f"(e) bvh fwd+bwd macbeth 320x180 @ 1 spp: loss {loss_g:.6f} graphed "
+        f"/ {loss_e:.6f} per-round, rays and rounds {stats_g} / {stats_e}, "
+        f"{ran} forward rounds run, launches graphed "
+        f"{ {k: v for k, v in counts_g.items() if v} }, per-round "
+        f"{ {k: v for k, v in counts_e.items() if v} }, backward graph "
+        f"{runner.back_launches}")
+    if not (abs(loss_g - loss_e) <= 1e-6 * abs(loss_e) and stats_g == stats_e
+            and all(torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+                    for (_, a), (_, b) in zip(leaves_g, leaves_e))):
+        raise AssertionError("the bvh fwd+bwd's graphed replay differs from "
+                             "the per-round replay")
+    if (counts_g["bvh_hit"] != 2 * ran or runner.back_launches.get("bvh_hit")
+            or runner.back_graph is None
+            or any(counts_g[k] + counts_e[k] for k in TRAVERSAL)):
+        raise AssertionError(f"the bvh fwd+bwd's launches: {counts_g}, {ran} "
+                             f"forward rounds run, {runner.back_launches}")
 
 
 def bench_subprocess(size, spp):
@@ -1788,7 +2121,8 @@ def _line_of(fn, text):
 
 def _sync_checked(label, trace, end_reads, n_end=2, strict=False):
     """trace(machines) -> (la, rays, rounds), once to capture the k-round
-    graph into a kept machine and once more under the sync debug mode.
+    graph into a kept machine and once more under the sync debug mode
+    (rounds may be a device tensor, read after the mode is off).
     From the first replay on, the machine may synchronise only where the
     host reads the device: the runner's alive flag after each replay
     (ceil(rounds / k) times) and the end's n_end reads (end_reads, the
@@ -1823,6 +2157,7 @@ def _sync_checked(label, trace, end_reads, n_end=2, strict=False):
         finally:
             torch.cuda.set_sync_debug_mode(0)
             torch.cuda.CUDAGraph.replay = real_replay
+    n_rounds = int(n_rounds)
 
     def where(ws):
         # the mode's own notice that it is a prototype is no synchronisation
@@ -1854,8 +2189,12 @@ def round_sync_check(spp):
     """Phase 20: the graphed path.trace_balanced under the sync debug mode,
     on macbeth (an environment light) and on a scene with a distant light,
     and the volume's static machine (volume.trace_vol_static) on
-    volume_blob; then a path and a volume fwd+bwd call on kept replay
-    machines (grad.radiance_weighted_loss_and_grad)."""
+    volume_blob; the "regen" machine (path.trace_regen) and the "spp"
+    machines (path.trace_lockstep, volume.trace_lockstep) at 1280x720;
+    then a path and a volume fwd+bwd call on kept replay machines
+    (grad.radiance_weighted_loss_and_grad)."""
+    import torch
+
     from nart_tpu_torch import grad, render, replay, testing
     from nart_tpu_torch.integrators import path, volume
 
@@ -1887,6 +2226,39 @@ def round_sync_check(spp):
             sess.scene, None, samples, params, sess.render_w, sess.render_h,
             0, params.lanes, machines=machines),
         _line_of(volume._VolForward.__call__, "int(rounds)"))
+
+    # the "regen" and "spp" machines: the end reads rays alone (the rounds
+    # are read from the runner after the check)
+    def mode_trace(tracer, sess, spp_chunk):
+        p = sess.params
+        samples, state = render.pixel_streams(sess.render_w, sess.render_h,
+                                              sess.total_w, spp_chunk, DEVICE)
+        pix = torch.arange(sess.render_w * sess.render_h, device=DEVICE)
+
+        def trace(machines):
+            _, _, rays = tracer(sess.scene, sess.accel, pix % sess.render_w,
+                                pix // sess.render_w, samples, state, p,
+                                machines=machines)
+            (machine,) = machines.values()
+            return None, rays, machine.runner.rounds
+        return trace
+
+    _, sess = next(render.render_scene_file(
+        MACBETH, {"spp": 2, "wavefront": "regen"}, device=DEVICE))
+    _sync_checked(f"macbeth regen {sess.render_w}x{sess.render_h}, a chunk "
+                  "of 2 spp", mode_trace(path.trace_regen, sess, 2),
+                  _line_of(path._RegenForward.__call__, "int(core[0].rays)"),
+                  n_end=1)
+    _sync_checked(f"macbeth spp {sess.render_w}x{sess.render_h}, one sample",
+                  mode_trace(path.trace_lockstep, sess, 1),
+                  _line_of(path._LockstepForward.__call__, "int(p.rays)"),
+                  n_end=1)
+    _, sess_v = volume_session({"image_width": 1280, "image_height": 720,
+                                "spp": 1, "wavefront": "spp"})
+    _sync_checked(f"volume_blob spp {sess_v.render_w}x{sess_v.render_h}, one "
+                  "sample", mode_trace(volume.trace_lockstep, sess_v, 1),
+                  _line_of(volume._LockstepForward.__call__,
+                           "int(self.rays)"), n_end=1)
 
     # fwd+bwd: the replay's forward reads its flag, its end reads rays,
     # rounds and the capacity's cut in one transfer, its backward nothing;
@@ -3106,7 +3478,7 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE)
+    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE)
     libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source
         list(pool.map(cuda_build.build, libs))
@@ -3129,7 +3501,7 @@ def main():
         counts[k] = counts_tool[k]
     counts_train = phase("training path", training_path, 4)
     phase("card against CPU", card_against_cpu)
-    counts_modes = phase("spp and regen modes", modes_path, (128, 72, 2))
+    counts_modes = phase("spp and regen modes", modes_path, 4, 2)
     phase("volume golden", volume_golden)
     counts_vol = phase("volume forward", volume_forward, 8, VOLUME_WINDOW)
     counts_vol_train = phase("volume training path", volume_training, 4,
@@ -3139,7 +3511,8 @@ def main():
     counts_b = phase("two ranks, gloo", two_ranks, single)
     counts_c = phase("CLI, NCCL world of one", cli_world_of_one, 2)
     phase("checkpoint and resume", checkpoint_resume)
-    phase("bvh accel", bvh_accel, (128, 72, 1))
+    records["bvh_hit"], counts_bvh = phase("bvh accel", bvh_accel,
+                                          (1280, 720, 1))
     counts_bench = phase("bench subprocess", bench_subprocess, 128, 4)
     counts_cornell = phase("cornell golden", cornell_golden)
     phase("round sync check", round_sync_check, 1)
@@ -3155,12 +3528,17 @@ def main():
 
     # `launches`: a traversal kernel's in the forward render (phase 5), a
     # look-up kernel's (small or large tables) in the fwd+bwd (phase 6),
-    # whose backward the look-ups are on
+    # whose backward the look-ups are on, B1's in the graphed "bvh" render
+    # (phase 17), the path of the accel kind it serves
+    runs = {k: (counts, "forward") if k in TRAVERSAL else
+            (counts_bvh, "bvh render") if k == "bvh_hit" else
+            (counts_train, "fwd+bwd") for k in KERNELS}
+    for k, (run, label) in runs.items():
+        if run[k] <= 0:
+            raise AssertionError(f"{k} was not launched in the {label}")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k],
-                    launches=(counts if k in TRAVERSAL else counts_train)[k],
-                    launches_of=("forward" if k in TRAVERSAL
-                                 else "fwd+bwd"),
+                    launches=runs[k][0][k], launches_of=runs[k][1],
                     launches_forward=counts[k],
                     launches_training=counts_train[k],
                     launches_modes=counts_modes.get(k, 0),

@@ -6,28 +6,43 @@ centroid, grouped into fixed-size leaves, and a complete binary tree of
 AABBs is built bottom-up over the leaf sequence (numpy, on the host; the
 same arrays as the JAX package's build).  ``intersect_bvh`` walks it with
 an explicit per-ray stack: every live ray pops one node per iteration,
-internal nodes push their children nearest-first, leaves run the watertight
-test on their triangles, and the loop ends when every stack is empty.
+internal nodes push their children in the JAX walk's order, leaves run the
+watertight test on their triangles, and the walk ends when every stack is
+empty.  ``occluded_bvh`` is the occlusion query: the closest hit's
+validity, as in the JAX package.
 
-The JAX walk is XLA, not Pallas, so this is plain PyTorch on both devices:
-no hand kernel replaces it.  On the card it is a slow path (one host sync
-and ~60 small kernels per node visited); the cluster kernels are the fast
-one.
+Each query dispatches on the device of its tensors:
+  * CUDA tensors launch the hand-written kernel of csrc/bvh_walk.cu
+    (``nart_bvh_hit``, B1: one thread walks one ray in the plain walk's
+    order, reading no host, so a round that calls it is captured into a
+    CUDA graph; its any-hit entry stops at the first hit, which gives the
+    same bool) and count the launch in ``cuda_build.launch_counts``
+    ("bvh_hit");
+  * CPU tensors run the plain version, ``intersect_bvh_plain``: the
+    lockstep masked walk of nart_tpu/accel.py intersect_bvh (the JAX walk
+    is XLA's while_loop, not Pallas), one step of the whole wavefront per
+    node visited and a host read each.
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.  A tree deeper than the kernel's stack (``MAX_DEPTH``) is refused
+before any launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
-from .cluster_accel import morton3
+from . import cuda_build
+from .cluster_accel import _check, morton3
 from .geometry import Hit, edge_fn, ray_shear
 from .scene import _to_device
 
 INF = np.float32(np.inf)
+MAX_DEPTH = 30  # the deepest tree csrc/bvh_walk.cu's stack holds (kMaxDepth)
 
 
 @dataclass
@@ -146,10 +161,13 @@ def _intersect_gathered(o, d, shear, t_min, t_best, tv):
     return t_sel, idx, u, v
 
 
-def intersect_bvh(o, d, t_min, t_max, bvh: BVH) -> Hit:
+def intersect_bvh_plain(o, d, t_min, t_max, bvh: BVH, counts=None) -> Hit:
     """Nearest hit with t_min < t < t_max for a ray wavefront: the lockstep
     masked walk of nart_tpu/accel.py intersect_bvh.  Returns a Hit with
-    triangle ids in the original soup numbering."""
+    triangle ids in the original soup numbering.  counts, a dict, gets the
+    walk's work summed over the rays: "nodes" popped (one slab test each),
+    "inner" nodes passed (two child slab tests each) and "leaves" passed
+    (leaf_size triangle tests each)."""
     n = o.shape[0]
     dev = o.device
     shear = ray_shear(d)
@@ -185,6 +203,10 @@ def intersect_bvh(o, d, t_min, t_max, bvh: BVH) -> Hit:
                                 bvh.node_hi[node])
         box_hit = box_hit & live
         is_leaf = node >= leaf0
+        if counts is not None:
+            for key, m in (("nodes", live), ("inner", box_hit & ~is_leaf),
+                           ("leaves", box_hit & is_leaf)):
+                counts[key] = counts.get(key, 0) + int(m.sum())
 
         # leaf: the leaf's triangles
         do_tri = box_hit & is_leaf
@@ -218,3 +240,102 @@ def intersect_bvh(o, d, t_min, t_max, bvh: BVH) -> Hit:
 
     t = torch.where(tri_best >= 0, t_best, INF)
     return Hit(t=t, tri=tri_best, u=u_best, v=v_best)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _kernel_lib():
+    lib = cuda_build.load("bvh_walk")
+    if lib.nart_bvh_hit.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nart_bvh_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, p, i, i, i,
+                                     i, p, p, p, p, p, p]
+        lib.nart_bvh_hit.restype = ctypes.c_int
+        lib.nart_bvh_max_depth.argtypes = []
+        lib.nart_bvh_max_depth.restype = ctypes.c_int
+        if lib.nart_bvh_max_depth() != MAX_DEPTH:
+            raise RuntimeError("csrc/bvh_walk.cu's kMaxDepth is not "
+                               f"bvh.MAX_DEPTH ({MAX_DEPTH})")
+    return lib
+
+
+def _check_args(o, d, t_min, t_max, bvh: BVH):
+    """Refuse what the kernel does not take; returns (n, the steps of t_min
+    and t_max: 1 for (n,), 0 for one value)."""
+    if bvh.depth > MAX_DEPTH:
+        raise ValueError(f"the tree's depth {bvh.depth} exceeds the "
+                         f"kernel's stack (depth {MAX_DEPTH})")
+    n = o.shape[0]
+    _check("o", o, torch.float32, (n, 3))
+    _check("d", d, torch.float32, (n, 3))
+    steps = []
+    for name, x in (("t_min", t_min), ("t_max", t_max)):
+        _check(name, x, torch.float32, () if x.dim() == 0 else (n,))
+        steps.append(int(x.dim() != 0))
+    n_tris = bvh.n_leaves * bvh.leaf_size
+    _check("node_lo", bvh.node_lo, torch.float32, (2 * bvh.n_leaves - 1, 3))
+    _check("node_hi", bvh.node_hi, torch.float32, (2 * bvh.n_leaves - 1, 3))
+    _check("tri_v", bvh.tri_v, torch.float32, (n_tris, 3, 3))
+    _check("order", bvh.order, torch.int64, (n_tris,))
+    for x in (d, t_min, t_max, bvh.node_lo, bvh.tri_v):
+        if x.device != o.device:
+            raise ValueError("rays and tree must be on one device")
+    return n, steps
+
+
+def _bvh_cuda(o, d, t_min, t_max, bvh: BVH, any_hit: bool):
+    n, (s_min, s_max) = _check_args(o, d, t_min, t_max, bvh)
+    lib = _kernel_lib()
+    dev = o.device
+    if any_hit:
+        occ = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = (None, None, None, None, occ.data_ptr())
+    else:
+        hit = Hit(t=torch.empty(n, device=dev),
+                  tri=torch.empty(n, dtype=torch.int64, device=dev),
+                  u=torch.empty(n, device=dev), v=torch.empty(n, device=dev))
+        outs = tuple(x.data_ptr() for x in hit) + (None,)
+    rc = lib.nart_bvh_hit(
+        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), s_min, t_max.data_ptr(),
+        s_max, n, bvh.node_lo.data_ptr(), bvh.node_hi.data_ptr(),
+        bvh.tri_v.data_ptr(), bvh.order.data_ptr(), bvh.n_leaves,
+        bvh.leaf_size, bvh.depth, int(any_hit), *outs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nart_bvh_hit launch failed: CUDA error {rc}")
+    cuda_build.count_launch("bvh_hit")
+    return occ if any_hit else hit
+
+
+def bvh_hit_cuda(o, d, t_min, t_max, bvh: BVH) -> Hit:
+    """Launch nart_bvh_hit's closest-hit walk on CUDA tensors (a thread a
+    ray); t_min and t_max are (N,) or one value."""
+    return _bvh_cuda(o, d, t_min, t_max, bvh, False)
+
+
+def bvh_any_cuda(o, d, t_min, t_max, bvh: BVH):
+    """Launch nart_bvh_hit's any-hit walk on CUDA tensors: (N,) bool."""
+    return _bvh_cuda(o, d, t_min, t_max, bvh, True)
+
+
+def intersect_bvh(o, d, t_min, t_max, bvh: BVH) -> Hit:
+    """Nearest hit with t_min < t < t_max over the LBVH (original triangle
+    ids): the kernel on CUDA tensors, the plain walk on CPU tensors."""
+    if o.device.type == "cuda":
+        return bvh_hit_cuda(o, d, t_min, t_max, bvh)
+    if o.device.type == "cpu":
+        return intersect_bvh_plain(o, d, t_min, t_max, bvh)
+    raise ValueError(f"no LBVH walk for device {o.device}")
+
+
+def occluded_bvh(o, d, t_min, t_max, bvh: BVH):
+    """Occlusion query: is there a hit with t_min < t < t_max?  The closest
+    hit's validity (the kernel's any-hit walk on CUDA tensors)."""
+    if o.device.type == "cuda":
+        return bvh_any_cuda(o, d, t_min, t_max, bvh)
+    if o.device.type == "cpu":
+        return intersect_bvh_plain(o, d, t_min, t_max, bvh).valid
+    raise ValueError(f"no LBVH walk for device {o.device}")

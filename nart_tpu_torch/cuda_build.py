@@ -9,8 +9,10 @@ rebuilds — and returns the ``ctypes.CDLL``.  Nothing is compiled or loaded
 when the module is imported.
 
 ``launch_counts`` counts the kernels' launches on the card, per wrapper:
-the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py) and the
-look-up kernels of csrc/small_lut.cu and csrc/large_lut.cu (select.py).
+the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py), the LBVH
+walk of csrc/bvh_walk.cu (bvh.py: "bvh_hit", its closest-hit and any-hit
+entries alike) and the look-up kernels of csrc/small_lut.cu and
+csrc/large_lut.cu (select.py).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ _loaded: dict = {}
 # launches, counts under a name of its own: "lut_gather_bwd_reference")
 launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
-                 "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0}
+                 "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
+                 "bvh_hit": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

@@ -9,9 +9,11 @@ with masked lanes, then lanes whose path ended pull the next (pixel,
 sample) work item.  The rounds run through ``rounds.RoundRunner``: on the
 card k rounds to each host check, captured once per chunk shape into one
 CUDA graph; on the CPU the same schedule eagerly.  The per-item radiance
-is written with ``index_add_``.  ``trace`` is the lockstep wavefront (one
-bounce per round, no respawn), ``trace_regen`` the per-pixel sample
-regeneration of the "regen" mode.
+is written with ``index_add_``.  ``trace_lockstep`` is the lockstep
+wavefront of the "spp" mode (one bounce per round, no respawn; ``trace``
+is its per-round loop and the autograd route), ``trace_regen`` the
+per-pixel sample regeneration of the "regen" mode; both run on kept
+machines on the same runner.
 
 Gradients: ``make_bounce(differentiable=True)`` is the detached-sampling
 estimator, and ``trace_balanced_loss`` differentiates the work queue by
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import bxdf, camera, rng
-from ..bvh import intersect_bvh
+from ..bvh import intersect_bvh, occluded_bvh
 from ..cluster_accel import (
     intersect_clusters,
     intersect_clusters_any,
@@ -320,12 +322,20 @@ def _sorted_query(query, key, o, d, t_min, t_max):
 def _make_queries(scene, accel, params):
     """(isect, occluded) for the resolved accel kind."""
     kind = resolve_accel_kind(params.accel)
-    if kind in ("brute", "bvh"):
+    if kind == "bvh":
+        def isect(o, d, t_min, t_max):
+            return intersect_bvh(o, d, t_min, t_max, accel)
+
+        # the closest hit's validity, as in the JAX package (on the card
+        # the kernel's any-hit walk, the same bool)
+        def occluded(o, d, t_min, t_max):
+            return occluded_bvh(o, d, t_min, t_max, accel)
+
+        return isect, occluded
+    if kind == "brute":
         tri_v = scene.tri_v
 
         def isect(o, d, t_min, t_max):
-            if kind == "bvh":
-                return intersect_bvh(o, d, t_min, t_max, accel)
             return intersect_brute(o, d, t_min, t_max, tri_v, chunk=256)
 
         # no any-hit walk of its own: occlusion is the closest hit's
@@ -606,11 +616,13 @@ def trace(scene, accel, o, d, state, params, differentiable=False):
         the route of small renders and the oracle of the gradient tests;
         trace_balanced_loss is the one whose memory stays O(lanes).
     Returns (L (N, 3), alpha (N,), state, rays (int, algorithmic count)).
+    This is the per-round loop: the "spp" mode renders on
+    trace_lockstep's kept machine, whose bits it is the reference of.
     """
     bounce_body = make_bounce(scene, accel, params, differentiable)
     paths = _paths_init(o, d, state)
     bounce = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
-    # the "spp" mode's loop: one host check a bounce, never a CUDA graph
+    # one host check a bounce, never a CUDA graph
     for _ in range(params.bounces):
         if not bool(paths.alive.any()):
             break
@@ -639,59 +651,202 @@ def _respawn(p: Paths, respawn, o, d, state):
     )
 
 
-def trace_regen(scene, accel, px, py, samples, state, params):
+def _graphed(params, per_round):
+    """Whether a forward machine captures its rounds on the card: always,
+    but on the per-round loop (per_round, the reference of the graphed
+    route's checks) and for "brute", the plain scan the tests hold the
+    traversals to, which stays on the per-round loop.  "cluster" and "bvh"
+    (the LBVH walk's kernel, csrc/bvh_walk.cu) read no host in a round."""
+    return not per_round and resolve_accel_kind(params.accel) != "brute"
+
+
+def _machine(machines, key, make):
+    """machines[key], made by make() if absent (machines None: one made
+    for this call alone)."""
+    machines = {} if machines is None else machines
+    machine = machines.get(key)
+    if machine is None:
+        machine = machines[key] = make()
+    return machine
+
+
+def _lane_buffers(n, device):
+    """A machine's copies of a call's lanes: px, py and state, (n,) int64."""
+    return tuple(torch.zeros(n, dtype=torch.int64, device=device)
+                 for _ in range(3))
+
+
+def _camera(scene, params, px, py):
+    """cast(jitter) -> (o, d): the camera rays through the lanes' pixels,
+    px and py read as they are when cast runs."""
+    def cast(jit):
+        return camera.cast_rays(scene.cam_to_world, scene.fov,
+                                params.image_width, params.image_height,
+                                px, py, jit)
+
+    return cast
+
+
+class _LockstepForward:
+    """trace_lockstep's machine for one lane count, kept across calls: the
+    jitter, px, py and state buffers that each call copies its own into
+    (the graph reads these, never the caller's tensors), and the round
+    runner, whose rounds are trace's bounces: the carry is (Paths, bounce),
+    bounce advancing on live lanes only, so that a round with no live lane
+    changes nothing; max_rounds = params.bounces keeps the bounce cap exact
+    whatever k."""
+
+    def __init__(self, scene, accel, n, params, device, per_round):
+        self.jit = jit = torch.zeros((n, 2), device=device)
+        self.px, self.py, self.state = px, py, state = _lane_buffers(n,
+                                                                    device)
+        cast = _camera(scene, params, px, py)
+        bounce_body = make_bounce(scene, accel, params)
+
+        def init():
+            o, d = cast(jit)
+            return (_paths_init(o, d, state),
+                    torch.zeros(n, dtype=torch.int64, device=device))
+
+        def round_fn(core):  # no reference to self (_BalancedForward)
+            paths, bounce = core
+            return (bounce_body(bounce, paths),
+                    torch.where(paths.alive, bounce + 1, bounce))
+
+        self.init = init
+        graph = _graphed(params, per_round)
+        self.runner = RoundRunner(round_fn, k=None if graph else 1,
+                                  max_rounds=params.bounces, graph=graph)
+
+    def __call__(self, px, py, jit, state):
+        self.px.copy_(px)
+        self.py.copy_(py)
+        self.jit.copy_(jit)
+        self.state.copy_(state)
+        core, _ = self.runner.run(self.init())
+        p = core[0]
+        la = torch.cat([p.l, p.alpha[:, None]], dim=-1)[None]
+        return la, p.state.clone(), int(p.rays)  # the end's read
+
+
+def trace_lockstep(scene, accel, px, py, samples, state, params,
+                   machines=None, per_round=False):
+    """The "spp" mode's tracer: one sample's camera rays through the lanes'
+    pixels, traced in lockstep as trace() traces them (one bounce a round,
+    no respawn), on a kept machine (_LockstepForward).
+
+    Args:
+      px, py: (N,) lane pixel coords.
+      samples: (1, N, 2) the sample's Latin-square jitters.
+      state: (N,) int64 RNG states, past the Latin-square draws.
+      machines: a dict that keeps one machine per lane count across calls
+        of one scene, accel and params (RenderSession's): on the card its
+        k-round CUDA graph is captured once and every sample of a render
+        (and every shard's strips of that size) replays it.  None: a
+        machine for this call alone.
+      per_round: the per-round loop (one round per host check, no graph).
+    Returns (la (1, N, 4), state, rays): trace()'s radiance, alpha, state
+    and ray count, bit for bit."""
+    n = px.shape[0]
+    machine = _machine(
+        machines, ("path_lockstep", n, params, per_round),
+        lambda: _LockstepForward(scene, accel, n, params, px.device,
+                                 per_round))
+    return machine(px, py, samples[0], state)
+
+
+class _RegenForward:
+    """trace_regen's machine for one chunk shape, kept across calls: the
+    samples, px, py and state buffers that each call copies its own into,
+    the radiance rows, and the round runner.  The carry is (Paths, bounce,
+    samp); a lane whose sample ends writes its radiance to its own row
+    (samp, lane) and the other lanes add zeros to distinct rows past the
+    end, so no round reads the host, and a round with no live lane changes
+    nothing."""
+
+    def __init__(self, scene, accel, shape, params, device, per_round):
+        spp_chunk, n = shape
+        self.samples = samples = torch.zeros((spp_chunk, n, 2),
+                                             device=device)
+        self.px, self.py, self.state = px, py, state = _lane_buffers(n,
+                                                                    device)
+        # rows past spp_chunk * n take the other lanes' zeros
+        self.la_out = la_out = torch.zeros(((spp_chunk + 1) * n, 4),
+                                           device=device)
+        cast = _camera(scene, params, px, py)
+        bounce_body = make_bounce(scene, accel, params)
+        lane = torch.arange(n, dtype=torch.int64, device=device)
+
+        def init():
+            zeros = torch.zeros(n, dtype=torch.int64, device=device)
+            return (_paths_init(*cast(samples[0]), state), zeros,
+                    zeros.clone())
+
+        def round_fn(core):  # no reference to self (_BalancedForward)
+            paths, bounce, samp = core
+            was_alive = paths.alive
+            p = bounce_body(bounce, paths)
+            # the reference's `for bounce < bounces` ends a sample after its
+            # params.bounces'th iteration
+            bounce_next = torch.where(was_alive, bounce + 1, bounce)
+            alive = p.alive & (bounce_next < params.bounces)
+            dying = was_alive & ~alive
+            la = torch.cat([p.l, p.alpha[:, None]], dim=-1)
+            slot = torch.where(dying, samp * n, spp_chunk * n) + lane
+            la_out.index_add_(0, slot, torch.where(dying[:, None], la, 0.0))
+            # the pixel's next sample, on the same stream
+            nxt = samp + 1
+            respawn = dying & (nxt < spp_chunk)
+            samp = torch.where(dying, nxt, samp)
+            o_new, d_new = cast(samples[nxt.clamp(max=spp_chunk - 1), lane])
+            paths = _respawn(replace(p, alive=alive), respawn, o_new, d_new,
+                             p.state)
+            return paths, torch.where(respawn, 0, bounce_next), samp
+
+        self.init = init
+        graph = _graphed(params, per_round)
+        self.runner = RoundRunner(round_fn, k=None if graph else 1,
+                                  graph=graph)
+
+    def __call__(self, px, py, samples, state):
+        self.px.copy_(px)
+        self.py.copy_(py)
+        self.samples.copy_(samples)
+        self.state.copy_(state)
+        self.la_out.zero_()
+        core, _ = self.runner.run(self.init())
+        spp_chunk, n = self.samples.shape[:2]
+        la = self.la_out[:spp_chunk * n].reshape(spp_chunk, n, 4)
+        return la.clone(), core[0].state.clone(), int(core[0].rays)
+
+
+def trace_regen(scene, accel, px, py, samples, state, params, machines=None,
+                per_round=False):
     """Sample regeneration: every lane owns a pixel and runs the chunk's
     samples back to back on the pixel's own stream; when sample s ends its
     radiance goes to slot (s, lane) and the lane starts sample s + 1 in the
     same round.  The draws happen in the sequential renderer's per-pixel
     order (Latin square first, drawn by the caller; then each sample's path
     draws), so each sample's radiance is the same bits as trace()'s in the
-    per-sample loop.
+    per-sample loop.  The rounds run on a kept machine (_RegenForward), the
+    counterpart of the JAX package's _trace_regen_jit: on the card k rounds
+    to each host check in one CUDA graph per chunk shape.
 
     Args:
       px, py: (N,) lane pixel coords.
       samples: (spp_chunk, N, 2) Latin-square jitters of this chunk.
       state: (N,) int64 RNG states, past the Latin-square draws.
+      machines, per_round: as for trace_lockstep (one machine per chunk
+        shape).
     Returns (la (spp_chunk, N, 4), state, rays).  Splatting la sample by
     sample (film.splat_grid) gives the per-sample loop's film.
     """
-    n, spp_chunk = px.shape[0], samples.shape[0]
-    dev = px.device
-    bounce_body = make_bounce(scene, accel, params)
-    lane = torch.arange(n, dtype=torch.int64, device=dev)
-
-    def cast(jit):
-        return camera.cast_rays(scene.cam_to_world, scene.fov,
-                                params.image_width, params.image_height,
-                                px, py, jit)
-
-    paths = _paths_init(*cast(samples[0]), state)
-    bounce = torch.zeros(n, dtype=torch.int64, device=dev)
-    samp = torch.zeros(n, dtype=torch.int64, device=dev)
-    # rows past spp_chunk * n take the other lanes' zeros
-    la_out = torch.zeros(((spp_chunk + 1) * n, 4), device=dev)
-    # the "regen" mode stays on the per-round loop (no CUDA graph)
-    while bool(paths.alive.any()):
-        was_alive = paths.alive
-        p = bounce_body(bounce, paths)
-        # the reference's `for bounce < bounces` ends a sample after its
-        # params.bounces'th iteration
-        bounce_next = torch.where(was_alive, bounce + 1, bounce)
-        alive = p.alive & (bounce_next < params.bounces)
-        dying = was_alive & ~alive
-        la = torch.cat([p.l, p.alpha[:, None]], dim=-1)
-        slot = torch.where(dying, samp * n, spp_chunk * n) + lane
-        la_out.index_add_(0, slot, torch.where(dying[:, None], la, 0.0))
-        # the pixel's next sample, on the same stream
-        nxt = samp + 1
-        respawn = dying & (nxt < spp_chunk)
-        samp = torch.where(dying, nxt, samp)
-        o_new, d_new = cast(samples[nxt.clamp(max=spp_chunk - 1), lane])
-        paths = _respawn(replace(p, alive=alive), respawn, o_new, d_new,
-                         p.state)
-        bounce = torch.where(respawn, 0, bounce_next)
-    return (la_out[:spp_chunk * n].reshape(spp_chunk, n, 4), paths.state,
-            int(paths.rays))
+    shape = tuple(samples.shape[:2])
+    machine = _machine(
+        machines, ("path_regen", shape, params, per_round),
+        lambda: _RegenForward(scene, accel, shape, params, px.device,
+                              per_round))
+    return machine(px, py, samples, state)
 
 
 def _next_pow2(v):
@@ -853,11 +1008,7 @@ class _BalancedForward:
                               torch.where(dying[:, None], la, 0.0))
             return core
 
-        # the "bvh" walk synchronises in its own loop and "brute" is the
-        # plain scan: both stay on the per-round loop, as does a caller
-        # that asks for it; every other route captures on the card
-        graph = (not per_round
-                 and resolve_accel_kind(params.accel) == "cluster")
+        graph = _graphed(params, per_round)
         self.runner = RoundRunner(round_fn, k=None if graph else 1,
                                   graph=graph)
 
@@ -900,12 +1051,9 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
     key = ("path", tuple(samples.shape[:2]), render_w, render_h, n_lanes,
            pix_offset, n_pix_total,
            None if row_map is None else tuple(row_map.shape), per_round)
-    machines = {} if machines is None else machines
-    machine = machines.get(key)
-    if machine is None:
-        machine = machines[key] = _BalancedForward(
-            scene, accel, key[1], params, render_w, render_h, n_lanes,
-            pix_offset, n_pix_total, key[7], samples.device, per_round)
+    machine = _machine(machines, key, lambda: _BalancedForward(
+        scene, accel, key[1], params, render_w, render_h, n_lanes,
+        pix_offset, n_pix_total, key[7], samples.device, per_round))
     return machine(samples, chunk_base, row_map)
 
 
@@ -1152,10 +1300,11 @@ def trace_balanced_loss(scene, accel, samples, cot, params, render_w,
     def build():
         parts = _PathReplayParts(accel, params, render_w, render_h, n_lanes,
                                  pix_offset, n_pix_total)
-        # "bvh" and "brute" stay eager, as their forward machines do
+        # "brute" stays eager, as its forward machine does (_graphed); the
+        # backward traverses nothing
         return ReplayMachine(
             parts, scene, leaves, key[1], row_shape, samples.device,
-            graph=resolve_accel_kind(params.accel) == "cluster")
+            graph=_graphed(params, False))
 
     def measure():
         with torch.no_grad():

@@ -17,8 +17,10 @@ path replay).  The majorant is a detached constant.
 
 Schedulers (lanes never talk to each other, so an item's result does not
 depend on which lane runs it, nor when):
-  * trace / trace_diff -- lockstep per-pixel walk (the reference's draw
-    order; the "spp" mode of render.py and the lockstep gradient route);
+  * trace_lockstep / trace / trace_diff -- lockstep per-pixel walk (the
+    reference's draw order): the "spp" mode of render.py on a kept
+    machine, one flight step a round on the round runner; its per-round
+    loop; the lockstep gradient route;
   * trace_balanced -- work queue over (pixel, sample) items: a lane whose
     walk ended pulls the next item by prefix sum;
   * trace_vol_static -- lane i owns items i, i + n, i + 2n, ...: the
@@ -46,8 +48,11 @@ from ..replay import ReplayLoss, ReplayMachine, replay_loss
 from ..rounds import RoundRunner
 from ..scene import map_tensors
 from .path import (
+    _camera,
     _chunk_base_tensor,
+    _lane_buffers,
     _light_partition,
+    _machine,
     _nearest_light,
     _next_pow2,
     _path_stream_seed,
@@ -248,12 +253,74 @@ def trace(scene, accel, o, d, state, params):
 
     Returns (L (N, 3), alpha (N,), state, rays): rays counts walk segments
     (camera rays and scatter redirects), the volume's analogue of the path
-    integrator's ray count.  accel is not read."""
+    integrator's ray count.  accel is not read.  This is the per-round
+    loop: the "spp" mode renders on trace_lockstep's kept machine, whose
+    bits it is the reference of."""
     ones = torch.ones(o.shape[0], device=o.device)
     if scene.medium is None:  # every ray escapes at once
         return _no_medium(scene, o, d), ones, state, 0
     vs, rays = _walk(scene, o, d, state, params, MAX_STEPS)
     return vs.l_out, ones, vs.state, rays
+
+
+class _LockstepForward:
+    """trace_lockstep's machine for one lane count, kept across calls
+    (path._LockstepForward's counterpart): the jitter, px, py and state
+    buffers, the segment count and the round runner, whose rounds are
+    _walk's flight steps (one a round), gated by MAX_STEPS on the device
+    so that the cut stays exact whatever k."""
+
+    def __init__(self, scene, n, params, device, per_round):
+        self.jit = jit = torch.zeros((n, 2), device=device)
+        self.px, self.py, self.state = px, py, state = _lane_buffers(n,
+                                                                    device)
+        cast = _camera(scene, params, px, py)
+        step, _ = _make_vol_step(scene, params,
+                                 _light_partition(scene.lights, device))
+        self.rays = rays = torch.zeros((), dtype=torch.int64, device=device)
+
+        def init():
+            return (_vol_state(*cast(jit), state),)
+
+        def round_fn(core):  # no reference to self (path._BalancedForward)
+            vs, = core
+            rays.add_(_segment_starts(vs))
+            return (step(vs)[0],)
+
+        self.init = init
+        self.runner = RoundRunner(round_fn, k=1 if per_round else None,
+                                  max_rounds=MAX_STEPS, graph=not per_round)
+
+    def __call__(self, px, py, jit, state):
+        self.px.copy_(px)
+        self.py.copy_(py)
+        self.jit.copy_(jit)
+        self.state.copy_(state)
+        self.rays.zero_()
+        core, _ = self.runner.run(self.init())
+        vs = core[0]
+        la = torch.cat([vs.l_out, torch.ones_like(vs.l_out[:, :1])], dim=-1)
+        return la[None], vs.state.clone(), int(self.rays)  # the end's read
+
+
+def trace_lockstep(scene, accel, px, py, samples, state, params,
+                   machines=None, per_round=False):
+    """The "spp" mode's tracer (path.trace_lockstep's contract): one
+    sample's camera rays through the lanes' pixels, walked in lockstep on
+    a kept machine (_LockstepForward): trace()'s radiance, state and
+    segment count, bit for bit.  samples is (1, N, 2); returns (la (1, N,
+    4), state, rays).  Without a medium every ray escapes to the light
+    pass at once: no loop, no machine."""
+    if scene.medium is None:
+        o, d = _camera(scene, params, px, py)(samples[0])
+        le = _no_medium(scene, o, d)
+        return (torch.cat([le, torch.ones_like(le[:, :1])], dim=-1)[None],
+                state, 0)
+    n = px.shape[0]
+    machine = _machine(
+        machines, ("volume_lockstep", n, params, per_round),
+        lambda: _LockstepForward(scene, n, params, px.device, per_round))
+    return machine(px, py, samples[0], state)
 
 
 def trace_diff(scene, accel, o, d, state, params, n_steps=512):
@@ -522,12 +589,9 @@ def _run_machine(parts, scene, samples, params, render_w, chunk_base,
     key = (parts.__name__, tuple(samples.shape[:2]), render_w, n_lanes,
            shard.get("pix_offset", 0), shard.get("n_pix_total"),
            None if row_map is None else tuple(row_map.shape), per_round)
-    machines = {} if machines is None else machines
-    machine = machines.get(key)
-    if machine is None:
-        machine = machines[key] = _VolForward(
-            parts, scene, key[1], params, render_w, n_lanes, key[4], key[5],
-            key[6], samples.device, per_round)
+    machine = _machine(machines, key, lambda: _VolForward(
+        parts, scene, key[1], params, render_w, n_lanes, key[4], key[5],
+        key[6], samples.device, per_round))
     return machine(samples, chunk_base, row_map)
 
 

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import camera, checkpoint, exr, film, resolve_device, rng, sampling
+from . import checkpoint, exr, film, resolve_device, rng, sampling
 from .cluster_accel import build_accel, resolve_accel_kind
 from .integrators import path as path_integrator
 from .integrators import volume as volume_integrator
@@ -161,15 +161,19 @@ class RenderSession:
     """One render: scene + params on a device (the card unless one is
     named, see resolve_device) -> film -> EXR.
 
-    ``machines`` keeps the "balanced" mode's work-queue machine of each
-    chunk shape (path.trace_balanced, volume.trace_vol_static), the
-    counterpart of the JAX package's jit cache of _trace_balanced_jit: on
-    the card each machine's k-round CUDA graph is captured once, and every
-    chunk of that shape, of a render or of a shard's rows, replays it with
-    its own samples and chunk_base copied in.  The graphs and their memory
-    go with the session.  per_round=True runs the per-round loop instead
-    (one round per host check, no graph): the reference of the graphed
-    route's checks."""
+    ``machines`` keeps the mode's machine of each chunk shape: the
+    "balanced" work queue (path.trace_balanced, volume.trace_vol_static),
+    the "regen" machine (path.trace_regen) and the "spp" lockstep machines
+    (path.trace_lockstep, volume.trace_lockstep), the counterparts of the
+    JAX package's jit cache of _trace_balanced_jit, _trace_regen_jit and
+    _spp_step_jit: on the card each machine's k-round CUDA graph is
+    captured once, and every chunk of that shape, of a render or of a
+    shard's rows, replays it with its own samples, chunk_base, pixels and
+    states copied in.  The graphs and their memory go with the session.
+    per_round=True runs the per-round loop instead (one round per host
+    check, no graph): the reference of the graphed route's checks.
+    ``state`` holds the per-pixel RNG states after the last render (what a
+    checkpoint saves)."""
 
     def __init__(self, scene: SceneData, params: RenderParams, device=None,
                  per_round=False):
@@ -195,6 +199,7 @@ class RenderSession:
         self.per_round = per_round
         self.machines = {}
         self.stats = {}
+        self.state = None
 
     def render(self, progress=False, checkpoint_path=None, checkpoint_every=0,
                resume=False):
@@ -248,6 +253,7 @@ class RenderSession:
         if progress:
             print("\r100%", file=sys.stderr, flush=True)
         self.stats = {"rays": rays, "rounds": rounds}
+        self.state = state
         return buf
 
     def trace_chunk(self, samples, state, chunk_base, px, py, row_map=None):
@@ -271,17 +277,13 @@ class RenderSession:
                               row_map=row_map, machines=self.machines,
                               per_round=self.per_round)
             return la, state, r, k
-        # "regen" and "spp" stay on their per-round loops (no graph)
-        if mode == "regen":
-            la, state, r = path_integrator.trace_regen(
-                self.scene, self.accel, px, py, samples, state, p)
-            return la, state, r, 0
-        o, d = camera.cast_rays(self.scene.cam_to_world, self.scene.fov,
-                                p.image_width, p.image_height, px, py,
-                                samples[0])
-        tracer = volume_integrator.trace if volume else path_integrator.trace
-        l, a, state, r = tracer(self.scene, self.accel, o, d, state, p)
-        return torch.cat([l, a[:, None]], dim=-1)[None], state, r, 0
+        tracer = (path_integrator.trace_regen if mode == "regen" else
+                  volume_integrator.trace_lockstep if volume else
+                  path_integrator.trace_lockstep)
+        la, state, r = tracer(self.scene, self.accel, px, py, samples, state,
+                              p, machines=self.machines,
+                              per_round=self.per_round)
+        return la, state, r, 0
 
     def image(self):
         """Final normalised RGBA image (H, W, 4) tensor."""

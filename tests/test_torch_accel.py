@@ -173,7 +173,8 @@ def test_cpu_tensors_take_the_plain_path():
     assert cuda_build.launch_counts == {
         "closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
         "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
-        "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0}
+        "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
+        "bvh_hit": 0}
     with pytest.raises(ValueError):
         tca.intersect_clusters(o.to("meta"), d.to("meta"), tmin.to("meta"),
                                tmax.to("meta"), acc)

@@ -116,3 +116,38 @@ def test_bvh_kind_policy():
     assert isinstance(acc, tbvh.BVH) and acc.order.dtype == torch.int64
     moved = acc.to("cpu")
     assert moved.n_leaves == acc.n_leaves and moved.depth == acc.depth
+
+
+def test_plain_walk_counts_its_work():
+    """intersect_bvh_plain's counters (the work the bound of the walk's
+    kernel charges): the same Hit with and without them, at least one node
+    popped a ray, and the nodes that passed split into inner nodes and
+    leaves; intersect_bvh on CPU tensors is the plain walk."""
+    tri = _soup(300)
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(500))
+    tree = tbvh.build_bvh(tri)
+    counts = {}
+    hit = tbvh.intersect_bvh_plain(o, d, torch.zeros(500), t_max, tree,
+                                   counts=counts)
+    plain = tbvh.intersect_bvh(o, d, torch.zeros(500), t_max, tree)
+    assert all(torch.equal(a, b) for a, b in zip(hit, plain))
+    assert counts["nodes"] >= 500
+    assert counts["nodes"] > counts["inner"] + counts["leaves"]
+    assert counts["inner"] > 0 and counts["leaves"] > 0
+
+
+def test_kernel_wrapper_refuses_before_any_launch():
+    """A tree deeper than the kernel's stack (bvh.MAX_DEPTH) is refused
+    before anything else; CPU tensors never reach the kernel; another
+    device type has no walk."""
+    tree = tbvh.build_bvh(_soup(40))
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(64))
+    t_min = torch.zeros(64)
+    with pytest.raises(ValueError, match="depth"):
+        tbvh.bvh_hit_cuda(o, d, t_min, t_max,
+                          dataclasses.replace(tree, depth=tbvh.MAX_DEPTH + 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbvh.bvh_any_cuda(o, d, t_min, t_max, tree)
+    with pytest.raises(ValueError):
+        tbvh.occluded_bvh(o.to("meta"), d.to("meta"), t_min.to("meta"),
+                          t_max.to("meta"), tree)

@@ -1,5 +1,6 @@
 """CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu, csrc/small_lut.cu,
-csrc/large_lut.cu) vs their plain PyTorch versions, on the card.
+csrc/large_lut.cu, csrc/bvh_walk.cu) vs their plain PyTorch versions, on
+the card.
 
 Marked ``gpu``: each test skips (with its reason) when no CUDA device is
 present, deciding inside the fixture, never at import.  Run them on a
@@ -20,7 +21,11 @@ have the bits of the sorted route (torch.sort, then the same segmented
 sum); the many-table forward has the bits of one launch a table, the
 many-table backward those of the two-launch route (one table a call) in
 one kernel node, and their wrappers refuse what the kernels do not
-take.
+take.  The LBVH walk (B1) against the plain walk by the traversal's
+criteria, occlusion the closest hit's validity exactly: soups of 1, 40 and
+40,000 triangles, axis-aligned rays, ties within and across leaves (the
+plain walk's triangle and t on every ray), one window for every ray,
+t_max = 0, and a tree deeper than its stack refused before any launch.
 """
 
 import os
@@ -604,3 +609,149 @@ def test_many_table_backward_refuses(cuda):
                         ([g, g[:32]], [4, 4])):
         with pytest.raises(ValueError):
             tsel.lut_gather_bwd_many_cuda(grads, idx, rows)
+
+
+# ---------------------------------------------------------------------------
+# B1: the LBVH walk (csrc/bvh_walk.cu) against the plain walk
+# ---------------------------------------------------------------------------
+
+
+def _check_bvh(rays, tree):
+    """The kernel's closest hit and occlusion against the plain walk's:
+    triangle ids on >= 99.99% of rays, t/u/v to rtol 1e-4 / atol 1e-5
+    where they agree, occlusion the closest hit's validity exactly; one
+    launch each.  Returns (kernel Hit, plain Hit)."""
+    from nart_tpu_torch import bvh as tbvh
+
+    before = cuda_build.launch_counts["bvh_hit"]
+    hk = tbvh.intersect_bvh(*rays, tree)
+    occ = tbvh.occluded_bvh(*rays, tree)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["bvh_hit"] == before + 2
+    hp = tbvh.intersect_bvh_plain(*rays, tree)
+    agree = hk.tri == hp.tri
+    assert agree.float().mean() >= 0.9999
+    both = agree & (hp.tri >= 0)
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(getattr(hk, k)[both], getattr(hp, k)[both],
+                                   rtol=1e-4, atol=1e-5)
+    assert torch.equal(occ, hk.tri >= 0)
+    assert torch.isinf(hk.t[hk.tri < 0]).all()
+    return hk, hp
+
+
+@pytest.mark.parametrize("n_tris", [1, 40, 40000])
+def test_bvh_kernel_matches_plain_on_soups(cuda, n_tris):
+    """Soups of one leaf's worth and less (1, 40 triangles: padding rows)
+    and 40,000 (depth 13); 4,099 rays (not a multiple of 32), a quarter
+    parked with t_max = 0."""
+    from nart_tpu_torch import bvh as tbvh
+
+    rng = np.random.default_rng(n_tris)
+    tree = tbvh.build_bvh(_soup(n_tris, rng)).to(cuda)
+    rays = _rays(4099, rng, cuda)
+    hk, hp = _check_bvh(rays, tree)
+    if n_tris > 1:
+        assert (hp.tri >= 0).sum() > 0
+    parked = rays[3] == 0.0
+    assert not (hk.tri[parked] >= 0).any()
+
+
+def test_bvh_kernel_axis_aligned_rays(cuda):
+    """Directions along the axes (the 1e-30 guard of the slab test) and
+    with one zero component, both signs."""
+    from nart_tpu_torch import bvh as tbvh
+
+    rng = np.random.default_rng(11)
+    tri = _soup(700, rng)
+    tree = tbvh.build_bvh(tri).to(cuda)
+    n = 1029
+    d = np.eye(3, dtype=np.float32)[np.arange(n) % 3] * np.where(
+        np.arange(n) % 2, 1.0, -1.0)[:, None].astype(np.float32)
+    tilt = rng.normal(size=(n, 3)).astype(np.float32)
+    tilt[np.arange(n), (np.arange(n) + 1) % 3] = 0.0
+    d[n // 2:] = tilt[n // 2:] / np.linalg.norm(tilt[n // 2:], axis=-1,
+                                                keepdims=True)
+    # origins beside the soup, aimed back across it
+    target = tri[rng.integers(0, len(tri), n)].mean(1)
+    o = (target - d * 20.0).astype(np.float32)
+    rays = (torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda),
+            torch.zeros(n, device=cuda),
+            torch.full((n,), float("inf"), device=cuda))
+    _, hp = _check_bvh(rays, tree)
+    assert (hp.tri >= 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("copies", [1, 5, 40], ids=lambda c: f"x{c}")
+def test_bvh_kernel_ties(cuda, copies):
+    """Two triangles with a common edge, each stored `copies` times (in one
+    leaf or across leaves), and rays through the edge and either face:
+    equal t within a leaf (the lowest index wins) and across leaves (the
+    first found wins): the plain walk's triangle and t on every ray."""
+    from nart_tpu_torch import bvh as tbvh
+
+    quad = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                     [[1, 0, 0], [1, 1, 0], [0, 1, 0]]], np.float32)
+    tree = tbvh.build_bvh(np.repeat(quad, copies, axis=0)).to(cuda)
+    rng = np.random.default_rng(copies)
+    n = 4096
+    s = rng.random(n).astype(np.float32)
+    on_edge = np.stack([1 - s, s, np.zeros(n, np.float32)], 1)
+    anywhere = np.concatenate([rng.random((n, 2)), np.zeros((n, 1))], 1)
+    target = np.where((np.arange(n) % 2 == 0)[:, None], on_edge,
+                      anywhere).astype(np.float32)
+    o = (target + rng.normal(size=(n, 3)) * [0.5, 0.5, 0.0]
+         + [0, 0, 3]).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = (torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda),
+            torch.zeros(n, device=cuda),
+            torch.full((n,), float("inf"), device=cuda))
+    hk, hp = _check_bvh(rays, tree)
+    assert (hp.tri >= 0).sum() > n // 2
+    assert torch.equal(hk.tri, hp.tri) and torch.equal(hk.t, hp.t)
+
+
+def test_bvh_kernel_scalar_windows(cuda):
+    """t_min and t_max given as one value for every ray, as (N,) tensors
+    would give them; t_max = 0 for all: no hit, no occlusion."""
+    from nart_tpu_torch import bvh as tbvh
+
+    rng = np.random.default_rng(12)
+    tree = tbvh.build_bvh(_soup(300, rng)).to(cuda)
+    o, d, _, _ = _rays(777, rng, cuda)
+    zero = torch.zeros((), device=cuda)
+    for t_max in (float("inf"), 6.0, 0.0):
+        full = torch.full((777,), t_max, device=cuda)
+        hk = tbvh.intersect_bvh(o, d, zero, torch.tensor(t_max, device=cuda),
+                                tree)
+        hv = tbvh.intersect_bvh(o, d, torch.zeros(777, device=cuda), full,
+                                tree)
+        assert all(torch.equal(a, b) for a, b in zip(hk, hv))
+        _check_bvh((o, d, zero, full), tree)
+        if t_max == 0.0:
+            assert not (hk.tri >= 0).any()
+            assert not tbvh.occluded_bvh(o, d, zero, full, tree).any()
+
+
+def test_bvh_kernel_refuses(cuda):
+    """A tree deeper than the kernel's stack is refused before any launch
+    (the stack's depth is the library's), and so are inputs the kernel
+    does not take."""
+    from dataclasses import replace
+
+    from nart_tpu_torch import bvh as tbvh
+
+    rng = np.random.default_rng(13)
+    tree = tbvh.build_bvh(_soup(50, rng)).to(cuda)
+    o, d, t_min, t_max = _rays(64, rng, cuda)
+    assert tbvh._kernel_lib().nart_bvh_max_depth() == tbvh.MAX_DEPTH
+    before = dict(cuda_build.launch_counts)
+    with pytest.raises(ValueError, match="depth"):
+        tbvh.intersect_bvh(o, d, t_min, t_max,
+                           replace(tree, depth=tbvh.MAX_DEPTH + 1))
+    with pytest.raises(TypeError):
+        tbvh.bvh_hit_cuda(o.double(), d, t_min, t_max, tree)
+    with pytest.raises(ValueError):
+        tbvh.bvh_any_cuda(o, d, t_min, t_max, tree.to("cpu"))
+    assert cuda_build.launch_counts == before
