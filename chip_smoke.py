@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
      "name, power.limit" line;
   2. build: compile the CUDA kernels from nart_tpu_torch/csrc into
      build/nart_tpu_torch, one nvcc a source, all started together (timed):
-     cluster_hit.cu, small_lut.cu, large_lut.cu and bvh_walk.cu;
+     cluster_hit.cu, small_lut.cu, large_lut.cu and bvh_walk.cu; beside
+     them bvh_walk.cu once more with -Xptxas -v, whose registers, stack
+     frames and spills are logged;
   3. kernels against their plain PyTorch versions on the card: (a) the
      macbeth scene's clusters with 65,536 camera rays and 131,072
      random-direction rays from the hit points (25% with t_max = 0);
@@ -123,22 +125,32 @@ Phases (any failure raises and exits non-zero):
      "regen" at 128x72, 2 spp, every 1 (both on the graphed machines): the
      films equal the uninterrupted ones bit for bit; save and load seconds
      and the file size logged;
- 17. (e) B1, the LBVH walk's kernel (csrc/bvh_walk.cu), against the plain
-     walk (bvh.intersect_bvh_plain) on 65,536 macbeth camera rays and on
-     the random 40,000-triangle soup (a sixteenth of its 65,536 rays, 25%
-     with t_max = 0): triangle ids on >= 99.99% of rays, t/u/v to rtol
-     1e-4 / atol 1e-5, the any-hit entry the closest hit's validity
+ 17. (e) B1, the LBVH walk's kernel (csrc/bvh_walk.cu), on three ray sets
+     (kernel_variants.ray_sets, LBVH trees): 65,536 macbeth camera rays,
+     131,072 rays from their hit points (25% with t_max = 0) and 65,536
+     rays through the random 40,000-triangle soup (25% with t_max = 0).
+     Against the plain walk (bvh.intersect_bvh_plain; on the soup a
+     sixteenth of the rays): triangle ids on >= 99.99% of rays, t/u/v to
+     rtol 1e-4 / atol 1e-5, the any-hit entry the closest hit's validity
      exactly, bit-equality reported (and against the plain walk on the
-     CPU, 8,192 camera rays); B1's device ms and ms per call (both
-     entries) beside the plain walk's (stream_ms) and its bound from the
-     plain walk's own counts; then accel="bvh" against the cluster kernels,
-     both graphed: macbeth at 1280x720, 1 spp, one capture each, B1
-     launched twice in every round the card ran (closest hit and
-     occlusion) and K1-K4 never, the images by test_golden's _compare
-     criteria (tight and golden), the wall times side by side; and a
-     "bvh" fwd+bwd (macbeth 320x180 @ 1) on a kept replay machine against
-     the per-round replay by phase 22's criteria, B1 twice a forward round
-     run and never in the backward;
+     CPU, 8,192 camera rays).  Against the reference kernel
+     (nart_bvh_hit_ref, the walk's first design), both entries on every
+     set in turns (reference, new, new, reference): every output the
+     reference's bits, each turn's device ms.  The bound of each set from
+     the plain walk's own counts (the soup's: a sixteenth's, times 16),
+     the share each kernel reaches, and the warp efficiency of the first
+     design's walk (the plain walk's pops a ray over the mean of each
+     32-ray warp's largest); the plain walk's device ms (stream_ms).  Then
+     accel="bvh" against the cluster kernels, both graphed: macbeth at
+     1280x720, 1 spp, one capture each, B1 launched twice in every round
+     the card ran (closest hit and occlusion) and K1-K4 never, the images
+     by test_golden's _compare criteria (tight and golden), the wall
+     times side by side, the "bvh" render's device ms (torch.profiler);
+     the same "bvh" render with NART_SKIP_SHADOW (path._DEBUG_SKIP_SHADOW:
+     B1 once a round run), its wall and device ms beside the unset
+     render's; and a "bvh" fwd+bwd (macbeth 320x180 @ 1) on a kept replay
+     machine against the per-round replay by phase 22's criteria, B1
+     twice a forward round run and never in the backward;
  18. the bench as a user runs it: `python -m nart_tpu_torch.bench` in a
      subprocess at NART_BENCH_SIZE=128, NART_BENCH_SPP=4, once in each
      mode (fwd, fwdbwd): its last line parses with the five keys and a
@@ -1826,6 +1838,23 @@ def checkpoint_resume():
             "resumed film equals the uninterrupted one bit for bit")
 
 
+def ptxas_report(source):
+    """nvcc's -Xptxas -v report of a kernel source (a build of its own in
+    a temporary directory, beside cuda_build's): each kernel's registers,
+    stack frame and spills."""
+    from nart_tpu_torch import cuda_build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-o", os.path.join(tmp, "report.so"), os.path.join(HERE, source)],
+            capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed on {source}:\n"
+                           f"{proc.stderr}")
+    return proc.stderr
+
+
 def _once_ms(fn):
     """(fn()'s result, its milliseconds between two CUDA events): one call
     of a function that reads the card from the host (the plain walk)."""
@@ -1860,17 +1889,31 @@ def bvh_bound(tree, n_rays, counts):
             "bytes": nbytes, "operations": ops}
 
 
+def warp_efficiency(ray_nodes):
+    """The nodes each ray pops (the plain walk's order, one pop a step of
+    B1's first design) summed, over the steps its warp takes (32 times
+    the largest pop count of its 32 consecutive rays): the mean share of a
+    warp's lanes with a node to pop."""
+    import torch
+
+    x = ray_nodes.double()
+    w = torch.nn.functional.pad(x, (0, (-len(x)) % 32)).view(-1, 32)
+    return float(x.sum() / (32.0 * w.amax(1).sum()))
+
+
 def _bvh_against_plain(label, rays, tree):
     """B1's closest hit and occlusion against the plain walk (timed once
-    between events): returns (agreement, max abs err, bit-equal, the plain
-    walk's ms)."""
+    between events, counting its work): returns (agreement, max abs err,
+    bit-equal, the plain walk's ms, its counts)."""
     import torch
 
     from nart_tpu_torch import bvh
 
     hk = bvh.intersect_bvh(*rays, tree)
     occ = bvh.occluded_bvh(*rays, tree)
-    hp, plain_ms = _once_ms(lambda: bvh.intersect_bvh_plain(*rays, tree))
+    counts = {}
+    hp, plain_ms = _once_ms(
+        lambda: bvh.intersect_bvh_plain(*rays, tree, counts=counts))
     frac, err = compare_closest(f"B1 {label}", hk, hp)
     if not torch.equal(occ, hk.tri >= 0):
         raise AssertionError(f"B1 {label}: the any-hit walk != the closest "
@@ -1879,27 +1922,113 @@ def _bvh_against_plain(label, rays, tree):
     log(f"(e) B1 {label}, {rays[0].shape[0]} rays: tri agree {frac:.6f}, "
         f"hits {int((hp.tri >= 0).sum())}, max abs err {err:.3g}, bit-equal "
         f"{equal}; occlusion == closest-hit validity: exact; the plain walk "
-        f"{plain_ms:.3f} ms (one call, host included)")
-    return frac, err, equal, plain_ms
+        f"{plain_ms:.3f} ms (one call, host included); its work "
+        f"{ {k: v for k, v in counts.items() if k != 'ray_nodes'} }, warp "
+        f"efficiency {warp_efficiency(counts['ray_nodes']):.4f}")
+    return frac, err, equal, plain_ms, counts
+
+
+def bvh_turns(sets):
+    """B1's closest-hit and any-hit entries against the reference kernel
+    (nart_bvh_hit_ref, the walk's first design) on every ray set, in turns
+    (reference, new, new, reference): every output of every call the
+    reference's bits, each turn's device ms (device_ms).  Returns
+    {set: {entry: {"reference": [ms, ms], "new": [ms, ms]}}}."""
+    import torch
+
+    from nart_tpu_torch.kernel_variants import bvh_cases
+
+    calls = bvh_cases(sets)  # "entry set": call(reference=...)
+    want = {key: call(reference=True) for key, call in calls.items()}
+    per_call = {key: _once_ms(call)[1] for key, call in calls.items()}
+    out = {}
+    for turn in ("reference", "new", "new", "reference"):
+        ref = turn == "reference"
+        for label in sets:
+            for entry in ("closest-hit", "any-hit"):
+                key = f"{entry} {label}"
+                got = calls[key](reference=ref)
+                if not all(torch.equal(a, b) for a, b in zip(got, want[key])):
+                    raise AssertionError(f"B1 {key}: the {turn} kernel's "
+                                         "outputs differ from the "
+                                         "reference's bits")
+                t = device_ms(lambda c=calls[key]: c(reference=ref),
+                              launches_for(per_call[key]))
+                out.setdefault(label, {}).setdefault(entry, {}).setdefault(
+                    turn, []).append(t["ms"])
+    for label, entries in out.items():
+        for entry, t in entries.items():
+            log(f"turns B1 {label} {entry}: reference {t['reference'][0]:.4f}"
+                f", new {t['new'][0]:.4f}, new {t['new'][1]:.4f}, reference "
+                f"{t['reference'][1]:.4f} ms; reference / new "
+                f"{sum(t['reference']) / sum(t['new']):.3f}x; every output "
+                "the reference's bits")
+    return out
+
+
+def _bvh_render(kind, size, skip_shadow=False):
+    """A graphed macbeth render of accel `kind` (the session's first
+    render captures): (image, wall s of the timed render, rounds run,
+    launches, the session)."""
+    import torch
+
+    from nart_tpu_torch import cuda_build, render
+    from nart_tpu_torch.integrators import path
+
+    w, h, spp = size
+    path._DEBUG_SKIP_SHADOW = skip_shadow  # read when a machine is made
+    try:
+        params, sess = next(render.render_scene_file(
+            MACBETH, dict(image_width=w, image_height=h, spp=spp,
+                          accel=kind), device=DEVICE))
+        sess.render()  # captures the session's graph
+    finally:
+        path._DEBUG_SKIP_SHADOW = False
+    cuda_build.reset_launch_counts()
+    before = machine_totals(sess.machines)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = sess.image()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = machine_totals(sess.machines)
+    ran = after["rounds_run"] - before["rounds_run"]
+    launches = dict(cuda_build.launch_counts)
+    label = kind + (" NART_SKIP_SHADOW" if skip_shadow else "")
+    log(f"accel {label}: macbeth {w}x{h} {spp} spp graphed in {wall:.4f} s, "
+        f"{sess.stats}, {ran} rounds run, {after}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    want = ({"bvh_hit": (1 if skip_shadow else 2) * ran} if kind == "bvh"
+            else {"closest_hit": ran, "any_hit": ran})
+    if (after["captures"] != 1
+            or any(launches[k] != v for k, v in want.items())
+            or (kind == "bvh" and any(launches[k] for k in TRAVERSAL))):
+        raise AssertionError(f"accel {label}: launches {launches}, {ran} "
+                             f"rounds run, {after}")
+    return img.cpu().numpy(), wall, ran, launches, sess
 
 
 def bvh_accel(size):
-    """Phase 17 (e): B1 (csrc/bvh_walk.cu) against the plain walk on
-    macbeth's camera rays and on the 40,000-triangle soup, timed beside
-    it with its bound; then the graphed "bvh" render beside the cluster
-    one.  Returns (B1's record, the bvh render's launches)."""
+    """Phase 17 (e): B1 (csrc/bvh_walk.cu) on three ray sets
+    (kernel_variants.ray_sets, bvh trees: 65,536 macbeth camera rays,
+    131,072 rays from their hit points, a quarter with t_max = 0, and
+    65,536 rays through the 40,000-triangle soup) against the plain walk
+    and, in turns, against the reference kernel; its device ms, bounds and
+    the warp efficiency of its first design's walk; then the graphed "bvh"
+    render beside the cluster one, and with NART_SKIP_SHADOW.  Returns
+    (B1's record, the bvh render's launches)."""
     import torch
 
-    from nart_tpu_torch import bvh, cuda_build, render, scene
+    from nart_tpu_torch import bvh, kernel_variants
 
-    rng = np.random.default_rng(0)
-    sc = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
-    tree = bvh.build_bvh(sc.tri_v.numpy()).to(DEVICE)
-    n = SIZES["camera_rays"]
-    cam = camera_rays(sc, n, rng, DEVICE)
-    log(f"(e) macbeth LBVH: {tree.n_leaves} leaves of {tree.leaf_size}, "
-        f"depth {tree.depth}")
-    _, err, equal, _ = _bvh_against_plain("macbeth camera rays", cam, tree)
+    sets = kernel_variants.ray_sets(torch.device(DEVICE),
+                                    np.random.default_rng(0), "bvh")
+    for label, (rays, tree) in sets.items():
+        log(f"(e) {label}: {rays[0].shape[0]} rays, LBVH of {tree.n_leaves} "
+            f"leaves of {tree.leaf_size}, depth {tree.depth}")
+    cam, tree = sets["camera"]
+    n = cam[0].shape[0]
+    _, err, equal, _, counts = _bvh_against_plain("camera rays", cam, tree)
     # and on the CPU: B1 rounds every operation on its own, the plain
     # walk's torch.linalg.cross rounds its products' difference once
     # (fused) on either device, so t may differ in its last bits there
@@ -1909,74 +2038,60 @@ def bvh_accel(size):
     equal_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(hk, hc))
     log(f"(e) B1 against the plain walk on the CPU, {few[0].shape[0]} of the "
         f"camera rays: bit-equal {equal_cpu}")
-    counts = {}
-    bvh.intersect_bvh_plain(*cam, tree, counts=counts)
-    t_k = kernel_ms(lambda: bvh.intersect_bvh(*cam, tree), SIZES["reps"])
-    t_a = kernel_ms(lambda: bvh.occluded_bvh(*cam, tree), SIZES["reps"])
-    t_p = stream_ms(lambda: bvh.intersect_bvh_plain(*cam, tree), 1, 3)
-    rec = dict(max_abs_err=err, bit_equal=equal, bit_equal_cpu=equal_cpu,
-               ms=t_k["ms"],
-               ms_min=t_k["min"], ms_max=t_k["max"],
-               ms_per_call=t_k["ms_per_call"], plain_ms=t_p["ms"],
-               library_ms=None, any_hit_ms=t_a["ms"],
-               **bvh_bound(tree, n, counts))
-    log(f"time B1 closest-hit {n} macbeth camera rays: kernel {fmt(t_k)}, "
-        f"plain {fmt(t_p)}; any-hit entry {fmt(t_a)}")
-    log(f"bound bvh_hit: {rec['bound_ms']:.6f} ms by {rec['bound_by']} "
-        f"({rec['bytes']} bytes; {rec['operations']} operations: {counts}): "
-        f"the kernel reaches {100.0 * rec['bound_ms'] / rec['ms']:.3f}% of "
-        "it")
-
-    nt = SIZES["soup_tris"]
-    tri = (rng.normal(size=(nt, 3, 3)) * 0.3
-           + rng.normal(size=(nt, 1, 3)) * 8.0).astype(np.float32)
-    tree_b = bvh.build_bvh(tri).to(DEVICE)
-    nb = SIZES["soup_rays"]
-    ob, db = random_rays(nb, rng, 0.0, 10.0)
-    rb = (torch.from_numpy(ob).to(DEVICE), torch.from_numpy(db).to(DEVICE),
-          torch.zeros(nb, device=DEVICE),
-          torch.from_numpy(np.where(rng.random(nb) < 0.25, 0.0, np.inf)
-                           .astype(np.float32)).to(DEVICE))
+    sh, _ = sets["hit points"]
+    _, err_h, _, _, counts_h = _bvh_against_plain("hit-point rays", sh, tree)
+    soup, tree_b = sets["soup"]
     # the plain walk takes its slowest ray's thousands of node visits, a
     # host read each, on the soup: a sixteenth of the rays against it
-    part = tuple(x[:nb // 16] for x in rb)
-    _, err_b, _, plain_b = _bvh_against_plain(
-        f"soup {nt} triangles (depth {tree_b.depth})", part, tree_b)
-    rec["max_abs_err"] = max(err, err_b)
-    t_b = kernel_ms(lambda: bvh.intersect_bvh(*rb, tree_b), 3)
-    log(f"time B1 closest-hit soup {nb} rays: kernel {fmt(t_b)}; the plain "
-        f"walk {plain_b:.3f} ms on {nb // 16} of them")
+    part = tuple(x[:soup[0].shape[0] // 16] for x in soup)
+    _, err_b, _, plain_b, counts_b = _bvh_against_plain(
+        f"soup (depth {tree_b.depth}), a sixteenth", part, tree_b)
 
-    w, h, spp = size
+    turns = bvh_turns(sets)
+    t_k = kernel_ms(lambda: bvh.intersect_bvh(*cam, tree), SIZES["reps"])
+    t_p = stream_ms(lambda: bvh.intersect_bvh_plain(*cam, tree), 1, 3)
+
+    def mean(x):
+        return sum(x) / len(x)
+
+    bounds = {"camera": bvh_bound(tree, n, counts),
+              "hit points": bvh_bound(tree, sh[0].shape[0], counts_h),
+              # the soup's work counted on a sixteenth of its rays, times 16
+              "soup": bvh_bound(tree_b, soup[0].shape[0], {
+                  k: 16 * counts_b[k] for k in ("nodes", "inner", "leaves")})}
+    shares = {}
+    for label, b in bounds.items():
+        t = turns[label]["closest-hit"]
+        shares[label] = {"new": b["bound_ms"] / mean(t["new"]),
+                         "reference": b["bound_ms"] / mean(t["reference"])}
+        log(f"bound bvh_hit {label}: {b['bound_ms']:.6f} ms by "
+            f"{b['bound_by']} ({b['bytes']} bytes; {b['operations']} "
+            f"operations): closest-hit reaches {100 * shares[label]['new']:.3f}"
+            f"% of it (the reference {100 * shares[label]['reference']:.3f}%)")
+    eff = {"camera": warp_efficiency(counts["ray_nodes"]),
+           "hit points": warp_efficiency(counts_h["ray_nodes"]),
+           "soup (a sixteenth)": warp_efficiency(counts_b["ray_nodes"])}
+    log(f"time B1 closest-hit {n} macbeth camera rays: kernel {fmt(t_k)}, "
+        f"plain {fmt(t_p)}; the plain walk {plain_b:.3f} ms on "
+        f"{part[0].shape[0]} soup rays; warp efficiency {eff}")
+    rec = dict(max_abs_err=max(err, err_h, err_b), bit_equal=equal,
+               bit_equal_cpu=equal_cpu, bit_equal_reference=True,
+               ms=t_k["ms"], ms_min=t_k["min"], ms_max=t_k["max"],
+               ms_per_call=t_k["ms_per_call"], plain_ms=t_p["ms"],
+               library_ms=None,
+               any_hit_ms=mean(turns["camera"]["any-hit"]["new"]),
+               reference_ms=mean(turns["camera"]["closest-hit"]["reference"]),
+               turns=turns, bound_shares=shares, warp_efficiency=eff,
+               **bounds["camera"])
+
     imgs, secs = {}, {}
     for kind in ("cluster", "bvh"):
-        params, sess = next(render.render_scene_file(
-            MACBETH, dict(image_width=w, image_height=h, spp=spp,
-                          accel=kind), device=DEVICE))
-        sess.render()  # captures the session's graph
-        cuda_build.reset_launch_counts()
-        before = machine_totals(sess.machines)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = sess.image()
-        torch.cuda.synchronize()
-        secs[kind] = time.perf_counter() - t0
-        after = machine_totals(sess.machines)
-        ran = after["rounds_run"] - before["rounds_run"]
-        launches = dict(cuda_build.launch_counts)
-        imgs[kind] = img.cpu().numpy()
-        log(f"accel {kind}: macbeth {w}x{h} {spp} spp graphed in "
-            f"{secs[kind]:.4f} s, {sess.stats}, {ran} rounds run, "
-            f"{after}, launches { {k: v for k, v in launches.items() if v} }")
-        want = ({"bvh_hit": 2 * ran} if kind == "bvh" else
-                {"closest_hit": ran, "any_hit": ran})
-        if (after["captures"] != 1
-                or any(launches[k] != v for k, v in want.items())
-                or (kind == "bvh" and any(launches[k] for k in TRAVERSAL))):
-            raise AssertionError(f"accel {kind}: launches {launches}, {ran} "
-                                 f"rounds run, {after}")
+        imgs[kind], secs[kind], ran, launches, sess = _bvh_render(kind, size)
         if kind == "bvh":
             counts_bvh = launches
+            _, _, _, busy_ms = device_busy("bvh render", sess.render,
+                                           secs[kind])
+        del sess
     if not np.isfinite(imgs["bvh"]).all():
         raise AssertionError("the bvh image is not finite")
     block_compare(imgs["bvh"], imgs["cluster"], 1e-3, 0.01, 0.95,
@@ -1985,6 +2100,19 @@ def bvh_accel(size):
                   label="bvh vs cluster (golden)")
     log(f"bvh / cluster wall time, both graphed: "
         f"{secs['bvh'] / secs['cluster']:.3f}x")
+    # the occlusion walk's share of a "bvh" round: the same render with
+    # every shadow ray unoccluded (B1 launched once a round run)
+    _, wall_skip, ran_skip, _, sess = _bvh_render("bvh", size,
+                                                  skip_shadow=True)
+    _, _, _, busy_skip = device_busy("bvh render, NART_SKIP_SHADOW",
+                                     sess.render, wall_skip)
+    del sess
+    log(f"bvh render with NART_SKIP_SHADOW / without: wall {wall_skip:.4f} / "
+        f"{secs['bvh']:.4f} s, device {busy_skip:.3f} / {busy_ms:.3f} ms, "
+        f"{ran_skip} rounds run")
+    rec["skip_shadow"] = {"wall_s": wall_skip, "device_ms": busy_skip,
+                          "unset_wall_s": secs["bvh"],
+                          "unset_device_ms": busy_ms}
     bvh_replay()
     return rec, counts_bvh
 
@@ -3480,12 +3608,18 @@ def main():
     t0 = time.perf_counter()
     sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE)
     libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc a source
+        report = pool.submit(ptxas_report, BVH_SOURCE)
         list(pool.map(cuda_build.build, libs))
+        report = report.result()
     for lib in libs:
         cuda_build.load(lib)
     log(f"build: {', '.join(sources)}, together, in "
         f"{time.perf_counter() - t0:.2f} s")
+    from nart_tpu_torch.kernel_variants import ptxas_kernels
+    for kname, regs, frame, st, ld in ptxas_kernels(report):
+        log(f"ptxas {BVH_SOURCE}: {kname} {regs} registers, stack frame "
+            f"{frame} B, spill stores {st} B, spill loads {ld} B")
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()

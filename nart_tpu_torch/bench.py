@@ -28,7 +28,9 @@ glassSphere, since the anchor times no other scene.  "#" lines on stderr give
 the same ratio against the fresh build's 137.58 s (null likewise), and each
 mode's per-run seconds, rounds, peak device memory and kernel
 launches (over its timed runs).  With no device named and no card, it
-raises (resolve_device).
+raises (resolve_device).  NART_SKIP_SHADOW (any non-empty value, as the
+JAX package's tools/bench_scene.py reads it) sets the path integrator's
+profiling knob: every shadow ray unoccluded, no occlusion walk launched.
 """
 
 import json
@@ -42,6 +44,7 @@ import torch
 
 from . import grad, render, resolve_device, testing
 from .cuda_build import launch_counts, reset_launch_counts
+from .integrators import path
 from .scene import load_scene
 
 # the reference renderer's checkout, where the JAX package's bench.py and
@@ -200,6 +203,8 @@ def run(size, spp, mode="fwdbwd", device=None, repeats=3):
 
 
 def main():
+    if os.environ.get("NART_SKIP_SHADOW"):
+        path._DEBUG_SKIP_SHADOW = True
     size = int(os.environ.get("NART_BENCH_SIZE", "512"))
     spp = int(os.environ.get("NART_BENCH_SPP", "16"))
     mode = os.environ.get("NART_BENCH_MODE", "fwdbwd")

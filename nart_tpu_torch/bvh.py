@@ -13,11 +13,19 @@ validity, as in the JAX package.
 
 Each query dispatches on the device of its tensors:
   * CUDA tensors launch the hand-written kernel of csrc/bvh_walk.cu
-    (``nart_bvh_hit``, B1: one thread walks one ray in the plain walk's
-    order, reading no host, so a round that calls it is captured into a
-    CUDA graph; its any-hit entry stops at the first hit, which gives the
-    same bool) and count the launch in ``cuda_build.launch_counts``
-    ("bvh_hit");
+    (``nart_bvh_hit``, B1: one thread walks one ray, testing the plain
+    walk's leaves in its order, inner nodes taken in a loop of their own
+    until a leaf is met; it reads no host, so a round that calls it is
+    captured into a CUDA graph; its any-hit entry stops at the first hit,
+    which gives the same bool) and count the launch in
+    ``cuda_build.launch_counts``
+    ("bvh_hit").  The kernel reads the tree's packed layout, which
+    ``build_bvh`` makes once (``pack_bvh``): the boxes of each pair of
+    siblings in one 48-byte row (``node_pairs``), and each triangle's
+    vertices with its plane normal in another (``tri_rec``).  The first
+    design of the kernel, ``nart_bvh_hit_ref``, stays as the reference the
+    card tests hold it to (``bvh_hit_ref_cuda``, counted as
+    "bvh_hit_reference"); no path launches it;
   * CPU tensors run the plain version, ``intersect_bvh_plain``: the
     lockstep masked walk of nart_tpu/accel.py intersect_bvh (the JAX walk
     is XLA's while_loop, not Pallas), one step of the whole wavefront per
@@ -60,6 +68,10 @@ class BVH:
     n_leaves: int  # power of two
     leaf_size: int
     depth: int  # tree depth (root = 0)
+    # the kernel's layout (pack_bvh): row i the boxes of nodes 2i+1 and
+    # 2i+2 (lo, hi, lo, hi); a triangle's v0, v1, v2 and plane normal
+    node_pairs: Any  # (n_leaves - 1, 12) f32
+    tri_rec: Any  # (T_padded, 12) f32
 
     def to(self, device):
         return _to_device(self, device)
@@ -107,15 +119,37 @@ def build_bvh_arrays(tri_v: np.ndarray, leaf_size: int = 8) -> dict:
                 depth=int(np.log2(n_leaves)))
 
 
+def pack_bvh(node_lo, node_hi, tri_v) -> dict:
+    """The kernel's layout of a tree (numpy, once, when it is built):
+    node_pairs (n_leaves - 1, 12), row i the boxes of nodes 2i+1 and 2i+2
+    (lo, hi, lo, hi: three float4 loads), and tri_rec (T_padded, 12), each
+    triangle's v0, v1, v2 and plane normal n = (v1 - v0) x (v2 - v0), one
+    float32 operation at a time in csrc/bvh_walk.cu's order (each product
+    rounded, then their difference), so the kernel's t keeps its bits."""
+    boxes = np.concatenate([node_lo, node_hi], axis=1)  # (n_nodes, 6)
+    pairs = boxes[1:].reshape(-1, 12).copy()  # its own, aligned buffer
+    v0, v1, v2 = tri_v[:, 0], tri_v[:, 1], tri_v[:, 2]
+    a, b = v1 - v0, v2 - v0
+    n = np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                  a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                  a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=1)
+    rec = np.concatenate([tri_v.reshape(-1, 9), n], axis=1)
+    return dict(node_pairs=pairs, tri_rec=rec)
+
+
 def build_bvh(tri_v, leaf_size: int = 8) -> BVH:
-    """The LBVH of a (T, 3, 3) triangle soup, as CPU tensors."""
+    """The LBVH of a (T, 3, 3) triangle soup, as CPU tensors, with the
+    kernel's packed layout."""
     a = build_bvh_arrays(np.asarray(tri_v), leaf_size)
+    a.update(pack_bvh(a["node_lo"], a["node_hi"], a["tri_v"]))
     return BVH(node_lo=torch.from_numpy(a["node_lo"]),
                node_hi=torch.from_numpy(a["node_hi"]),
                order=torch.from_numpy(a["order"]).long(),
                tri_v=torch.from_numpy(a["tri_v"]),
                n_leaves=a["n_leaves"], leaf_size=a["leaf_size"],
-               depth=a["depth"])
+               depth=a["depth"],
+               node_pairs=torch.from_numpy(a["node_pairs"]),
+               tri_rec=torch.from_numpy(a["tri_rec"]))
 
 
 def _slab_test(o, inv_d, t_min, t_max, lo, hi):
@@ -167,7 +201,8 @@ def intersect_bvh_plain(o, d, t_min, t_max, bvh: BVH, counts=None) -> Hit:
     triangle ids in the original soup numbering.  counts, a dict, gets the
     walk's work summed over the rays: "nodes" popped (one slab test each),
     "inner" nodes passed (two child slab tests each) and "leaves" passed
-    (leaf_size triangle tests each)."""
+    (leaf_size triangle tests each); and "ray_nodes", the nodes each ray
+    popped ((N,) int64)."""
     n = o.shape[0]
     dev = o.device
     shear = ray_shear(d)
@@ -186,6 +221,8 @@ def intersect_bvh_plain(o, d, t_min, t_max, bvh: BVH, counts=None) -> Hit:
     v_best = torch.zeros(n, device=dev)
     rows = torch.arange(n, device=dev)
     lanes = torch.arange(bvh.leaf_size, device=dev)
+    # per ray: nodes popped, inner nodes and leaves passed
+    work = torch.zeros((3, n), dtype=torch.int64, device=dev)
 
     def push(stack, sp, mask, node):
         """stack[r, sp[r]] = node[r] and sp[r] += 1 on rows where mask."""
@@ -204,9 +241,7 @@ def intersect_bvh_plain(o, d, t_min, t_max, bvh: BVH, counts=None) -> Hit:
         box_hit = box_hit & live
         is_leaf = node >= leaf0
         if counts is not None:
-            for key, m in (("nodes", live), ("inner", box_hit & ~is_leaf),
-                           ("leaves", box_hit & is_leaf)):
-                counts[key] = counts.get(key, 0) + int(m.sum())
+            work += torch.stack([live, box_hit & ~is_leaf, box_hit & is_leaf])
 
         # leaf: the leaf's triangles
         do_tri = box_hit & is_leaf
@@ -238,6 +273,10 @@ def intersect_bvh_plain(o, d, t_min, t_max, bvh: BVH, counts=None) -> Hit:
         stack, sp = push(stack, sp, inner & (h_first | h_second),
                          torch.where(h_second, second, first))
 
+    if counts is not None:
+        for key, w in zip(("nodes", "inner", "leaves"), work):
+            counts[key] = counts.get(key, 0) + int(w.sum())
+        counts["ray_nodes"] = work[0]
     t = torch.where(tri_best >= 0, t_best, INF)
     return Hit(t=t, tri=tri_best, u=u_best, v=v_best)
 
@@ -251,9 +290,12 @@ def _kernel_lib():
     lib = cuda_build.load("bvh_walk")
     if lib.nart_bvh_hit.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nart_bvh_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, p, i, i, i,
-                                     i, p, p, p, p, p, p]
-        lib.nart_bvh_hit.restype = ctypes.c_int
+        for f in (lib.nart_bvh_hit, lib.nart_bvh_hit_ref):
+            f.restype = ctypes.c_int
+        lib.nart_bvh_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, p, p, i,
+                                     i, i, i, p, p, p, p, p, p]
+        lib.nart_bvh_hit_ref.argtypes = [p, p, p, i, p, i, i, p, p, p, p, i,
+                                         i, i, i, p, p, p, p, p, p]
         lib.nart_bvh_max_depth.argtypes = []
         lib.nart_bvh_max_depth.restype = ctypes.c_int
         if lib.nart_bvh_max_depth() != MAX_DEPTH:
@@ -263,7 +305,7 @@ def _kernel_lib():
 
 
 def _check_args(o, d, t_min, t_max, bvh: BVH):
-    """Refuse what the kernel does not take; returns (n, the steps of t_min
+    """Refuse what the kernels do not take; returns (n, the steps of t_min
     and t_max: 1 for (n,), 0 for one value)."""
     if bvh.depth > MAX_DEPTH:
         raise ValueError(f"the tree's depth {bvh.depth} exceeds the "
@@ -280,13 +322,20 @@ def _check_args(o, d, t_min, t_max, bvh: BVH):
     _check("node_hi", bvh.node_hi, torch.float32, (2 * bvh.n_leaves - 1, 3))
     _check("tri_v", bvh.tri_v, torch.float32, (n_tris, 3, 3))
     _check("order", bvh.order, torch.int64, (n_tris,))
-    for x in (d, t_min, t_max, bvh.node_lo, bvh.tri_v):
+    _check("node_pairs", bvh.node_pairs, torch.float32, (bvh.n_leaves - 1, 12))
+    _check("tri_rec", bvh.tri_rec, torch.float32, (n_tris, 12))
+    for name in ("node_pairs", "tri_rec"):  # read as float4
+        if getattr(bvh, name).data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for x in (d, t_min, t_max, bvh.node_lo, bvh.tri_v, bvh.node_pairs,
+              bvh.tri_rec):
         if x.device != o.device:
             raise ValueError("rays and tree must be on one device")
     return n, steps
 
 
-def _bvh_cuda(o, d, t_min, t_max, bvh: BVH, any_hit: bool):
+def _bvh_cuda(o, d, t_min, t_max, bvh: BVH, any_hit: bool,
+              reference: bool = False):
     n, (s_min, s_max) = _check_args(o, d, t_min, t_max, bvh)
     lib = _kernel_lib()
     dev = o.device
@@ -298,15 +347,20 @@ def _bvh_cuda(o, d, t_min, t_max, bvh: BVH, any_hit: bool):
                   tri=torch.empty(n, dtype=torch.int64, device=dev),
                   u=torch.empty(n, device=dev), v=torch.empty(n, device=dev))
         outs = tuple(x.data_ptr() for x in hit) + (None,)
-    rc = lib.nart_bvh_hit(
-        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), s_min, t_max.data_ptr(),
-        s_max, n, bvh.node_lo.data_ptr(), bvh.node_hi.data_ptr(),
-        bvh.tri_v.data_ptr(), bvh.order.data_ptr(), bvh.n_leaves,
-        bvh.leaf_size, bvh.depth, int(any_hit), *outs,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rays = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), s_min,
+            t_max.data_ptr(), s_max, n, bvh.node_lo.data_ptr(),
+            bvh.node_hi.data_ptr())
+    tail = (bvh.order.data_ptr(), bvh.n_leaves, bvh.leaf_size, bvh.depth,
+            int(any_hit), *outs, torch.cuda.current_stream(dev).cuda_stream)
+    if reference:
+        rc = lib.nart_bvh_hit_ref(*rays, bvh.tri_v.data_ptr(), *tail)
+    else:
+        rc = lib.nart_bvh_hit(*rays, bvh.node_pairs.data_ptr(),
+                              bvh.tri_rec.data_ptr(), *tail)
+    name = "nart_bvh_hit_ref" if reference else "nart_bvh_hit"
     if rc != 0:
-        raise RuntimeError(f"nart_bvh_hit launch failed: CUDA error {rc}")
-    cuda_build.count_launch("bvh_hit")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    cuda_build.count_launch("bvh_hit_reference" if reference else "bvh_hit")
     return occ if any_hit else hit
 
 
@@ -319,6 +373,13 @@ def bvh_hit_cuda(o, d, t_min, t_max, bvh: BVH) -> Hit:
 def bvh_any_cuda(o, d, t_min, t_max, bvh: BVH):
     """Launch nart_bvh_hit's any-hit walk on CUDA tensors: (N,) bool."""
     return _bvh_cuda(o, d, t_min, t_max, bvh, True)
+
+
+def bvh_hit_ref_cuda(o, d, t_min, t_max, bvh: BVH, any_hit=False):
+    """The reference kernel, nart_bvh_hit_ref (the walk's first design),
+    on the same arguments: a Hit, or (N,) bool where any_hit.  Only the
+    checks that hold the kernel to its bits call it."""
+    return _bvh_cuda(o, d, t_min, t_max, bvh, any_hit, reference=True)
 
 
 def intersect_bvh(o, d, t_min, t_max, bvh: BVH) -> Hit:

@@ -47,12 +47,13 @@ _loaded: dict = {}
 # It then adds one to captured_launches instead, and the code that replays
 # the graph (rounds.RoundRunner, rounds.ReplayRunner) adds those counts to
 # launch_counts at every replay
-# (the small-table backward's two-launch route, the reference no path
-# launches, counts under a name of its own: "lut_gather_bwd_reference")
+# (the small-table backward's two-launch route and the LBVH walk's first
+# design, the references no path launches, count under names of their own:
+# "lut_gather_bwd_reference", "bvh_hit_reference")
 launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
                  "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
-                 "bvh_hit": 0}
+                 "bvh_hit": 0, "bvh_hit_reference": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

@@ -67,6 +67,11 @@ STACK_K = 8  # nested-dielectric stack slots per lane
 _FAR_POINT = 1e8
 _ONE_MINUS_EPS = float(np.float32(1.0) - np.float32(1.1920929e-07))
 _RR_SCALE = float(np.float32(0.33333))
+# profiling only (nart_tpu/integrators/path.py:45): every shadow ray
+# unoccluded, no occlusion walk launched; read when a machine is made
+# (_make_queries), so a kept machine keeps the value it was made with.
+# `python -m nart_tpu_torch.bench` sets it from NART_SKIP_SHADOW
+_DEBUG_SKIP_SHADOW = False
 
 # nested-dielectric entries are packed: (stamp << 22) | (prio << 14) | mesh,
 # 0 = empty (stamps start at 1)
@@ -320,7 +325,19 @@ def _sorted_query(query, key, o, d, t_min, t_max):
 
 
 def _make_queries(scene, accel, params):
-    """(isect, occluded) for the resolved accel kind."""
+    """(isect, occluded) for the resolved accel kind; with
+    _DEBUG_SKIP_SHADOW, occluded answers False for every ray and launches
+    nothing."""
+    isect, occluded = _traversal_queries(scene, accel, params)
+    if _DEBUG_SKIP_SHADOW:
+        def occluded(o, d, t_min, t_max):
+            return torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+
+    return isect, occluded
+
+
+def _traversal_queries(scene, accel, params):
+    """(isect, occluded) of the scene's traversal for its accel kind."""
     kind = resolve_accel_kind(params.accel)
     if kind == "bvh":
         def isect(o, d, t_min, t_max):

@@ -1,6 +1,8 @@
-"""Development tool: what each design choice of csrc/cluster_hit.cu buys.
+"""Development tool: what each design choice of csrc/cluster_hit.cu (K1,
+K2) or csrc/bvh_walk.cu (B1) buys.
 
     python -m nart_tpu_torch.kernel_variants [--rounds 3] [--reps 20]
+    python -m nart_tpu_torch.kernel_variants --kernel bvh [--rounds 3]
 
 Builds the kernel source as it is and variants of it made by exact text
 substitution (``VARIANTS``; a substitution whose anchor is not found exactly
@@ -25,7 +27,29 @@ and 131,072 rays from hit points of the macbeth scene and on 65,536 rays
 through a 40,000-triangle soup, and whether every output equals the
 as-built kernel's.  The package's wrappers are left as they are: the tool
 hands them a variant's library in place of the one cuda_build would load.
-Needs a CUDA device and nvcc.
+
+``--kernel bvh`` does the same for B1 (``BVH_VARIANTS``): one loop that
+takes one node a step, a leaf or an inner node (in place of the
+while-while walk's inner loop, then the leaf); the while-while walk in two
+other shapes (the leaf tested as the node the inner loop broke at, the
+loop returning when the stack runs out; the leaf held in a variable of its
+own, the inner loop breaking at it, the walk ending where that loop finds
+the stack empty); the while-while walk with a postponed leaf (a lane that
+meets a leaf puts it off and walks on until it meets a second or every
+lane of its warp holds one, each leaf's t_enter checked against t_best
+again before its tests, which keeps the bits); the stack's depth in local
+memory, in the stack's struct (in place of a register); all 24 loads of a
+leaf of 8 in flight on the closest-hit walk too; a leaf of 8 tested plane
+first (the planes of all 8 from two of each record's three loads, then the
+edge functions of those whose t passed, in index order); the loop for
+every leaf size on the any-hit walk too; the stack in shared memory
+([slot][thread], depth + 1 entries); blocks of 64 threads in place of
+128.  Its rows time the closest-hit and any-hit entries on the three ray
+sets (bvh trees of the same triangles) on the device (calls captured into
+one CUDA graph, replay ms over calls), beside the reference kernel
+(nart_bvh_hit_ref, the walk's first design) in every round, and check
+every output against the reference's bits.  Needs a CUDA device and
+nvcc.
 """
 
 from __future__ import annotations
@@ -42,11 +66,12 @@ from unittest import mock
 import numpy as np
 import torch
 
-from . import camera, cluster_accel as ca, cuda_build
+from . import bvh, camera, cluster_accel as ca, cuda_build
 from .kernel_stats import DEFAULT_SCENE
 from .scene import load_scene
 
 SOURCE = os.path.join(cuda_build.SRC_DIR, "cluster_hit.cu")
+BVH_SOURCE = os.path.join(cuda_build.SRC_DIR, "bvh_walk.cu")
 
 # a zero that the compiler cannot know, for the repeated passes
 _ZERO = [
@@ -95,12 +120,222 @@ VARIANTS = {
 }
 
 
-def variant_sources() -> dict:
-    """{variant: its source text}, each substitution applied exactly once."""
-    with open(SOURCE) as f:
+# B1's variants (csrc/bvh_walk.cu)
+_BVH_STACK = """struct Stack {
+  int2 slot[kStack];
+};
+"""
+_BVH_SHARED_STACK = """extern __shared__ int2 g_stack[];  // [slot][thread]
+
+struct Stack {
+  int2* slot = g_stack + threadIdx.x;
+};
+"""
+_BVH_LAUNCH = """            const Tree& tree, const Out& out, cudaStream_t s) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+"""
+_BVH_KERNELS = ("<<<blocks, kThreads, 0, s>>>(\n        o, d, t_min, "
+                "t_min_step, t_max, t_max_step, n, tree, out);\n  }")
+_BVH_LEAF8 = """    float4 q[24];  // every load of the leaf in flight before its tests
+#pragma unroll
+    for (int k = 0; k < 24; ++k) q[k] = __ldg(rec + k);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float v[9], n[3];
+      unpack(q[3 * k], q[3 * k + 1], q[3 * k + 2], v, n);
+      any |= leaf_tri<kAny>(v, n, r, t_hi, base + k, t_leaf, hit);
+    }
+"""
+_BVH_PLANE_FIRST = """    // the planes of all 8 first, from v0 and n (each record's first and
+    // third float4), then the edge functions of those whose t passed the
+    // window, in index order
+    unsigned cand = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 a = __ldg(rec + 3 * k), c = __ldg(rec + 3 * k + 2);
+      const float v0[3] = {a.x, a.y, a.z}, n[3] = {c.y, c.z, c.w};
+      const float t = plane_t(v0, n, r);
+      if (t > r.t_min && t < t_hi) cand |= 1u << k;
+    }
+    while (cand != 0 && !any) {
+      const int k = __ffs(cand) - 1;
+      cand &= cand - 1;
+      float v[9], n[3];
+      unpack(__ldg(rec + 3 * k), __ldg(rec + 3 * k + 1),
+             __ldg(rec + 3 * k + 2), v, n);
+      any = leaf_tri<kAny>(v, n, r, t_hi, base + k, t_leaf, hit);
+    }
+"""
+_BVH_WALK = """  int leaf = -1;
+  while (true) {
+    while (true) {  // inner nodes, until this lane holds a leaf
+      if (!have) {
+        if (sp == 0) break;
+        pop(st, sp, node, e);
+        // the reference's slab test at the pop: t_enter passed against a
+        // t_best at least this large when the node was pushed
+        if (!(e <= best.t)) continue;
+        have = true;
+      }
+      if (node >= leaf0) {
+        leaf = node;
+        have = false;
+      } else {
+        have = descend(tree, r, best.t, st, sp, node, e);
+      }
+      if (leaf >= 0) break;
+    }
+    if (leaf >= 0) {
+      if (leaf_test<kAny, kLeaf8>(tree, leaf, r, best)) return true;
+      leaf = -1;
+    }
+    if (!have && sp == 0) return false;
+  }
+"""
+_BVH_ONE_A_STEP = """  while (true) {
+    if (!have) {
+      if (sp == 0) return false;
+      pop(st, sp, node, e);
+      if (!(e <= best.t)) continue;
+    }
+    if (node >= leaf0) {
+      have = false;
+      if (leaf_test<kAny, kLeaf8>(tree, node, r, best)) return true;
+    } else {
+      have = descend(tree, r, best.t, st, sp, node, e);
+    }
+  }
+"""
+# the same walk with the leaf tested where the inner loop breaks (node
+# itself), the loop returning when the stack runs out
+_BVH_LEAF_IN_LOOP = """  while (true) {
+    while (true) {  // inner nodes, until this lane holds a leaf
+      if (!have) {
+        if (sp == 0) return false;
+        pop(st, sp, node, e);
+        if (!(e <= best.t)) continue;
+      }
+      if (node >= leaf0) break;
+      have = descend(tree, r, best.t, st, sp, node, e);
+    }
+    have = false;
+    if (leaf_test<kAny, kLeaf8>(tree, node, r, best)) return true;
+  }
+"""
+# the leaf held in a variable of its own, the inner loop breaking at it and
+# the walk ending where that loop finds the stack empty
+_BVH_LEAF_ONCE = """  int leaf = -1;
+  while (true) {
+    while (true) {  // inner nodes, until this lane holds a leaf
+      if (!have) {
+        if (sp == 0) break;
+        pop(st, sp, node, e);
+        if (!(e <= best.t)) continue;
+        have = true;
+      }
+      if (node >= leaf0) {
+        leaf = node;
+        have = false;
+        break;
+      }
+      have = descend(tree, r, best.t, st, sp, node, e);
+    }
+    if (leaf < 0) return false;  // the stack ran out
+    if (leaf_test<kAny, kLeaf8>(tree, leaf, r, best)) return true;
+    leaf = -1;
+  }
+"""
+# the postponed leaf: a leaf met is put off while the lane walks on through
+# inner nodes, until it meets a second one or every lane of its warp holds
+# one; the inner steps between prune with a t_best that has not seen the
+# put-off leaf, so each leaf's t_enter is checked against t_best again just
+# before its triangles are tested (a box inside another is entered no
+# earlier), which keeps the bits
+_BVH_POSTPONED = """  int leaf = -1;  // the put-off leaf
+  float leaf_e = 0.0f;
+  while (true) {
+    while (true) {  // inner nodes
+      if (!have) {
+        if (sp == 0) break;
+        pop(st, sp, node, e);
+        if (!(e <= best.t)) continue;
+        have = true;
+      }
+      if (node >= leaf0) {
+        if (leaf >= 0) break;  // a second leaf: test both
+        leaf = node;
+        leaf_e = e;
+        have = false;
+      } else {
+        have = descend(tree, r, best.t, st, sp, node, e);
+      }
+      if (__all_sync(__activemask(), leaf >= 0)) break;
+    }
+    if (leaf >= 0) {
+      if (leaf_e <= best.t && leaf_test<kAny, kLeaf8>(tree, leaf, r, best))
+        return true;
+      leaf = -1;
+    }
+    if (have && node >= leaf0) {
+      have = false;
+      if (e <= best.t && leaf_test<kAny, kLeaf8>(tree, node, r, best))
+        return true;
+    }
+    if (!have && sp == 0) return false;
+  }
+"""
+_BVH_LEAF8_ENTRIES = [("if (kAny && tree.leaf_size == 8) {",
+                       "if (tree.leaf_size == 8) {"),
+                      ("bvh_walk_kernel<kAny, kAny><<<",
+                       "bvh_walk_kernel<kAny, true><<<")]
+
+BVH_VARIANTS = {
+    "as built": [],
+    "one node a step": [(_BVH_WALK, _BVH_ONE_A_STEP)],
+    "leaf in the loop": [(_BVH_WALK, _BVH_LEAF_IN_LOOP)],
+    "leaf held once": [(_BVH_WALK, _BVH_LEAF_ONCE)],
+    "postponed leaf": [(_BVH_WALK, _BVH_POSTPONED)],
+    "depth in memory": [
+        (_BVH_STACK, _BVH_STACK.replace("struct Stack {\n",
+                                        "struct Stack {\n  int sp = 0;\n")),
+        ("  Stack st;\n  int sp = 0;\n", "  Stack st;\n  int& sp = st.sp;\n")],
+    "leaf8 closest": _BVH_LEAF8_ENTRIES,
+    "plane first": [(_BVH_LEAF8, _BVH_PLANE_FIRST)] + _BVH_LEAF8_ENTRIES,
+    "leaf loop any": [("if (kAny && tree.leaf_size == 8) {",
+                       "if (false) {")],
+    "shared stack": [
+        (_BVH_STACK, _BVH_SHARED_STACK),
+        ("  st.slot[sp++] = make_int2", "  st.slot[kThreads * sp++] = make_int2"),
+        ("  const int2 x = st.slot[--sp];",
+         "  const int2 x = st.slot[kThreads * --sp];"),
+        (_BVH_LAUNCH, _BVH_LAUNCH.replace("cudaStream_t s) {",
+                                          "cudaStream_t s, int depth) {")
+         + "  const size_t smem = (size_t)(depth + 1) * kThreads * "
+           "sizeof(int2);\n"),
+        (_BVH_KERNELS + " else {", _BVH_KERNELS.replace(", 0, s>>>",
+                                                        ", smem, s>>>")
+         + " else {"),
+        (_BVH_KERNELS + "\n}", _BVH_KERNELS.replace(", 0, s>>>",
+                                                    ", smem, s>>>") + "\n}"),
+        ("n, tree, out, s);\n  } else {",
+         "n, tree, out, s, depth);\n  } else {"),
+        ("n, tree, out, s);\n  }\n  return",
+         "n, tree, out, s, depth);\n  }\n  return"),
+    ],
+    "64 threads": [("constexpr int kThreads = 128;",
+                    "constexpr int kThreads = 64;")],
+}
+KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS)}
+
+
+def variant_sources(kernel="cluster") -> dict:
+    """{variant: its source text} of a kernel's source ("cluster" or
+    "bvh"), each substitution applied exactly once."""
+    source, variants = KERNELS[kernel]
+    with open(source) as f:
         base = f.read()
     out = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = base
         for old, new in subs:
             if text.count(old) != 1:
@@ -111,11 +346,52 @@ def variant_sources() -> dict:
     return out
 
 
+def ptxas_kernels(report):
+    """(kernel's mangled name, registers, stack frame bytes, spill store
+    bytes, spill load bytes) of every entry function in a ptxas -v
+    report."""
+    rows = []
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
+            r"(\d+) registers", report, re.S):
+        name, frame, st, ld, regs = m.groups()
+        rows.append((name, int(regs), int(frame), int(st), int(ld)))
+    return sorted(rows)
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device ms of a call of fn: `calls` calls captured into one CUDA
+    graph (after two warm calls on a side stream), the median of `replays`
+    replays between CUDA events, over the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
 def _build(name, text):
     """nvcc on one variant's source: (library path, ptxas' report)."""
     root = os.path.join(cuda_build.BUILD_DIR, "variants")
     os.makedirs(root, exist_ok=True)
-    stem = os.path.join(root, name.replace(" ", "_"))
+    stem = os.path.join(root, re.sub(r"\W+", "_", name))
     with open(stem + ".cu", "w") as f:
         f.write(text)
     proc = subprocess.run(
@@ -124,19 +400,6 @@ def _build(name, text):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
     return stem + ".so", proc.stderr
-
-
-def ptxas_rows(report):
-    """(kTiles, kAny, kStats, registers, spill store bytes, spill load
-    bytes) of every walk_kernel instantiation in a ptxas -v report."""
-    rows = []
-    for m in re.finditer(
-            r"walk_kernelILi(\d)ELb([01])ELb([01])E.*?(\d+) bytes spill "
-            r"stores, (\d+) bytes spill loads.*?Used (\d+) registers",
-            report, re.S):
-        tiles, any_hit, stats, st, ld, regs = (int(x) for x in m.groups())
-        rows.append((tiles, bool(any_hit), bool(stats), regs, st, ld))
-    return sorted(rows)
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -154,11 +417,15 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def ray_sets(dev, rng):
+def ray_sets(dev, rng, kind="cluster"):
     """The three ray sets of the smoke run's kernel phase, by its recipe:
-    {label: (rays, accel)}."""
+    {label: (rays, accel)}, the accel of kind "cluster" (K1's clusters) or
+    "bvh" (B1's LBVH) over the same triangles."""
+    build, closest = ((ca.build_clusters, ca.intersect_clusters)
+                      if kind == "cluster" else
+                      (bvh.build_bvh, bvh.intersect_bvh))
     sc = load_scene(DEFAULT_SCENE)
-    acc = ca.build_clusters(sc.tri_v.numpy()).to(dev)
+    acc = build(sc.tri_v.numpy()).to(dev)
     n, m = 65536, 131072
     o, d = camera.cast_rays(
         sc.cam_to_world, sc.fov, 1280, 720,
@@ -168,7 +435,7 @@ def ray_sets(dev, rng):
     o, d = o.to(dev), d.to(dev)
     cam = (o, d, torch.zeros(n, device=dev),
            torch.full((n,), float("inf"), device=dev))
-    hit = ca.intersect_clusters(*cam, acc)
+    hit = closest(*cam, acc)
     idx = torch.nonzero(hit.tri >= 0)[:, 0]
     pick = idx[torch.from_numpy(rng.integers(0, len(idx), m)).to(dev)]
     d2 = rng.normal(size=(m, 3)).astype(np.float32)
@@ -187,7 +454,7 @@ def ray_sets(dev, rng):
 
     tri = (rng.normal(size=(40000, 3, 3)) * 0.3
            + rng.normal(size=(40000, 1, 3)) * 8.0).astype(np.float32)
-    acc_b = ca.build_clusters(tri).to(dev)
+    acc_b = build(tri).to(dev)
     ob = (rng.normal(size=(n, 3)) * 10.0).astype(np.float32)
     db = rng.normal(size=(n, 3)).astype(np.float32)
     db /= np.linalg.norm(db, axis=-1, keepdims=True)
@@ -198,8 +465,62 @@ def ray_sets(dev, rng):
             "soup": (soup, acc_b)}
 
 
+def bvh_cases(sets):
+    """{"entry set": a call of a B1 entry (closest-hit, any-hit) through
+    its wrapper on a ray set of ray_sets(..., "bvh")} (reference=True calls
+    nart_bvh_hit_ref instead): each returns a tuple of output tensors."""
+    cases = {}
+    for label in ("camera", "hit points", "soup"):
+        for entry, any_hit in (("closest-hit", False), ("any-hit", True)):
+            def call(reference=False, r=sets[label], a=any_hit):
+                if reference:
+                    out = bvh.bvh_hit_ref_cuda(*r[0], r[1], any_hit=a)
+                else:
+                    out = (bvh.bvh_any_cuda if a else bvh.bvh_hit_cuda)(
+                        *r[0], r[1])
+                return (out,) if a else tuple(out)
+            cases[f"{entry} {label}"] = call
+    return cases
+
+
+def _run_bvh(built, args):
+    """B1's rows: every variant (and the reference, from the as-built
+    library) timed on every case, in turns, checked against the
+    reference's bits."""
+    sets = ray_sets(torch.device("cuda"), np.random.default_rng(0), "bvh")
+    for label, (rays, tree) in sets.items():
+        print(f"ray set {label}: {rays[0].shape[0]} rays, tree of "
+              f"{tree.n_leaves} leaves of {tree.leaf_size}, depth "
+              f"{tree.depth}", flush=True)
+    cases = bvh_cases(sets)
+    libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
+    want = {}
+    with mock.patch.object(cuda_build, "load",
+                           lambda _name: libs["as built"]):
+        for label, fn in cases.items():
+            want[label] = fn(reference=True)
+    for rnd in range(args.rounds):
+        rows = [("reference", "as built", True)] + [
+            (name, name, False) for name in built]
+        for row, lib_name, ref in rows:
+            with mock.patch.object(cuda_build, "load",
+                                   lambda _name, n=lib_name: libs[n]):
+                same = True
+                times = []
+                for label, fn in cases.items():
+                    same &= all(torch.equal(a, b) for a, b in
+                                zip(fn(reference=ref), want[label]))
+                    ms = graph_ms(lambda f=fn: f(reference=ref), args.reps)
+                    times.append(f"{label} {ms:.4f}")
+            print(f"round {rnd + 1} {row:14s} " + "  ".join(times)
+                  + f"  same={same}", flush=True)
+            if not same:
+                raise AssertionError(f"variant {row!r} changed a result")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="cluster")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -210,16 +531,19 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
 
-    sources = variant_sources()
+    sources = variant_sources(args.kernel)
     with ThreadPoolExecutor() as pool:  # one nvcc each, all started together
-        built = dict(zip(sources, pool.map(_build, sources,
-                                           sources.values())))
+        built = dict(zip(sources, pool.map(
+            _build, [f"{args.kernel} {n}" for n in sources],
+            sources.values())))
     for name, (_, report) in built.items():
-        for tiles, any_hit, stats, regs, st, ld in ptxas_rows(report):
-            print(f"ptxas {name}: walk_kernel<{tiles}, "
-                  f"{'any' if any_hit else 'closest'}"
-                  f"{', stats' if stats else ''}> {regs} registers, spill "
-                  f"stores {st} B, spill loads {ld} B", flush=True)
+        for kname, regs, frame, st, ld in ptxas_kernels(report):
+            print(f"ptxas {name}: {kname} {regs} registers, stack frame "
+                  f"{frame} B, spill stores {st} B, spill loads {ld} B",
+                  flush=True)
+    if args.kernel == "bvh":
+        _run_bvh(built, args)
+        return
 
     sets = ray_sets(torch.device("cuda"), np.random.default_rng(0))
     cases = {}  # label: a kernel through its wrapper, returning one tensor

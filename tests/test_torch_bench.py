@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from nart_tpu_torch import bench, bench_configs, bench_volume_grad, render
+from nart_tpu_torch.integrators import path as tpath
 from tests.test_torch_harness import one_intra_op_thread  # noqa: F401
 
+MACBETH = os.path.join(os.path.dirname(__file__), "fixtures", "macbeth",
+                       "macbeth.json")
 ROW_KEYS = {"config", "size", "spp", "fwd_s", "fwd_mrays_per_s",
             "fwd_spread_pct", "fwd_runs_s", "rays", "validated_by", "rounds",
             "peak_mib", "device"}
@@ -106,3 +109,64 @@ def test_volume_grad_routes():
             g = r["grads"]["medium"][k]
             assert bool(torch.isfinite(g).all()), (route, k)
         assert float(r["grads"]["medium"]["sigma_s"].abs().sum()) > 0.0
+
+
+@pytest.mark.parametrize("kind", ["cluster", "bvh"])
+def test_skip_shadow_knob(monkeypatch, kind):
+    """path._DEBUG_SKIP_SHADOW (NART_SKIP_SHADOW): a machine made with it
+    set never calls the occlusion query (so launches no walk) and renders
+    the film of a query that answers False for every ray; a fwd+bwd runs
+    with it (its replay keeps the False answers); unset, the occlusion
+    query is called once a round run and its answers change the film."""
+    # macbeth: the spheres and the plane shadow each other from the env map
+    (params, sess), = render.render_scene_file(
+        MACBETH, dict(image_width=8, image_height=8, spp=2, bounces=4,
+                      accel=kind), device="cpu")
+    sc = sess.scene
+    real = {"cluster": tpath.intersect_clusters_any,
+            "bvh": tpath.occluded_bvh}
+    calls = {"occluded": 0}
+
+    def counted(name, answer=None):
+        def query(o, d, t_min, t_max, acc):
+            calls["occluded"] += 1
+            if answer is None:
+                return real[name](o, d, t_min, t_max, acc)
+            return torch.zeros(o.shape[0], dtype=torch.bool)
+        return query
+
+    name = "intersect_clusters_any" if kind == "cluster" else "occluded_bvh"
+    query_name = "cluster" if kind == "cluster" else "bvh"
+    monkeypatch.setattr(tpath, name, counted(query_name))
+    film = sess.render()
+    # once a round run (the k-round schedule runs a few past the end)
+    assert calls["occluded"] >= sess.stats["rounds"] > 0
+    monkeypatch.setattr(tpath, name, counted(query_name, answer=False))
+    unoccluded = render.RenderSession(sc, params, "cpu").render()
+    assert not torch.equal(unoccluded, film)
+
+    calls["occluded"] = 0
+    monkeypatch.setattr(tpath, "_DEBUG_SKIP_SHADOW", True)
+    skip = render.RenderSession(sc, params, "cpu")
+    assert torch.equal(skip.render(), unoccluded)
+    samples = render.image_samples(8, 8, skip.total_w, 2, "cpu")
+    rays, rounds, g = bench.fwdbwd_run(skip, samples,
+                                       bench.rgb_cot(2, 64, "cpu"))
+    assert rays > 0 and rounds > 0 and torch.isfinite(g["rho_d_const"]).all()
+    assert calls["occluded"] == 0
+
+
+def test_bench_main_reads_skip_shadow(monkeypatch, capsys):
+    """bench.main sets the knob from NART_SKIP_SHADOW, as the JAX package's
+    tools/bench_scene.py does, and leaves it unset without it."""
+    line = dict.fromkeys(bench.LINE_KEYS, 0.0)
+    monkeypatch.setattr(bench, "run", lambda *a: dict(line, runs={},
+                                                      vs_fresh=None))
+    monkeypatch.setattr(tpath, "_DEBUG_SKIP_SHADOW", False)
+    monkeypatch.delenv("NART_SKIP_SHADOW", raising=False)
+    bench.main()
+    assert tpath._DEBUG_SKIP_SHADOW is False
+    monkeypatch.setenv("NART_SKIP_SHADOW", "1")
+    bench.main()
+    assert tpath._DEBUG_SKIP_SHADOW is True
+    capsys.readouterr()

@@ -22,10 +22,12 @@ sum); the many-table forward has the bits of one launch a table, the
 many-table backward those of the two-launch route (one table a call) in
 one kernel node, and their wrappers refuse what the kernels do not
 take.  The LBVH walk (B1) against the plain walk by the traversal's
-criteria, occlusion the closest hit's validity exactly: soups of 1, 40 and
-40,000 triangles, axis-aligned rays, ties within and across leaves (the
-plain walk's triangle and t on every ray), one window for every ray,
-t_max = 0, and a tree deeper than its stack refused before any launch.
+criteria, occlusion the closest hit's validity exactly, and both entries
+the bits of the reference kernel (the walk's first design) on every ray:
+soups of 1, 40 and 40,000 triangles, axis-aligned rays, ties within and
+across leaves (the plain walk's triangle and t on every ray), one window
+for every ray, t_max = 0, and a tree deeper than its stack or packed
+arrays off their alignment refused before any launch.
 """
 
 import os
@@ -620,14 +622,22 @@ def _check_bvh(rays, tree):
     """The kernel's closest hit and occlusion against the plain walk's:
     triangle ids on >= 99.99% of rays, t/u/v to rtol 1e-4 / atol 1e-5
     where they agree, occlusion the closest hit's validity exactly; one
-    launch each.  Returns (kernel Hit, plain Hit)."""
+    launch each; and both entries the bits of the reference kernel
+    (nart_bvh_hit_ref, the walk's first design) on every ray.  Returns
+    (kernel Hit, plain Hit)."""
     from nart_tpu_torch import bvh as tbvh
 
-    before = cuda_build.launch_counts["bvh_hit"]
+    before = dict(cuda_build.launch_counts)
     hk = tbvh.intersect_bvh(*rays, tree)
     occ = tbvh.occluded_bvh(*rays, tree)
     torch.cuda.synchronize()
-    assert cuda_build.launch_counts["bvh_hit"] == before + 2
+    assert cuda_build.launch_counts["bvh_hit"] == before["bvh_hit"] + 2
+    href = tbvh.bvh_hit_ref_cuda(*rays, tree)
+    occ_ref = tbvh.bvh_hit_ref_cuda(*rays, tree, any_hit=True)
+    assert (cuda_build.launch_counts["bvh_hit_reference"]
+            == before["bvh_hit_reference"] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(hk, href))
+    assert torch.equal(occ, occ_ref)
     hp = tbvh.intersect_bvh_plain(*rays, tree)
     agree = hk.tri == hp.tri
     assert agree.float().mean() >= 0.9999
@@ -728,6 +738,9 @@ def test_bvh_kernel_scalar_windows(cuda):
         hv = tbvh.intersect_bvh(o, d, torch.zeros(777, device=cuda), full,
                                 tree)
         assert all(torch.equal(a, b) for a, b in zip(hk, hv))
+        href = tbvh.bvh_hit_ref_cuda(o, d, zero,
+                                     torch.tensor(t_max, device=cuda), tree)
+        assert all(torch.equal(a, b) for a, b in zip(hk, href))
         _check_bvh((o, d, zero, full), tree)
         if t_max == 0.0:
             assert not (hk.tri >= 0).any()
@@ -737,7 +750,8 @@ def test_bvh_kernel_scalar_windows(cuda):
 def test_bvh_kernel_refuses(cuda):
     """A tree deeper than the kernel's stack is refused before any launch
     (the stack's depth is the library's), and so are inputs the kernel
-    does not take."""
+    does not take, packed arrays off their 16-byte alignment among
+    them."""
     from dataclasses import replace
 
     from nart_tpu_torch import bvh as tbvh
@@ -754,4 +768,12 @@ def test_bvh_kernel_refuses(cuda):
         tbvh.bvh_hit_cuda(o.double(), d, t_min, t_max, tree)
     with pytest.raises(ValueError):
         tbvh.bvh_any_cuda(o, d, t_min, t_max, tree.to("cpu"))
+    # the packed arrays are read as float4: a view off 16 bytes is refused
+    for name in ("node_pairs", "tri_rec"):
+        x = getattr(tree, name)
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        off = buf[1:].view(x.shape)
+        off.copy_(x)
+        with pytest.raises(ValueError, match="aligned"):
+            tbvh.intersect_bvh(o, d, t_min, t_max, replace(tree, **{name: off}))
     assert cuda_build.launch_counts == before
