@@ -19,7 +19,9 @@ Phases (any failure raises and exits non-zero):
      build/nart_tpu_torch, one nvcc a source, all started together (timed):
      cluster_hit.cu, small_lut.cu, large_lut.cu and bvh_walk.cu; beside
      them bvh_walk.cu once more with -Xptxas -v, whose registers, stack
-     frames and spills are logged;
+     frames and spills are logged, and the host core core.cpp with g++
+     (the .geo/.vol parsers and the LBVH build of native.py, which the
+     card's entry points take);
   3. kernels against their plain PyTorch versions on the card: (a) the
      macbeth scene's clusters with 65,536 camera rays and 131,072
      random-direction rays from the hit points (25% with t_max = 0);
@@ -265,7 +267,32 @@ Phases (any failure raises and exits non-zero):
      on 65,536 uniform lanes over tables of 3 to 65,536 rows of 3 and on
      the bench's one light row (131,072 lanes): the measured ground for
      select.AUTO_LUT_ROWS, the row count up to which the small-table
-     backward is taken.
+     backward is taken;
+ 25. a large mesh from file to film: a displaced torus of 512 x 1,024
+     quads (1,048,576 triangles, normals and uvs, from a seed) written as a
+     .geo into a temporary directory, with a scene JSON of macbeth's
+     camera, env light and session, the torus (diffuse) and a glass sphere
+     in its hole.  (a) the .geo loaded by the C++ core and by numpy: v, n
+     and uv the same bits, both times; (b) the scene's LBVH by the core
+     and by numpy: node_lo, node_hi, order and tri_v the same bits, both times;
+     (c) the cluster build's time, under the large-mesh policy (clusters
+     of 64, median split, 256 superclusters); (d) graphed renders at
+     1280x720 @ 1 spp through render_scene_file on the card, accel
+     "cluster" (K1/K2 once a round run) and "bvh" (B1 twice): wall, device
+     ms (torch.profiler), rounds, peak MiB, launches; (e) K1's and B1's
+     hits on the 921,600 pixel-centre camera rays (tri on >= 99.99%, t/u/v
+     rtol 1e-4 / atol 1e-5) and the two films by macbeth's golden criteria
+     against each other; (f) the CLI (`python -m nart_tpu_torch.cli`'s
+     main, in this process) on the scene at 1280x720 @ 1 with --timing:
+     its phases' seconds.  The "bvh" render is run twice, the capture and
+     the counted, profiled one that is also timed (its wall traced; the
+     "cluster" render's is untraced).  Host times beside the host's CPU
+     (/proc/cpuinfo);
+ 26. scaling evidence: `nart_tpu_torch.scaling_evidence` at its defaults
+     (simple_glass 256x256 @ 64 spp) with 4 and 8 ranks run one after
+     another on the card: per-rank rounds, drain-tail rounds, rays and
+     device ms, the balance and the drain fraction; the ranks' rays sum to
+     a one-process render's.
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -277,7 +304,9 @@ The line before the last is the kernels' JSON record (`launches`: a
 traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
 fwd+bwd, B1's in phase 17's graphed "bvh" render; each must be > 0;
 launches_modes: phase 8's graphed "regen" and "spp" renders,
-launches_sharded: phases 13-15, launches_bench: phase 18); the
+launches_sharded: phases 13-15, launches_bench: phase 18,
+launches_large_mesh: phase 25's counted renders, every kernel's the
+cluster one's but B1's, the bvh one's); the
 last line is {"ok": true, "device": {...}}.  Needs the repository
 checkout (it imports nart_tpu_torch from beside this file); imports nothing
 of JAX.
@@ -307,6 +336,7 @@ SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
 LARGE_SOURCE = "nart_tpu_torch/csrc/large_lut.cu"
 BVH_SOURCE = "nart_tpu_torch/csrc/bvh_walk.cu"
+CORE_SOURCE = "nart_tpu_torch/csrc/core.cpp"  # host code: no kernel
 DEVICE = "cuda"  # every phase runs on the card
 LARGE_SITES = ("nart_tpu/materials.py:60", "nart_tpu/lights.py:73",
                "nart_tpu/media.py:81")
@@ -345,6 +375,10 @@ SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
 INDEXING_BACKWARD = "indexing_backward"
 TRI_AGREE = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
+# phase 25's torus: quads around the tube, around the ring; its seed
+LARGE_QUADS = (512, 1024)
+LARGE_SEED = 15
+LARGE_RENDER = (1280, 720, 1)  # its renders' width, height, spp
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -945,8 +979,9 @@ def check_large_launches(label, counts, runner, large):
 def device_busy(label, fn, wall_s, top=5):
     """Run fn once under torch.profiler (the card's activity only) and log
     the card's busy time -- the sum of its kernels' and copies' device time
-    -- as a share of wall_s, the wall time of the same call untraced; the
-    host dispatching the round's small operations takes the rest.  Kernels
+    -- as a share of wall_s, the wall time of the same call untraced (None:
+    of this traced call's own wall); the host dispatching the round's small
+    operations takes the rest.  Kernels
     replayed from a CUDA graph are traced one by one, as launched ones are.
     The profiler's raw events are summed by name (key_averages takes ~50
     us an event, minutes for a forward's million kernels).  Returns (the
@@ -956,8 +991,12 @@ def device_busy(label, fn, wall_s, top=5):
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    what = "untraced" if wall_s is not None else "traced"
+    wall_s = traced_s if wall_s is None else wall_s
     by_name = {}  # name -> [device ns, count]
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
@@ -969,7 +1008,7 @@ def device_busy(label, fn, wall_s, top=5):
     if not busy_ms > 0.0:
         raise AssertionError(f"{label}: the profiler saw no device time")
     log(f"device busy, {label}: {busy_ms:.3f} ms in {count} kernels and "
-        f"copies = {100.0 * busy_ms / (1e3 * wall_s):.2f}% of the untraced "
+        f"copies = {100.0 * busy_ms / (1e3 * wall_s):.2f}% of the {what} "
         f"{wall_s:.4f} s")
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     # the heaviest, and the traversal and look-up kernels wherever they rank
@@ -3558,6 +3597,330 @@ def large_lut_checks(device):
     }
 
 
+def write_large_mesh(out_dir, seed=LARGE_SEED):
+    """Phase 25's scene, written into out_dir (never the repository): a
+    displaced closed torus of 512 x 1,024 quads, so 1,048,576 fan
+    triangles, with per-vertex normals and uvs, made from a seed, as a .geo
+    file, and a scene JSON beside it: macbeth's camera (with its medium),
+    env light and session, the torus as a diffuse mesh under a transform
+    that is not the identity, and macbeth's sphere, shrunk into the
+    torus' hole, as a dielectric one (macbeth's files named by absolute
+    path).  Returns (scene path, .geo path, the torus' objectToWorld)."""
+    rng = np.random.default_rng(seed)
+    n_v, n_u = LARGE_QUADS  # around the tube, around the ring
+    v = 2 * np.pi * np.arange(n_v) / n_v
+    u = 2 * np.pi * np.arange(n_u) / n_u
+    uu, vv = np.meshgrid(u, v)  # (n_v, n_u)
+    # the tube's radius displaced by waves whole around both circles
+    wave = sum(a * np.sin(fu * uu + fv * vv + ph) for a, fu, fv, ph in zip(
+        rng.uniform(0.02, 0.06, 6), rng.integers(1, 17, 6),
+        rng.integers(1, 9, 6), rng.uniform(0, 2 * np.pi, 6)))
+    big, tube = 1.5, 0.55 * (1.0 + wave)
+    p = np.stack([(big + tube * np.cos(vv)) * np.cos(uu),
+                  (big + tube * np.cos(vv)) * np.sin(uu),
+                  tube * np.sin(vv)], axis=-1)
+    # normals from central differences on the closed grid: outward
+    du = np.roll(p, -1, axis=1) - np.roll(p, 1, axis=1)
+    dv = np.roll(p, -1, axis=0) - np.roll(p, 1, axis=0)
+    nrm = np.cross(du, dv)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    uv = np.stack([uu / (2 * np.pi), vv / (2 * np.pi)], axis=-1)
+    idx = np.arange(n_v * n_u).reshape(n_v, n_u)
+    quads = np.stack([idx, np.roll(idx, -1, axis=1),
+                      np.roll(np.roll(idx, -1, axis=0), -1, axis=1),
+                      np.roll(idx, -1, axis=0)], axis=-1).reshape(-1)
+    geo_path = os.path.join(out_dir, "torus.geo")
+    with open(geo_path, "w") as f:
+        f.write(f"{n_v * n_u}\n")
+        for arr, form in ((np.full(n_v * n_u, 4), "%d"), (quads, "%d"),
+                          (p, "%.7g"), (quads, "%d"), (nrm, "%.7g"),
+                          (quads, "%d"), (uv, "%.7g")):
+            f.flush()
+            np.asarray(arr).astype(np.float32 if form != "%d" else np.int64
+                                   ).tofile(f, sep=" ", format=form)
+            f.write("\n")
+    xf = np.array([[1.0, 0.0, 0.0, 0.34],  # the ring faces the camera
+                   [0.0, 0.0, -1.0, 0.0],
+                   [0.0, 1.0, 0.0, 0.05],
+                   [0.0, 0.0, 0.0, 1.0]], np.float32)
+    with open(MACBETH) as f:
+        doc = json.load(f)
+
+    def absolute(node):
+        node["filePath"] = os.path.join(MACBETH_DIR,
+                                        node["filePath"].replace("//", "/"))
+
+    absolute(doc["camera"]["medium"])
+    for light in doc["lights"]:
+        absolute(light["Le"])
+    sphere = {"filePath": "input//meshes//sphere.geo",
+              "material": {"type": "glass", "rho_s": [1, 1, 1],
+                           "tau": [1, 1, 1], "eta": 1.5, "roughness": 0.05},
+              "transform": [0.5, 0, 0, 0.34, 0, 0.5, 0, -0.1,
+                            0, 0, 0.5, 0.05, 0, 0, 0, 1]}
+    absolute(sphere)
+    doc["meshes"] = [{"filePath": geo_path,
+                      "material": {"type": "lambert",
+                                   "rho_d": [0.55, 0.45, 0.35]},
+                      "transform": xf.reshape(-1).tolist()}, sphere]
+    scene_path = os.path.join(out_dir, "torus.json")
+    with open(scene_path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return scene_path, geo_path, xf
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _same_bits(label, got, want):
+    """Raises unless got and want have one dtype, one shape, the same bytes."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not (got.dtype == want.dtype and got.shape == want.shape
+            and np.array_equal(got.view(np.uint8), want.view(np.uint8))):
+        raise AssertionError(f"{label}: the C++ core's bits differ from the "
+                             "numpy version's")
+
+
+def host_cpu():
+    """The host's CPU as /proc/cpuinfo gives it (its first processor's
+    vendor, family, model and model name lines), the machine and the
+    logical CPUs."""
+    import platform
+
+    with open("/proc/cpuinfo") as f:
+        first = f.read().split("\n\n")[0]
+    fields = dict(ln.split(":", 1) for ln in first.splitlines() if ":" in ln)
+    keys = ("vendor_id", "cpu family", "model", "model name",
+            "CPU implementer", "CPU part")
+    desc = ", ".join(f"{k.strip()} {fields[k].strip()}" for k in fields
+                     if k.strip() in keys)
+    return f"{desc}; {platform.machine()}, {os.cpu_count()} logical CPUs"
+
+
+def _large_render(scene_path, kind):
+    """A graphed 1280x720 @ 1 render of the large mesh by accel `kind`
+    through render_scene_file on the card: the session's first render
+    captures, the next is counted (the launch counts reset just before it)
+    and profiled.  The "cluster" render takes a timed untraced render
+    before the counted one, whose wall the busy share divides; B1's render
+    takes ~16 s, so its counted, profiled render is also its timed one
+    (wall traced).  (image, record, session)."""
+    import torch
+
+    from nart_tpu_torch import cuda_build, render
+
+    w, h, spp = LARGE_RENDER
+    torch.cuda.reset_peak_memory_stats()
+    (_, sess), t_sess = _timed(lambda: next(render.render_scene_file(
+        scene_path, dict(image_width=w, image_height=h, spp=spp,
+                         accel=kind), device=DEVICE)))
+    (_, t_first) = _timed(sess.render)
+    traced = kind == "bvh"
+    wall = None
+    if not traced:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda_build.reset_launch_counts()
+    before = machine_totals(sess.machines)
+    images = []
+    _, busy, _, busy_ms = device_busy(f"large mesh {kind} render",
+                                      lambda: images.append(sess.image()),
+                                      wall)
+    img = images[0]
+    if traced:  # the profiled render's own wall
+        wall = busy_ms / (1e3 * busy)
+    launches = dict(cuda_build.launch_counts)
+    after = machine_totals(sess.machines)
+    ran = after["rounds_run"] - before["rounds_run"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = ({"bvh_hit": 2 * ran} if kind == "bvh"
+            else {"closest_hit": ran, "any_hit": ran, "bvh_hit": 0})
+    if (after["captures"] != 1 or any(launches[k] != n for k, n in
+                                      want.items())
+            or (kind == "bvh" and any(launches[k] for k in TRAVERSAL))):
+        raise AssertionError(f"large mesh {kind}: launches {launches}, "
+                             f"{ran} rounds run, {after}")
+    rec = {"session_s": t_sess, "first_render_s": t_first, "wall_s": wall,
+           "wall_traced": traced, "device_ms": busy_ms, "busy": busy,
+           "rounds": sess.stats["rounds"], "rounds_run": ran,
+           "rays": sess.stats["rays"], "peak_mib": peak, "launches": launches}
+    log(f"(d) large mesh, accel {kind}: session (load + accel build) "
+        f"{t_sess:.3f} s, first render (captures) {t_first:.3f} s; timed "
+        f"render {wall:.4f} s ({'traced' if traced else 'untraced'}), "
+        f"{busy_ms:.3f} device ms ({100 * busy:.2f}% busy), "
+        f"{rec['rounds']} rounds ({ran} run), {rec['rays']} rays, peak "
+        f"{peak:.1f} MiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return img.cpu().numpy(), rec, sess
+
+
+def large_mesh():
+    """Phase 25: the 1,048,576-triangle mesh from file to film on the card
+    (write_large_mesh): (a) the .geo loaded by the C++ core and by numpy,
+    the same bits on v, n and uv; (b) the LBVH of the scene's soup built
+    by the core and by numpy, the same bits on node_lo, node_hi, order and
+    tri_v;
+    (c) the cluster build, under the large-mesh policy; (d) renders at
+    1280x720 @ 1 spp, graphed, through render_scene_file on the card with
+    accel "cluster" (K1/K2) and "bvh" (B1): wall, device ms, rounds, peak
+    MiB, launches; (e) K1's and B1's hits on the 921,600 pixel-centre
+    camera rays (tri on >= 99.99%, t/u/v rtol 1e-4 / atol 1e-5) and the two
+    films by macbeth's golden criteria; (f) the CLI's main on the scene
+    with --timing.  Host times name the host's CPU.  Returns every
+    kernel's launches in the counted renders (B1's in the bvh one, the
+    others' in the cluster one)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from nart_tpu_torch import bvh, camera, cli, exr, geo, native
+    from nart_tpu_torch import cluster_accel as ca
+    from nart_tpu_torch import scene as scene_mod
+
+    log(f"host CPU: {host_cpu()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        (scene_path, geo_path, xf), t_gen = _timed(
+            lambda: write_large_mesh(tmp))
+        log(f"large mesh: {LARGE_QUADS[0]} x {LARGE_QUADS[1]} quads written "
+            f"in {t_gen:.3f} s, {os.path.getsize(geo_path)} bytes")
+        # (a)
+        cpp, t_cpp = _timed(lambda: geo.load_geo(geo_path, xf))
+        plain, t_np = _timed(lambda: geo.load_geo_plain(geo_path, xf))
+        if cpp.v.shape != (2 * LARGE_QUADS[0] * LARGE_QUADS[1], 3, 3):
+            raise AssertionError(f"(a) {cpp.v.shape[0]} triangles")
+        for name in ("v", "n", "uv"):
+            _same_bits(f"(a) .geo {name}", getattr(cpp, name),
+                       getattr(plain, name))
+        log(f"(a) .geo load, {cpp.v.shape[0]} triangles: C++ core "
+            f"{t_cpp:.3f} s, numpy {t_np:.3f} s ({t_np / t_cpp:.2f}x); v, n "
+            f"and uv the same bits")
+        del cpp, plain
+        # (b)
+        scn, t_scene = _timed(lambda: scene_mod.load_scene(scene_path))
+        tri = scn.tri_v.numpy()
+        lb_cpp, t_lcpp = _timed(lambda: native.lbvh_build(tri, 8))
+        lb_np, t_lnp = _timed(lambda: bvh.build_bvh_arrays(tri, 8))
+        for k in ("node_lo", "node_hi", "order", "tri_v"):
+            _same_bits(f"(b) LBVH {k}", lb_cpp[k], lb_np[k])
+        log(f"(b) LBVH of the scene's {len(tri)} triangles (load_scene "
+            f"by the C++ core {t_scene:.3f} s): C++ core {t_lcpp:.3f} s, "
+            f"numpy {t_lnp:.3f} s ({t_lnp / t_lcpp:.2f}x); {lb_cpp['n_leaves']}"
+            f" leaves of 8, depth {lb_cpp['depth']}; node_lo, node_hi, "
+            f"order and tri_v the same bits")
+        del lb_cpp, lb_np
+        # (c)
+        acc, t_cl = _timed(lambda: ca.build_clusters(tri))
+        if not (len(tri) >= ca.LARGE_MESH and acc.csize == ca.CLUSTER_LARGE
+                and acc.sc_size == -(-(-(-len(tri) // acc.csize))
+                                     // ca.SUPER_TARGET_LARGE)):
+            raise AssertionError(f"(c) not the large-mesh policy: csize "
+                                 f"{acc.csize}, {acc.n_sc} superclusters of "
+                                 f"{acc.sc_size}")
+        log(f"(c) cluster build (numpy): {t_cl:.3f} s; the large-mesh policy "
+            f"(>= {ca.LARGE_MESH} triangles: median split, clusters of "
+            f"{acc.csize}, target {ca.SUPER_TARGET_LARGE} superclusters): "
+            f"{acc.n_clusters} clusters, {acc.n_sc} superclusters of "
+            f"{acc.sc_size}")
+        del acc
+        # (d)
+        imgs, recs, sess = {}, {}, {}
+        for kind in ("cluster", "bvh"):
+            imgs[kind], recs[kind], sess[kind] = _large_render(scene_path,
+                                                                kind)
+        if not all(np.isfinite(i).all() and i[..., :3].mean() > 0
+                   for i in imgs.values()):
+            raise AssertionError("(d) a large-mesh image is not finite or "
+                                 "is black")
+        log(f"(d) bvh / cluster: wall {recs['bvh']['wall_s'] / recs['cluster']['wall_s']:.3f}x, "
+            f"device {recs['bvh']['device_ms'] / recs['cluster']['device_ms']:.3f}x")
+        # (e)
+        w, h, _ = LARGE_RENDER
+        pix = torch.arange(w * h)
+        n = pix.shape[0]
+        o, d = camera.cast_rays(scn.cam_to_world, scn.fov, w, h, pix % w,
+                                pix // w, torch.full((n, 2), 0.5))
+        rays = (o.to(DEVICE), d.to(DEVICE), torch.zeros(n, device=DEVICE),
+                torch.full((n,), float("inf"), device=DEVICE))
+        hk = ca.intersect_clusters(*rays, sess["cluster"].accel)
+        hb = bvh.intersect_bvh(*rays, sess["bvh"].accel)
+        torch.cuda.synchronize()
+        frac, err = compare_closest("(e) large mesh, K1 against B1", hk, hb)
+        hit = float((hk.tri >= 0).float().mean())
+        log(f"(e) camera rays ({n}, {100 * hit:.2f}% hit): K1 and B1 agree "
+            f"on tri for {frac:.6f}, t/u/v max abs err {err:.3g}")
+        block_compare(imgs["bvh"], imgs["cluster"], 0.03, 0.12, 0.95,
+                      label="(e) large mesh, bvh film against cluster film")
+        del sess, hk, hb, rays
+        # (f) `python -m nart_tpu_torch.cli` in this process (its main)
+        out = os.path.join(tmp, "cli")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, t_cli = _timed(lambda: cli.main(
+                [scene_path, out, "-w", str(w), "-h", str(h), "-s",
+                 str(LARGE_RENDER[2]), "--timing"]))
+        for line in err.getvalue().splitlines():
+            log(f"    cli {line}")
+        if rc != 0:
+            raise AssertionError(f"(f) the CLI returned {rc}")
+        img = exr.read(out + ".exr")
+        if not (np.isfinite(img).all() and img[..., :3].mean() > 0):
+            raise AssertionError("(f) the CLI's EXR is not finite or black")
+        log(f"(f) CLI, its main: {t_cli:.3f} s; EXR {img.shape}")
+    torch.cuda.empty_cache()
+    counts = dict(recs["cluster"]["launches"])
+    counts["bvh_hit"] = recs["bvh"]["launches"]["bvh_hit"]
+    return counts
+
+
+def scaling_phase(ranks=(4, 8)):
+    """Phase 26: nart_tpu_torch.scaling_evidence at its defaults (the JAX
+    tool's simple_glass at 256x256 @ 64 spp), with 4 and then 8 ranks run
+    one after another on the card, through its command line (--out into a
+    temporary directory): per-rank rounds, drain-tail rounds, rays and
+    device ms, the balance and the drain fraction; the ranks' rays must
+    sum to a one-process render's, and each rank's drain be at most its
+    rounds."""
+    from nart_tpu_torch import scaling_evidence
+
+    sess = scaling_evidence.session(device=DEVICE)
+    sess.render()
+    one = sess.stats["rays"]
+    del sess
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in ranks:
+            path = os.path.join(tmp, f"ranks{n}.json")
+            _, secs = _timed(lambda: scaling_evidence.main(
+                ["--ranks", str(n), "--out", path]))
+            with open(path) as f:
+                rec = json.load(f)
+            log(f"scaling evidence, {n} ranks, {rec['config']} ({secs:.2f} "
+                f"s, {rec['device']}): rounds {rec['rounds_per_rank']}, "
+                f"drain {rec['drain_tail_rounds']}, device ms "
+                f"{rec['device_ms_per_rank']}, rays "
+                f"{rec['rays_per_rank']}; balance "
+                f"{rec['round_balance_efficiency']:.4f}, drain fraction "
+                f"{rec['drain_tail_fraction']:.4f}; all-reduce film "
+                f"{rec['all_reduce_film_bytes']} B (the JAX tool's psum "
+                f"{rec['psum_film_bytes_per_step']} B), gradient "
+                f"{rec['psum_grad_bytes_per_step']} B")
+            if sum(rec["rays_per_rank"]) != one:
+                raise AssertionError(f"{n} ranks: rays sum to "
+                                     f"{sum(rec['rays_per_rank'])}, the "
+                                     f"one-process render's {one}")
+            if any(dr > r for dr, r in zip(rec["drain_tail_rounds"],
+                                           rec["rounds_per_rank"])):
+                raise AssertionError(f"{n} ranks: drain above rounds")
+    log(f"scaling evidence: the ranks' rays sum to the one-process render's "
+        f"{one}")
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -3608,13 +3971,17 @@ def main():
     t0 = time.perf_counter()
     sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE)
     libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
-    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(libs) + 2) as pool:  # one nvcc a source
         report = pool.submit(ptxas_report, BVH_SOURCE)
+        host = pool.submit(cuda_build.build_host, "core")  # g++
         list(pool.map(cuda_build.build, libs))
-        report = report.result()
+        report, host = report.result(), host.result()
     for lib in libs:
         cuda_build.load(lib)
-    log(f"build: {', '.join(sources)}, together, in "
+    from nart_tpu_torch import native
+    native.lib()
+    log(f"build: {', '.join(sources)} and the host core {CORE_SOURCE} "
+        f"({os.path.basename(host)}), together, in "
         f"{time.perf_counter() - t0:.2f} s")
     from nart_tpu_torch.kernel_variants import ptxas_kernels
     for kname, regs, frame, st, ld in ptxas_kernels(report):
@@ -3659,6 +4026,8 @@ def main():
     records["lut_gather"]["max_abs_err"] = max(
         records["lut_gather"]["max_abs_err"], fwd_large["max_abs_err"])
     records.update(large)
+    counts_large = phase("large mesh", large_mesh)
+    phase("scaling evidence", scaling_phase)
 
     # `launches`: a traversal kernel's in the forward render (phase 5), a
     # look-up kernel's (small or large tables) in the fwd+bwd (phase 6),
@@ -3680,6 +4049,7 @@ def main():
                     launches_sharded=counts_a[k] + counts_b[k] + counts_c[k],
                     launches_bench=counts_bench[k],
                     launches_cornell=counts_cornell[k],
+                    launches_large_mesh=counts_large[k],
                     **records[k])
                for k in KERNELS]
     log(json.dumps({"kernels": kernels}))

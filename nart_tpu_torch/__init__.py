@@ -10,7 +10,12 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
   sampling.py       sampling warps + Latin-square image samples (sampling.py)
   exr.py            EXR codec: NONE/RLE/ZIPS/ZIP/PIZ reader, ZIPS writer
                     (exr.py; PIZ is new — numpy Huffman + Haar wavelet)
-  geo.py, vol.py    .geo mesh / .vol grid parsers (geo.py, vol.py)
+  geo.py, vol.py    .geo mesh / .vol grid parsers (geo.py, vol.py), by
+                    the host core; numpy versions as plain references
+  native.py         ctypes binding of the host core csrc/core.cpp: the
+                    .geo/.vol parsers and the LBVH build in C++, built
+                    with g++ at first use, on every device
+                    (_native.py, native/core.cpp)
   scene.py          JSON scene -> SceneData of tensors, .to(device)
                     (scene.py)
   testing.py        tiny programmatic scenes (testing.py)
@@ -22,8 +27,8 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     (csrc/cluster_hit.cu) for CUDA tensors, plain torch
                     versions for CPU tensors (pallas_accel.py, accel.py's
                     kind policy, tools/kernel_stats.py's kernel)
-  bvh.py            LBVH build + plain lockstep walk, the "bvh" kind
-                    (accel.py)
+  bvh.py            LBVH build (the host core) + plain lockstep walk,
+                    the "bvh" kind (accel.py)
   select.py         table look-ups: CUDA kernels (csrc/small_lut.cu,
                     csrc/large_lut.cu) forward and backward for float
                     tables on the card, table[idx] on the CPU (select.py)
@@ -60,6 +65,9 @@ Layer map (bottom -> top), mirroring ``nart_tpu/__init__.py``:
                     (sharding.py)
   cli.py            flag-compatible CLI, one process or one per card:
                     python -m nart_tpu_torch.cli (cli.py)
+  scaling_evidence.py  a striped render's ranks one after another on one
+                    card: rounds, drain tail, rays, device ms, bytes
+                    (tools/scaling_evidence.py)
   kernel_stats.py   traversal counters per ray and the tool that prints
                     them: python -m nart_tpu_torch.kernel_stats
                     (tools/kernel_stats.py)

@@ -3,8 +3,10 @@
 Counterpart of ``nart_tpu/accel.py`` (the "bvh" accel kind; reference
 src/core/bvh.cpp's role).  Triangles are sorted by the Morton code of their
 centroid, grouped into fixed-size leaves, and a complete binary tree of
-AABBs is built bottom-up over the leaf sequence (numpy, on the host; the
-same arrays as the JAX package's build).  ``intersect_bvh`` walks it with
+AABBs is built bottom-up over the leaf sequence, on the host, by the
+port's C++ core (native.lbvh_build, csrc/core.cpp); ``build_bvh_arrays``
+is its numpy version, the tests' plain reference.  Both give the same
+arrays as the JAX package's build.  ``intersect_bvh`` walks it with
 an explicit per-ray stack: every live ray pops one node per iteration,
 internal nodes push their children in the JAX walk's order, leaves run the
 watertight test on their triangles, and the walk ends when every stack is
@@ -44,7 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, native
 from .cluster_accel import _check, morton3
 from .geometry import Hit, edge_fn, ray_shear
 from .scene import _to_device
@@ -139,8 +141,8 @@ def pack_bvh(node_lo, node_hi, tri_v) -> dict:
 
 def build_bvh(tri_v, leaf_size: int = 8) -> BVH:
     """The LBVH of a (T, 3, 3) triangle soup, as CPU tensors, with the
-    kernel's packed layout."""
-    a = build_bvh_arrays(np.asarray(tri_v), leaf_size)
+    kernel's packed layout: the tree by the C++ core, the packing numpy."""
+    a = native.lbvh_build(np.asarray(tri_v), leaf_size)
     a.update(pack_bvh(a["node_lo"], a["node_hi"], a["tri_v"]))
     return BVH(node_lo=torch.from_numpy(a["node_lo"]),
                node_hi=torch.from_numpy(a["node_hi"]),

@@ -1,12 +1,15 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library ->
-ctypes).
+ctypes), and its host core (g++ -> shared library -> ctypes).
 
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers that return
 ``cudaGetLastError()``.  ``load(name)`` compiles the source for Hopper
 (sm_90a) at first use into ``build/nart_tpu_torch/`` beside the package —
 the file name carries a hash of the source and flags, so an edited source
-rebuilds — and returns the ``ctypes.CDLL``.  Nothing is compiled or loaded
-when the module is imported.
+rebuilds — and returns the ``ctypes.CDLL``.  ``load_host(name)`` does the
+same for the host source ``csrc/<name>.cpp`` with g++ (``$CXX`` where it is
+set): the runtime core of native.py.  A failed build raises with the
+compiler's output.  Nothing is compiled or loaded when the module is
+imported.
 
 ``launch_counts`` counts the kernels' launches on the card, per wrapper:
 the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py), the LBVH
@@ -37,6 +40,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+# -ffp-contract=off: the host twin of --fmad=false, no multiply and add
+# contracted into an FMA on any host (aarch64's g++ would), so the core's
+# float32 arithmetic keeps numpy's bits
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 
 _loaded: dict = {}
 
@@ -82,11 +89,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu (if not built yet); returns the .so path."""
-    src = os.path.join(SRC_DIR, name + ".cu")
+def _compile(src, flags, compiler):
+    """Compile src (if not built yet) into BUILD_DIR; returns the .so
+    path.  The file name hashes the source and the flags; the library is
+    written to a temporary file and renamed into place, so a process that
+    builds beside another never loads a half-written one."""
     with open(src, "rb") as f:
-        key = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        key = hashlib.sha1(f.read() + " ".join(flags).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
     so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so
@@ -94,14 +104,12 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        proc = subprocess.run([compiler(), *flags, "-o", tmp, src],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}"
-            )
+                f"{proc.args[0]} failed on {src} (exit {proc.returncode}):"
+                f"\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent build never sees a stub
     finally:
         if os.path.exists(tmp):
@@ -109,10 +117,37 @@ def build(name: str) -> str:
     return so
 
 
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu (if not built yet); returns the .so path."""
+    return _compile(os.path.join(SRC_DIR, name + ".cu"), NVCC_FLAGS,
+                    nvcc_path)
+
+
+def cxx_path() -> str:
+    """The host compiler: $CXX where it is set, else g++."""
+    return os.environ.get("CXX") or "g++"
+
+
+def build_host(name: str) -> str:
+    """Compile the host source csrc/<name>.cpp (if not built yet) with the
+    host compiler; returns the .so path."""
+    return _compile(os.path.join(SRC_DIR, name + ".cpp"), CXX_FLAGS,
+                    cxx_path)
+
+
+def _load(key, path_of):
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(path_of())
+        _loaded[key] = lib
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(build(name))
-        _loaded[name] = lib
-    return lib
+    return _load(name + ".cu", lambda: build(name))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cpp, built on first use."""
+    return _load(name + ".cpp", lambda: build_host(name))

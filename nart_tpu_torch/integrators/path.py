@@ -998,11 +998,13 @@ class _BalancedForward:
     call copies its own into, the radiance rows, and the round runner
     (with its CUDA graph, on the card).  The finished items add their
     radiance once; other lanes add zeros to distinct rows past the end, so
-    no round reads the host."""
+    no round reads the host.  count_drain: the rounds also count the
+    call's drain-tail rounds on the device (a machine of its own: the
+    renders that do not ask run none of its operations)."""
 
     def __init__(self, scene, accel, shape, params, render_w, render_h,
                  n_lanes, pix_offset, n_pix_total, row_map_shape, device,
-                 per_round):
+                 per_round, count_drain):
         spp_chunk, n_pix = shape
         self.total = total = spp_chunk * n_pix
         self.samples = torch.zeros((spp_chunk, n_pix, 2), device=device)
@@ -1016,10 +1018,17 @@ class _BalancedForward:
         n = n_lanes or auto_lanes(total)
         self.la_out = la_out = torch.zeros((total + n, 4), device=device)
         lane = torch.arange(n, device=device)
+        # the call's drain-tail rounds: live rounds whose incoming queue
+        # head had passed the last item (tools/scaling_evidence.py's count)
+        self.drain = drain = (torch.zeros((), dtype=torch.int64,
+                                          device=device)
+                              if count_drain else None)
 
         # round_fn holds no reference to self: a cycle through the runner
         # would leave the graph to the cyclic collector (rounds.py)
         def round_fn(core):
+            if drain is not None:
+                drain.add_(core[0].alive.any() & (core[3] >= total))
             core, dying, la, item = step(core)
             la_out.index_add_(0, torch.where(dying, item, total + lane),
                               torch.where(dying[:, None], la, 0.0))
@@ -1029,20 +1038,24 @@ class _BalancedForward:
         self.runner = RoundRunner(round_fn, k=None if graph else 1,
                                   graph=graph)
 
-    def __call__(self, samples, chunk_base, row_map):
+    def __call__(self, samples, chunk_base, row_map, drain=None):
         self.samples.copy_(samples)
         self.chunk_base.fill_(chunk_base)
         if row_map is not None:
             self.row_map.copy_(row_map)
         self.la_out.zero_()
+        if drain is not None:
+            self.drain.zero_()
         core, rounds = self.runner.run(self.init())
         la = self.la_out[:self.total].reshape(self.samples.shape[:2] + (4,))
+        if drain is not None:
+            drain.add_(self.drain)
         return la.clone(), int(core[0].rays), int(rounds)  # the end's reads
 
 
 def trace_balanced(scene, accel, samples, params, render_w, render_h,
                    chunk_base=0, n_lanes=0, pix_offset=0, n_pix_total=None,
-                   row_map=None, machines=None, per_round=False):
+                   row_map=None, machines=None, per_round=False, drain=None):
     """Work-queue wavefront: lanes pull (pixel, sample) items on death.
 
     Args:
@@ -1060,6 +1073,11 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
         cache.  None: a machine (and a capture) for this call alone.
       per_round: run the per-round loop (one round per host check, no
         graph) instead: the reference of the graphed route's tests.
+      drain: a () int64 tensor on the samples' device, or None: the call
+        adds its drain-tail rounds to it (the live rounds that began with
+        the queue head past the last item), on the device, with no host
+        read.  A call that passes one runs on a machine of its own that
+        counts them; the machines of calls that pass none count nothing.
     The rounds run through rounds.RoundRunner: on the card k to each host
     check in one CUDA graph, on the CPU the same schedule eagerly.
     Returns (la (spp_chunk, P, 4) per-sample RGBA radiance, rays, rounds):
@@ -1067,11 +1085,13 @@ def trace_balanced(scene, accel, samples, params, render_w, render_h,
     """
     key = ("path", tuple(samples.shape[:2]), render_w, render_h, n_lanes,
            pix_offset, n_pix_total,
-           None if row_map is None else tuple(row_map.shape), per_round)
+           None if row_map is None else tuple(row_map.shape), per_round,
+           drain is not None)
     machine = _machine(machines, key, lambda: _BalancedForward(
         scene, accel, key[1], params, render_w, render_h, n_lanes,
-        pix_offset, n_pix_total, key[7], samples.device, per_round))
-    return machine(samples, chunk_base, row_map)
+        pix_offset, n_pix_total, key[7], samples.device, per_round,
+        key[9]))
+    return machine(samples, chunk_base, row_map, drain)
 
 
 class _QueryTape:

@@ -256,26 +256,33 @@ class RenderSession:
         self.state = state
         return buf
 
-    def trace_chunk(self, samples, state, chunk_base, px, py, row_map=None):
+    def trace_chunk(self, samples, state, chunk_base, px, py, row_map=None,
+                    drain=None):
         """Trace a chunk of samples (S, N, 2) of the lanes px, py (N,) --
         whole rows, row-major: the render grid, or the rows of row_map (a
         shard's strips, whose items keep their global ids) -- with the
         tracer of the session's mode; chunk_base is the chunk's first
         sample and S is 1 in the "spp" loop.  state: the lanes' per-pixel
         RNG states past the Latin square, which "regen" and "spp" advance.
+        drain: a () int64 tensor on the session's device that the path
+        work queue ("balanced") adds its drain-tail rounds to
+        (path.trace_balanced); no other tracer takes one.
         Returns (la (S, N, 4), state, rays, rounds)."""
         p = self.params
         mode = trace_mode(p)
         volume = p.integrator == "volume"
+        if drain is not None and (mode != "balanced" or volume):
+            raise ValueError("only the path work queue counts drain rounds")
         if mode == "balanced":
             tracer = (volume_integrator.trace_vol_static if volume
                       else path_integrator.trace_balanced)
+            extra = {} if drain is None else {"drain": drain}
             la, r, k = tracer(self.scene, self.accel, samples, p,
                               self.render_w, px.shape[0] // self.render_w,
                               chunk_base=chunk_base, n_lanes=p.lanes,
                               n_pix_total=self.render_w * self.render_h,
                               row_map=row_map, machines=self.machines,
-                              per_round=self.per_round)
+                              per_round=self.per_round, **extra)
             return la, state, r, k
         tracer = (path_integrator.trace_regen if mode == "regen" else
                   volume_integrator.trace_lockstep if volume else

@@ -197,7 +197,7 @@ def _splat_strips(buf, jitter, la, stack, render_w, filter_width,
     buf.index_add_(0, dst[keep], add)
 
 
-def render_shard(session, layout: Layout, rank: int):
+def render_shard(session, layout: Layout, rank: int, drain: bool = False):
     """One rank's partial film of a RenderSession, and its stats.
 
     The rank's strips x its sample slab, in chunks of render.chunk_size,
@@ -205,8 +205,13 @@ def render_shard(session, layout: Layout, rank: int):
     the full spp and the slab cut out of them.  In "spp"/"regen" the layout
     counts as Layout(world_size, 1): a pixel's samples run in order on its
     stream.  Needs no process group.  Returns (film (totalH, totalW, 5) on
-    the session's device, {"rays", "rounds"}); the films of all ranks of
-    the layout sum to the whole image's."""
+    the session's device, {"rays", "rounds", "drain"}); the films of all
+    ranks of the layout sum to the whole image's.  With drain=True the
+    path work queue counts its drain-tail rounds (live rounds that began
+    with the queue head past the chunk's last item, path.trace_balanced)
+    into "drain" (on machines of their own, which the other calls never
+    run); "drain" is None where drain is False, in the other modes and in
+    the volume's."""
     p = session.params
     dev = session.device
     rw, rh = session.render_w, session.render_h
@@ -217,8 +222,11 @@ def render_shard(session, layout: Layout, rank: int):
         layout = Layout(layout.world_size, 1)
     strips, rows, (s0, s1) = _block(layout, rank, rw, rh, fb, p.spp)
     rays = rounds = 0
+    queue = drain and trace_mode(p) == "balanced" and p.integrator == "path"
+    drain = torch.zeros((), dtype=torch.int64, device=dev) if queue else None
     if not rows.numel() or s0 == s1:
-        return buf, {"rays": rays, "rounds": rounds}
+        return buf, {"rays": rays, "rounds": rounds,
+                     "drain": 0 if queue else None}
     rows = rows.to(dev)
     px = torch.arange(rw, device=dev).repeat(rows.shape[0])
     py = rows.repeat_interleave(rw)
@@ -231,13 +239,14 @@ def render_shard(session, layout: Layout, rank: int):
     for i in range(s0, s1, chunk):
         j = min(i + chunk, s1)
         la, state, r, k = session.trace_chunk(samples[i:j], state, i, px, py,
-                                              row_map=rows)
+                                              row_map=rows, drain=drain)
         for s in range(j - i):
             _splat_strips(buf, samples[i + s], la[s], stack, rw,
                           p.filter_width, fb, table)
         rays += r
         rounds += k
-    return buf, {"rays": rays, "rounds": rounds}
+    return buf, {"rays": rays, "rounds": rounds,
+                 "drain": int(drain) if queue else None}
 
 
 def render_sharded(session, layout: Layout):

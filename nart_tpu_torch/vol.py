@@ -3,6 +3,10 @@
 Counterpart of ``nart_tpu/vol.py``'s pure-Python loader (reference
 src/core/scene.cpp:825-867): boundsMin.xyz boundsMax.xyz resX resY resZ
 density[resX*resY*resZ], stored as a (Z, Y, X) C-order array.
+
+``load_vol`` parses with the port's C++ core (native.vol_load);
+``load_vol_plain`` is its numpy version, the tests' plain reference, with
+the same bits.
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from . import native
 
 
 @dataclass
@@ -20,9 +26,18 @@ class VolGrid:
 
 
 def load_vol(path: str) -> VolGrid:
+    """The density grid of a .vol file, by the C++ core.  Raises ValueError
+    on a malformed file."""
+    return VolGrid(*native.vol_load(path))
+
+
+def load_vol_plain(path: str) -> VolGrid:
+    """load_vol's numpy version."""
     nums = np.fromfile(path, dtype=np.float64, sep=" ")
     if nums.size < 9:
         raise ValueError(f"volume file {path} could not be read")
+    if not all(0 <= v < 2.0 ** 31 for v in nums[6:9]):
+        raise ValueError(f"volume file {path}: bad .vol resolution")
     rx, ry, rz = (int(v) for v in nums[6:9])
     vals = nums[9 : 9 + rx * ry * rz]
     if vals.size != rx * ry * rz:
