@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT_TREE   # phase 22's cells, in turns
+    python3 chip_smoke.py --witness   # macbeth's leaves: X3, plain, float64
 
 Kernel times are device times: device_ms captures many calls of a
 function into one CUDA graph and divides the replay's CUDA-event time by
@@ -17,9 +18,10 @@ Phases (any failure raises and exits non-zero):
      "name, power.limit" line;
   2. build: compile the CUDA kernels from nart_tpu_torch/csrc into
      build/nart_tpu_torch, one nvcc a source, all started together (timed):
-     cluster_hit.cu, small_lut.cu, large_lut.cu and bvh_walk.cu; beside
-     them bvh_walk.cu once more with -Xptxas -v, whose registers, stack
-     frames and spills are logged, and the host core core.cpp with g++
+     cluster_hit.cu, small_lut.cu, large_lut.cu, bvh_walk.cu and bsdf.cu;
+     beside them bvh_walk.cu and bsdf.cu once more with -Xptxas -v, whose
+     registers, stack frames and spills are logged, and the host core
+     core.cpp with g++
      (the .geo/.vol parsers and the LBVH build of native.py, which the
      card's entry points take);
   3. kernels against their plain PyTorch versions on the card: (a) the
@@ -46,7 +48,8 @@ Phases (any failure raises and exits non-zero):
      once in every round the card ran (the rounds past the end of the last
      replay, fewer than k, included), one capture for both runs; the
      look-up kernels' forwards launched (the small tables' and the env
-     map's), their backwards never;
+     map's), their backwards never; the BSDF kernels X1 twice and X2 once
+     in every round the card ran, X3 never;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
@@ -61,11 +64,12 @@ Phases (any failure raises and exits non-zero):
      than k past the end) and never in the backward (its graph captured no
      launch); the look-up forward (every table) in the forward's graph,
      it and both backwards (small and large tables) in the backward's
-     round graph.  The timed call once more under torch.profiler: the top device
-     operations and the shares of indexing_backward_kernel*, of the
-     look-up kernels, of the sorts and of the memsets.  Then the
-     forward queue alone, twice on one kept machine (the first call
-     captures its graph);
+     round graph; X1 twice and X2 once a forward round, X3 only in the
+     backward's round graph.  The timed call once more under
+     torch.profiler: the top device operations and the shares of
+     indexing_backward_kernel*, of the look-up kernels, of the sorts and
+     of the memsets.  Then the forward queue alone, twice on one kept
+     machine (the first call captures its graph);
   7. gradients through the kernels against the same call on the CPU
      (plain versions), simple_scene at 32x32, 2 spp: every leaf to rtol
      1e-3 / atol 1e-5 (float32 sums in another order, atomics in the
@@ -78,9 +82,10 @@ Phases (any failure raises and exits non-zero):
      rendered through the session's kept machines (twice: the first render
      captures) and on the per-round loop (per_round=True): the films, the
      per-pixel RNG states and the stats the same bits, one capture a
-     machine, K1 and K2 launched once in every round the card ran (none in
-     the volume); logged for both routes: wall s, device ms (busy share)
-     under torch.profiler, rounds run, peak MiB, capture s.  The "regen"
+     machine, K1 and K2 launched once and X1 twice and X2 once in every
+     round the card ran (none in the volume); logged for both routes:
+     wall s, device ms (busy share) under torch.profiler, rounds run,
+     peak MiB, capture s.  The "regen"
      film equals the "spp" film bit for bit, and both image means are
      within 3% of the "balanced" image's;
   9. volume golden: tests/golden/volume_blob.json at its own 96x96, 32 spp
@@ -185,10 +190,15 @@ Phases (any failure raises and exits non-zero):
      through the session's k-round CUDA graph (twice: the first render
      captures) and on the per-round loop (RenderSession(per_round=True)):
      the films the same bits, equal rays and rounds, one capture, K1/K2
-     launched once per round run; logged: each route's wall s, rounds run
-     and ms a round, peak MiB, capture + instantiate s, the card's busy
-     share of the graphed forward under torch.profiler (which traces the
-     kernels of a replayed graph one by one); volume_blob 96x96 @ 32 spp in
+     launched once per round run, X1 twice and X2 once; logged: each
+     route's wall s, rounds run and ms a round, peak MiB, capture +
+     instantiate s, the card's busy share of the graphed forward under
+     torch.profiler (which traces the kernels of a replayed graph one by
+     one) and its kernels and copies a round; macbeth's graphed render
+     again with the BSDF calls on their plain versions (bsdf_ops'
+     sample_plain and eval_plain, bxdf.py op by op): the same film bits,
+     its kernels and copies a round, the "before" beside the kernels'
+     "after"; volume_blob 96x96 @ 32 spp in
      8 chunks of 4: one capture for all, the per-round loop's film; k = 4,
      8 and 16 on macbeth: one session each, their renders in turns, the
      median of 3 each after a warm one.
@@ -292,7 +302,26 @@ Phases (any failure raises and exits non-zero):
      (simple_glass 256x256 @ 64 spp) with 4 and 8 ranks run one after
      another on the card: per-rank rounds, drain-tail rounds, rays and
      device ms, the balance and the drain fraction; the ranks' rays sum to
-     a one-process render's.
+     a one-process render's;
+ 27. the BSDF kernels (csrc/bsdf.cu: X1 nart_bsdf_sample, X2
+     nart_bsdf_eval, X3 nart_bsdf_f_bwd) against their plain versions on
+     the card: 65,536 lanes of each of tests/test_torch_shading.py's LOBES
+     kinds (from a seed) and the three BSDF calls of a mid-trace round
+     of macbeth 1280x720 and of simple_glass 512x512 (per-round renders
+     of 1 spp: of their first 8 rounds, the one with the most live lanes
+     past their first bounce): X1's and X2's outputs the plain version's
+     bits on every lane; X3 (both modes, random cotangents) within rtol
+     1e-5 / atol 1e-6 of the float64 VJP of the plain version with wi
+     held fixed (bsdf_ops.sample_at_bwd_plain, eval_bwd_plain) on every
+     lane where that VJP is finite, but those whose float64 forward takes
+     another branch (counted, with the non-finite ones); the plain
+     float32 VJP measured against the same float64 VJP, not held to it.
+     At macbeth's mid-trace calls (65,536 lanes): each kernel's device ms
+     and ms per call, its plain version's device ms (the plain VJP's over
+     eager calls), the bound (the larger of the bytes over 3.35 TB/s and
+     BSDF_OPS's counted operations over the peak rates; library none;
+     the bytes what each lane's lobe codes read, bsdf_bytes, beside every
+     input tensor once).
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -300,9 +329,16 @@ nart_tpu_torch), in turns P, C, C, P: the graphed forward film and the
 graphed fwd+bwd's loss, leaves, rays and rounds against the first P
 turn's (the films, loss, rays and rounds bit for bit, the leaves to rtol
 1e-5 / atol 1e-7), with each turn's wall s and device ms (torch.profiler).
+With --witness: macbeth's fwd+bwd of phase 22 with the BSDF backward by X3,
+by the plain float32 VJP and by the float64 VJP (leaf_witness): on each
+leaf value where X3 and the plain VJP differ past that tolerance, which
+lies nearer the float64 one.
 The line before the last is the kernels' JSON record (`launches`: a
-traversal kernel's in phase 5's forward, a look-up kernel's in phase 6's
-fwd+bwd, B1's in phase 17's graphed "bvh" render; each must be > 0;
+traversal kernel's and X1's and X2's in phase 5's forward, a look-up
+kernel's and X3's in phase 6's fwd+bwd, B1's in phase 17's graphed "bvh"
+render; each must be > 0; the BSDF kernels' forward_kernels_a_round:
+phase 21's macbeth count with the BSDF calls' plain versions and with
+the kernels;
 launches_modes: phase 8's graphed "regen" and "spp" renders,
 launches_sharded: phases 13-15, launches_bench: phase 18,
 launches_large_mesh: phase 25's counted renders, every kernel's the
@@ -336,6 +372,7 @@ SOURCE = "nart_tpu_torch/csrc/cluster_hit.cu"
 LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
 LARGE_SOURCE = "nart_tpu_torch/csrc/large_lut.cu"
 BVH_SOURCE = "nart_tpu_torch/csrc/bvh_walk.cu"
+BSDF_SOURCE = "nart_tpu_torch/csrc/bsdf.cu"
 CORE_SOURCE = "nart_tpu_torch/csrc/core.cpp"  # host code: no kernel
 DEVICE = "cuda"  # every phase runs on the card
 LARGE_SITES = ("nart_tpu/materials.py:60", "nart_tpu/lights.py:73",
@@ -357,18 +394,26 @@ REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             # plain gathers
             "lut_gather_large_bwd": ", ".join(LARGE_SITES),
             # no Pallas kernel: the "bvh" kind's walk, XLA's while_loop
-            "bvh_hit": "nart_tpu/accel.py:171"}
+            "bvh_hit": "nart_tpu/accel.py:171",
+            # no Pallas kernel: the BSDF lobe mixture, which XLA fuses:
+            # bsdf_sample_f (with _lobe_sample :566, _vndf_sample :212),
+            # bsdf_f with bsdf_pdf, and XLA's autodiff of their f
+            "bsdf_sample": "nart_tpu/bxdf.py:618",
+            "bsdf_eval": "nart_tpu/bxdf.py:594, nart_tpu/bxdf.py:602",
+            "bsdf_f_bwd": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594"}
 KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
 LARGE = ("lut_gather_large_bwd",)  # the kernel of large_lut.cu
+BSDF = ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")  # the kernels of bsdf.cu
 SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
-           else BVH_SOURCE if k == "bvh_hit" else LUT_SOURCE
-           for k in KERNELS}
+           else BVH_SOURCE if k == "bvh_hit" else BSDF_SOURCE if k in BSDF
+           else LUT_SOURCE for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
 LUT_NAMES = ("lut_gather_many_kernel", "lut_bwd_many_kernel",
              "lut_partial_kernel", "lut_final_kernel")
 LARGE_NAMES = ("lut_sort_kernel", "lut_seg_kernel", "lut_carry_kernel")
+BSDF_NAMES = ("bsdf_sample_kernel", "bsdf_eval_kernel", "bsdf_f_bwd_kernel")
 # torch.sort's kernels (the path round's ray sort, and S2's order of lanes)
 SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
               "bitonicSort")
@@ -840,6 +885,7 @@ def main_path(overrides):
             and after["captures"] == 1):
         raise AssertionError(f"launches {counts}, {ran} rounds run, "
                              f"{rounds} rounds, {after}")
+    check_bsdf_launches("forward path", counts, ran)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
         "MiB")
     img = film.finalize(buf, params.image_width, params.image_height,
@@ -947,7 +993,18 @@ def check_replay_launches(label, counts, rounds, ran, runner):
     # the small tables' look-ups: the forward kernel in the forward's
     # rounds, both kernels in the backward's round graph (the small-table
     # backward's two-launch reference never)
+    # the BSDF kernels: X1 twice and X2 once a forward round run, and in
+    # the backward's round graph (which re-runs the round) with X3
     fwd, back = runner.launches, runner.back_launches
+    if not (counts["bsdf_sample"] == 2 * counts["bsdf_eval"] > 0
+            and fwd.get("bsdf_sample", 0) == 2 * runner.k
+            and fwd.get("bsdf_eval", 0) == runner.k
+            and not fwd.get("bsdf_f_bwd", 0)
+            and back.get("bsdf_sample", 0) == 2 * back.get("bsdf_eval", 0) > 0
+            and back.get("bsdf_f_bwd", 0) > 0 and counts["bsdf_f_bwd"] > 0):
+        raise AssertionError(
+            f"{label}: BSDF launches {counts}, per forward replay {fwd}, "
+            f"per backward round {back}")
     if not (fwd.get("lut_gather", 0) > 0 and not fwd.get("lut_gather_bwd", 0)
             and back.get("lut_gather", 0) > 0
             and back.get("lut_gather_bwd", 0) > 0
@@ -1012,7 +1069,7 @@ def device_busy(label, fn, wall_s, top=5):
         f"{wall_s:.4f} s")
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     # the heaviest, and the traversal and look-up kernels wherever they rank
-    ours = ("walk_kernel",) + LUT_NAMES + LARGE_NAMES
+    ours = ("walk_kernel",) + LUT_NAMES + LARGE_NAMES + BSDF_NAMES
     for name, (ns, n) in ranked[:top] + [
             kv for kv in ranked[top:] if any(k in kv[0] for k in ours)]:
         log(f"    {name[:60]:60s} {ns / 1e6:10.3f} ms x{n}")
@@ -1022,6 +1079,7 @@ def device_busy(label, fn, wall_s, top=5):
     for what, keys in (("indexing_backward_kernel*", (INDEXING_BACKWARD,)),
                        ("look-up kernels (small_lut.cu)", LUT_NAMES),
                        ("look-up kernels (large_lut.cu)", LARGE_NAMES),
+                       ("BSDF kernels (bsdf.cu)", BSDF_NAMES),
                        ("sorts (the ray sort's and S2's)", SORT_NAMES),
                        ("memsets", ("Memset",))):
         hits = [v for name, v in by_name.items()
@@ -1267,6 +1325,8 @@ def _mode_cell(label, make, calls, traversal):
             if {r["launches"][k] for k in KERNELS[:2]} != want:
                 raise AssertionError(f"{label}, {name}: launches "
                                      f"{r['launches']}, {want} rounds run")
+            check_bsdf_launches(f"{label}, {name}", r["launches"],
+                                r["rounds_run"])
         else:
             _no_traversal(f"{label}, {name}", r["launches"])
     return g["film"], g["launches"]
@@ -1340,8 +1400,19 @@ def volume_session(overrides=None, per_round=False):
 
 
 def _no_traversal(label, counts):
-    if any(counts.get(k, 0) for k in TRAVERSAL):
-        raise AssertionError(f"{label} launched a traversal kernel: {counts}")
+    """The volume's paths: no traversal kernel, no BSDF kernel."""
+    if any(counts.get(k, 0) for k in TRAVERSAL + BSDF):
+        raise AssertionError(f"{label} launched a traversal or BSDF kernel: "
+                             f"{counts}")
+
+
+def check_bsdf_launches(label, counts, rounds_run):
+    """A path forward's BSDF kernels: X1 twice (strategy A, the scatter)
+    and X2 once (strategy B) in every round the card ran, X3 never."""
+    want = {"bsdf_sample": 2 * rounds_run, "bsdf_eval": rounds_run,
+            "bsdf_f_bwd": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: BSDF launches {counts}, want {want}")
 
 
 def volume_golden():
@@ -2477,7 +2548,7 @@ def _graphed_against_per_round(label, make, traversal):
         after = machine_totals(sess.machines)
         return film, {"wall_s": wall, "stats": dict(sess.stats),
                       "launches": {k: cuda_build.launch_counts[k]
-                                   for k in KERNELS[:2]},
+                                   for k in KERNELS[:2] + BSDF},
                       "rounds_run": after["rounds_run"] - before["rounds_run"],
                       "replays": after["replays"] - before["replays"],
                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
@@ -2499,7 +2570,7 @@ def _graphed_against_per_round(label, make, traversal):
     g["first_wall_s"] = first["wall_s"]
     g.update({k: v for k, v in machine_totals(sess.machines).items()
               if k.startswith("capture")})
-    _, g["busy"], _, g["device_ms"] = device_busy(
+    g["kernels"], g["busy"], _, g["device_ms"] = device_busy(
         f"{label}, graphed forward", sess.render, g["wall_s"])
     del sess
     base = cached_mib()
@@ -2528,9 +2599,15 @@ def _graphed_against_per_round(label, make, traversal):
                              f"{g['captures']} captures")
     want = ((g["rounds_run"], e["rounds_run"]) if traversal else (0, 0))
     for r, n in zip((g, e), want):
-        if set(r["launches"].values()) != {n}:
+        if {r["launches"][k] for k in KERNELS[:2]} != {n}:
             raise AssertionError(f"{label}: launches {r['launches']}, want "
                                  f"{n} each")
+        check_bsdf_launches(label, r["launches"], n)
+    g["kernels_a_round"] = g["kernels"] / g["rounds_run"]
+    g["film"] = film_g
+    log(f"    {label}: {g['kernels']} kernels and copies over "
+        f"{g['rounds_run']} rounds run: {g['kernels_a_round']:.1f} a round "
+        "(graphed forward, profiled)")
     if not (e["rounds_run"] == rounds_
             and rounds_ <= g["rounds_run"] < rounds_ + rounds.ROUNDS_PER_CHECK):
         raise AssertionError(f"{label}: rounds run {g['rounds_run']} / "
@@ -2586,8 +2663,50 @@ def graphed_rounds():
     if not torch.equal(*films):
         raise AssertionError("many chunks: the graphed film differs from "
                              "the per-round loop's")
+    mac = records["macbeth 1280x720 @ 4 spp"]["graphed"]
+    mac["plain_bsdf"] = plain_bsdf_round(macbeth, p_mac, mac["film"])
+    for r in records.values():
+        del r["graphed"]["film"]
     k_sweep(macbeth, p_mac)
     return records
+
+
+def plain_bsdf_round(scene, params, film_kernels):
+    """Phase 21's macbeth cell with the path round's BSDF calls on their
+    plain versions (bsdf_ops.sample_f and eval_f_pdf replaced by
+    sample_plain and eval_plain: bxdf.py's functions op by op, the route
+    before X1-X3): a graphed render that captures, then one under
+    torch.profiler (device_busy, as the cell's).  Its film must be the
+    kernels' film_kernels bit for bit.  Returns {"kernels", "rounds_run",
+    "kernels_a_round", "device_ms"} of the profiled render."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops, render
+
+    label = "macbeth 1280x720 @ 4 spp, plain BSDF calls"
+    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+    bsdf_ops.sample_f = bsdf_ops.sample_plain
+    bsdf_ops.eval_f_pdf = bsdf_ops.eval_plain
+    try:
+        sess = render.RenderSession(scene, params, DEVICE)
+        sess.render()
+        before = machine_totals(sess.machines)["rounds_run"]
+        films = []
+        kernels, _, _, dev_ms = device_busy(
+            f"{label}, graphed forward",
+            lambda: films.append(sess.render()), None)
+        rounds_run = machine_totals(sess.machines)["rounds_run"] - before
+    finally:
+        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+    if not torch.equal(films[0], film_kernels):
+        raise AssertionError(f"{label}: the film differs from the BSDF "
+                             "kernels' film")
+    out = {"kernels": kernels, "rounds_run": rounds_run,
+           "kernels_a_round": kernels / rounds_run, "device_ms": dev_ms}
+    log(f"    {label}: {kernels} kernels and copies over {rounds_run} rounds"
+        f" run: {out['kernels_a_round']:.1f} a round (graphed forward, "
+        "profiled); the film the BSDF kernels' bits")
+    return out
 
 
 def k_sweep(scene, params):
@@ -2725,6 +2844,13 @@ def _replay_cell(label, fn, traversal, large):
         if {e["launches"][k] for k in KERNELS[:2]} != {e["rounds"]}:
             raise AssertionError(f"{label}: per-round launches "
                                  f"{e['launches']}")
+        # X1 twice and X2 once a forward round, again where the backward
+        # re-runs a round, X3 in the backward only
+        if not (e["launches"]["bsdf_sample"] == 2 * e["launches"][
+                "bsdf_eval"] and e["launches"]["bsdf_eval"] >= e["rounds"]
+                and e["launches"]["bsdf_f_bwd"] > 0):
+            raise AssertionError(f"{label}: per-round BSDF launches "
+                                 f"{e['launches']}")
     else:
         _no_traversal(label, {**g["launches"], **e["launches"]})
     if (e["launches"]["lut_gather_large_bwd"] > 0) != large:
@@ -2826,7 +2952,10 @@ def turn(out_path):
         _, busy, indexing, dev_ms = device_busy(f"turn, {label}", call, wall)
         out[label] = dict(
             film=film.cpu(), loss=torch.as_tensor(loss).cpu(),
-            leaves=grad.flatten_leaves(grads).cpu(), rays=int(rays),
+            leaves=grad.flatten_leaves(grads).cpu(),
+            named=[(k, g.detach().reshape(-1).cpu())
+                   for k, g in _leaves(grads)],
+            rays=int(rays),
             rounds=int(rounds), forward_wall_s=fwd_wall, wall_s=wall,
             device_ms=dev_ms, busy=busy, indexing_backward=indexing)
         del sess, machines
@@ -2854,6 +2983,7 @@ def turns(parent):
                 f"{time.perf_counter() - t0:.1f} s]")
             runs.append((tree_label, torch.load(out)))
     ref = next(r for lab, r in runs if lab == "P")
+    failed = []
     for label in ref:
         for i, (tree_label, r) in enumerate(runs):
             c = r[label]
@@ -2872,10 +3002,219 @@ def turns(parent):
                 f"{float(c['loss'])!r}; against P1: {same}, leaves max abs "
                 f"diff {float((a - b).abs().max()):.3g}, {outside} of "
                 f"{a.numel()} outside rtol 1e-5 / atol 1e-7")
+            if outside:  # where, leaf by leaf
+                for (k, x), (_, y) in zip(c["named"], ref[label]["named"]):
+                    bad = ~torch.isclose(x, y, rtol=1e-5, atol=1e-7)
+                    if bool(bad.any()):
+                        j = int(bad.nonzero()[0, 0])
+                        log(f"        {k}: {int(bad.sum())} of {x.numel()} "
+                            f"outside, e.g. [{j}] {float(x[j])!r} against "
+                            f"P1's {float(y[j])!r}")
             if not (same["film"] and same["loss"] and same["rays_rounds"]
                     and not outside and not c["indexing_backward"]):
-                raise AssertionError(f"{label}, turn {i + 1}: the change "
-                                     "differs from the parent")
+                failed.append(f"{label}, turn {i + 1}")
+    if failed:  # every cell and turn is logged first
+        raise AssertionError(f"the change differs from the parent: "
+                             f"{failed}")
+
+
+def _f64_bsdf_functions():
+    """(sample_f, eval_f_pdf, stats) whose forwards are X1 and X2 (the
+    plain version's bits) and whose backwards are the float64 VJP of the
+    plain version at the same inputs, wi held fixed (bsdf_ops.
+    sample_at_bwd_plain with X1's wi and flags, bsdf_ops.eval_bwd_plain),
+    rounded to float32 a lane; a non-finite float64 row is zeroed.  Each
+    backward call also holds X3 and measures the plain float32 VJP against
+    that float64 VJP on its lanes (_x3_against_float64, as phase 27 does);
+    stats sums the calls, lanes and the counts it returns."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops, bxdf
+
+    stats = {"calls": 0, "lanes": 0, "x3_within": 0, "x3_worst": 0.0,
+             "other_branch": 0, "non_finite": 0, "plain32_outside": 0,
+             "plain32_worst": 0.0}
+
+    def f32(label, x3, f_fwd, ref, f_ref, plain32):
+        r = _x3_against_float64(label, x3, f_fwd, ref, f_ref, plain32)
+        stats["calls"] += 1
+        stats["lanes"] += f_fwd.shape[0]
+        stats["x3_within"] += r[1]
+        stats["other_branch"] += r[2]
+        stats["non_finite"] += r[3]
+        stats["plain32_outside"] += r[4]
+        stats["x3_worst"] = max(stats["x3_worst"], r[0])
+        stats["plain32_worst"] = max(stats["plain32_worst"], r[5])
+        return [torch.where(torch.isfinite(g), g, 0.0).float() for g in ref]
+
+    class Sample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                    alpha_prime, wo, u1, u2, use_prime, eta_outer,
+                    prev_flags):
+            desc, wo, u1, u2, use_prime, eta_outer, prev_flags = (
+                bsdf_ops._contiguous(bxdf.BsdfDesc(
+                    n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                    alpha_prime), wo, u1, u2, use_prime, eta_outer,
+                    prev_flags))
+            f, wi, pdf, flags, alpha_i, eta_s, bits = bsdf_ops.sample_cuda(
+                desc, wo, u1, u2, use_prime, eta_outer, prev_flags)
+            ctx.save_for_backward(*desc, wo, wi, u1, u2, use_prime,
+                                  eta_outer, prev_flags, flags, bits, f)
+            ctx.mark_non_differentiable(wi, pdf, flags)
+            return f, wi, pdf, flags, alpha_i, eta_s
+
+        @staticmethod
+        def backward(ctx, g_f, _g_wi, _g_pdf, _g_flags, g_alpha_i, g_eta_s):
+            *d, wo, wi, u1, u2, up, eo, pf, flags, bits, f = ctx.saved_tensors
+            desc = bxdf.BsdfDesc(*d)
+            cots = bsdf_ops._contiguous(g_f, g_alpha_i, g_eta_s)
+            at = (_f64(desc), _f64(wo), _f64(wi), _f64(u1), _f64(u2), up,
+                  _f64(eo), pf, flags)
+            g = f32("witness, sample", bsdf_ops.f_bwd_cuda(
+                "sample", desc, wo, wi, up, eo, *cots, u2=u2, prev_flags=pf,
+                bits=bits), f,
+                bsdf_ops.sample_at_bwd_plain(*at, *map(_f64, cots)),
+                bsdf_ops.sample_at_plain(*at)[0],
+                bsdf_ops.sample_bwd_plain(desc, wo, u1, u2, up, eo, pf,
+                                          *cots))
+            return (None, None, *g[:7], None, None, None, g[7], None)
+
+    class Eval(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                    alpha_prime, wo, wi, use_prime, eta_outer):
+            desc, wo, wi, use_prime, eta_outer = bsdf_ops._contiguous(
+                bxdf.BsdfDesc(n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                              alpha_prime), wo, wi, use_prime, eta_outer)
+            f, pdf = bsdf_ops.eval_cuda(desc, wo, wi, use_prime, eta_outer)
+            ctx.save_for_backward(*desc, wo, wi, use_prime, eta_outer, f)
+            ctx.mark_non_differentiable(pdf)
+            return f, pdf
+
+        @staticmethod
+        def backward(ctx, g_f, _g_pdf):
+            *d, wo, wi, up, eo, f = ctx.saved_tensors
+            desc = bxdf.BsdfDesc(*d)
+            (g_f,) = bsdf_ops._contiguous(g_f)
+            at = (_f64(desc), _f64(wo), _f64(wi), up, _f64(eo))
+            g = f32("witness, eval", bsdf_ops.f_bwd_cuda(
+                "eval", desc, wo, wi, up, eo, g_f), f,
+                bsdf_ops.eval_bwd_plain(*at, _f64(g_f)),
+                bsdf_ops.eval_plain(*at)[0],
+                bsdf_ops.eval_bwd_plain(desc, wo, wi, up, eo, g_f))
+            return (None, None, *g[:7], None, None, g[7])
+
+    return ((lambda desc, *a: Sample.apply(*desc, *a)),
+            (lambda desc, *a: Eval.apply(*desc, *a)), stats)
+
+
+def leaf_witness():
+    """`chip_smoke.py --witness`: which of the BSDF backward's two float32
+    arithmetics lies nearer the float64 one on the leaves of phase 22's
+    macbeth 1280x720 @ 4 spp fwd+bwd (the turns' cell whose leaves move
+    with X3).  The same fwd+bwd (its forward the same bits every time)
+    with the BSDF calls' backward by X3 and by the plain version's float32
+    autograd VJP (sample_f and eval_f_pdf replaced by bsdf_ops'
+    sample_plain and eval_plain: bxdf.py op by op, the parent's
+    arithmetic), each on the kept graphed replay (the turns' route) and on
+    the per-round replay, and by the float64 VJP of the plain version
+    (_f64_bsdf_functions) on the per-round replay (a backward that runs
+    autograd inside itself is not captured), where every BSDF call also
+    holds X3 to that VJP and measures the plain float32 VJP against it,
+    lane by lane, as phase 27 does.  For every leaf value where
+    the graphed X3 and plain routes differ by more than rtol 1e-5 / atol
+    1e-7 (the turns' tolerance) it logs the five values and each one's
+    distance to the float64 route's, and the relative L2 distance of
+    every leaf vector to it; raises unless on each such value X3's is the
+    nearer of the two on both replays, or if the routes' losses, rays or
+    rounds differ."""
+    import gc
+
+    import torch
+
+    from nart_tpu_torch import bsdf_ops, grad, render, scene
+
+    macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    (params,) = render.load_sessions(MACBETH, {"spp": 4})[:1]
+    sess = render.RenderSession(macbeth, params, DEVICE)
+    w, h = params.image_width, params.image_height
+    samples = _image_samples(params, DEVICE)
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sess.scene)
+    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+    f64_sample, f64_eval, f64_stats = _f64_bsdf_functions()
+    routes = {"x3": real, "plain": (bsdf_ops.sample_plain,
+                                    bsdf_ops.eval_plain),
+              "float64": (f64_sample, f64_eval)}
+    runs = {}
+    for name, per_round in (("x3", False), ("plain", False), ("x3", True),
+                            ("plain", True), ("float64", True)):
+        label = f"{name}, {'per-round' if per_round else 'graphed'}"
+        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = routes[name]
+        try:
+            machines = {}
+            t0 = time.perf_counter()
+            for _ in range(1 if per_round else 2):  # graphed: capture, then
+                loss, grads, rays, rounds_ = (
+                    grad.radiance_weighted_loss_and_grad(
+                        sess.scene, theta, sess.accel, samples, cot, params,
+                        w, h, machines=machines, per_round=per_round))
+            torch.cuda.synchronize()
+        finally:
+            bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+        runs[label] = dict(loss=float(loss), rays=int(rays),
+                           rounds=int(rounds_),
+                           named={k: g.detach().reshape(-1).double().cpu()
+                                  for k, g in _leaves(grads)})
+        log(f"    witness, {label}: loss {float(loss)!r}, {int(rays)} rays, "
+            f"{int(rounds_)} rounds, {time.perf_counter() - t0:.1f} s")
+        del machines
+        gc.collect()
+        torch.cuda.empty_cache()
+    st = f64_stats
+    log(f"    witness, every BSDF call of the float64 route's backward "
+        f"({st['calls']} calls, {st['lanes']} lanes): X3 within rtol "
+        f"{BSDF_RTOL} / atol {BSDF_ATOL} of the float64 VJP on "
+        f"{st['x3_within']} lanes (at most {st['x3_worst']:.3g} of the "
+        f"tolerance), outside it on another float64 branch "
+        f"{st['other_branch']}, a non-finite float64 VJP (zeroed) on "
+        f"{st['non_finite']}; the plain float32 VJP outside the tolerance on "
+        f"{st['plain32_outside']} lanes (up to {st['plain32_worst']:.3g} "
+        "times it)")
+    if len({(r["loss"], r["rays"], r["rounds"]) for r in runs.values()}) != 1:
+        raise AssertionError("witness: the routes' forwards differ")
+    ref = runs["float64, per-round"]["named"]
+    for label, r in runs.items():
+        num = sum(float(((r["named"][k] - x) ** 2).sum())
+                  for k, x in ref.items())
+        den = sum(float((x ** 2).sum()) for x in ref.values())
+        log(f"    witness, {label}: every leaf's relative L2 distance to "
+            f"the float64 route's {math.sqrt(num / den):.3e}")
+    a, b = runs["x3, graphed"]["named"], runs["plain, graphed"]["named"]
+    c, d = runs["x3, per-round"]["named"], runs["plain, per-round"]["named"]
+    nearer, values = [], 0
+    for k in ref:
+        bad = ~torch.isclose(a[k], b[k], rtol=1e-5, atol=1e-7)
+        for j in bad.nonzero()[:, 0].tolist():
+            e = float(ref[k][j])
+            vals = {lab: float(x[k][j]) for lab, x in (
+                ("x3 graphed", a), ("plain graphed", b),
+                ("x3 per-round", c), ("plain per-round", d))}
+            log(f"    witness, {k}[{j}]: float64 {e!r}; " + "; ".join(
+                f"{lab} {v!r} (off {abs(v - e):.4g})"
+                for lab, v in vals.items()))
+            values += 1
+            nearer.append(
+                abs(vals["x3 graphed"] - e) < abs(vals["plain graphed"] - e)
+                and abs(vals["x3 per-round"] - e)
+                < abs(vals["plain per-round"] - e))
+    log(f"    witness: {values} leaf values where X3 and the plain VJP "
+        f"differ past rtol 1e-5 / atol 1e-7; X3 the nearer to the float64 "
+        f"VJP on {sum(nearer)} of them, on both replays")
+    if not all(nearer):
+        raise AssertionError("witness: the plain float32 VJP is nearer the "
+                             "float64 one on some leaf value")
 
 
 def _macbeth_mesh_ids(device, lanes):
@@ -3921,6 +4260,413 @@ def scaling_phase(ranks=(4, 8)):
         f"{one}")
 
 
+def mid_trace_bsdf(make_session, rounds=8):
+    """The inputs of a path round's three BSDF calls (strategy A's sample,
+    strategy B's eval, the scatter's sample) mid-trace: of the first
+    `rounds` rounds of a per-round render (make_session() -> a
+    RenderSession with per_round=True, stopped there by
+    round_ops.stop_after if it runs longer), the one with the most live
+    lanes in their second or later bounce (the first rounds of a chunk
+    trace its first rows' camera rays: macbeth's are sky).
+    Returns (that round, those lanes, {"sample A": {...}, "eval B": {...},
+    "scatter": {...}}: each call's tensors, copied)."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops, bxdf, round_ops
+    from nart_tpu_torch.integrators import path
+
+    per_round = []  # (lanes past their first bounce, [calls])
+    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+
+    def copy(t):
+        return t.detach().clone(memory_format=torch.contiguous_format)
+
+    def keep(fn, names, args):
+        per_round[-1][1].append({
+            k: bxdf.BsdfDesc(*map(copy, v)) if k == "desc" else copy(v)
+            for k, v in zip(names, args)})
+        return fn(*args)
+
+    def new_round(bounce, p, *tables):
+        per_round.append((int((p.alive & (bounce >= 1)).sum()), []))
+
+    bsdf_ops.sample_f = lambda *a: keep(real[0], (
+        "desc", "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags"), a)
+    bsdf_ops.eval_f_pdf = lambda *a: keep(real[1], (
+        "desc", "wo", "wi", "use_prime", "eta_outer"), a)
+    make_bounce = round_ops.stop_after(path, "make_bounce", rounds,
+                                       {"rounds": 0}, new_round)
+    try:
+        make_session().render()  # a render of fewer rounds ends itself
+    except round_ops.Done:
+        pass
+    finally:
+        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+        path.make_bounce = make_bounce
+    best = max(range(len(per_round)), key=lambda r: per_round[r][0])
+    lanes, calls = per_round[best]
+    return best + 1, lanes, dict(zip(("sample A", "eval B", "scatter"),
+                                     calls))
+
+
+def _bits_equal(label, names, got, want):
+    """Raises unless every output has the plain version's bits on every
+    lane; returns the largest absolute difference (0)."""
+    import torch
+
+    for name, a, b in zip(names, got, want):
+        a, b = a.contiguous(), b.contiguous()
+        same = (a.view(torch.int32) == b.view(torch.int32)
+                if a.dtype == torch.float32 else a == b)
+        if not bool(same.all()):
+            bad = (~same).reshape(a.shape[0], -1).any(-1).nonzero()[:4, 0]
+            raise AssertionError(
+                f"{label}: {name} differs from the plain version's bits on "
+                f"{int((~same).reshape(a.shape[0], -1).any(-1).sum())} lanes,"
+                f" e.g. lanes {bad.tolist()}: {a[bad].tolist()} vs "
+                f"{b[bad].tolist()}")
+    return 0.0
+
+
+def _f64(x):
+    import torch
+
+    from nart_tpu_torch import bxdf
+
+    if isinstance(x, bxdf.BsdfDesc):
+        return bxdf.BsdfDesc(*[_f64(t) for t in x])
+    return x.double() if x.dtype == torch.float32 else x
+
+
+def _x3_against_float64(label, got, f_fwd, ref, f_ref, plain32):
+    """X3's per-lane gradients (got, bsdf_ops.DIFF's order) against the
+    float64 VJP of the plain version (ref): within BSDF_RTOL / BSDF_ATOL
+    on every lane where the float64 VJP is finite, but those whose float64
+    forward (f_ref) takes another branch than the float32 forward (f_fwd):
+    f beyond rtol 1e-3 / atol 1e-5 of it, or zero where it is not (a TIR
+    or a grazing cut at its boundary).  The plain float32 VJP (plain32:
+    the CPU route's, and the parent's on the card) is measured against the
+    same float64 VJP, not held to it.  Returns (the largest |X3 - float64|
+    / (atol + rtol |float64|) of the lanes within tolerance, their count,
+    the lanes outside it on another branch, the lanes with a non-finite
+    float64 VJP, the lanes where plain32 is outside the tolerance, its
+    largest ratio there, X3's largest absolute error)."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops
+
+    n = f_fwd.shape[0]
+    f32 = f_fwd.double()
+    branch = (~torch.isclose(f_ref, f32, rtol=1e-3, atol=1e-5)
+              | ((f_ref == 0.0) != (f32 == 0.0))).any(-1)
+    finite = torch.ones(n, dtype=torch.bool, device=f_fwd.device)
+    ratio = torch.zeros(n, dtype=torch.float64, device=f_fwd.device)
+    ratio32, err = torch.zeros_like(ratio), torch.zeros_like(ratio)
+    for name, a, b, c in zip(bsdf_ops.DIFF, got, ref, plain32):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: X3's {name} is not finite")
+        a, b = a.double().reshape(n, -1), b.reshape(n, -1)
+        scale = BSDF_ATOL + BSDF_RTOL * b.abs()
+        finite &= torch.isfinite(b).all(-1)
+        ratio = torch.maximum(ratio, ((a - b).abs() / scale).amax(-1))
+        err = torch.maximum(err, (a - b).abs().amax(-1))
+        ratio32 = torch.maximum(ratio32, ((c.double().reshape(n, -1) - b)
+                                          .abs() / scale).amax(-1))
+    ok = ratio <= 1.0
+    ratio32 = torch.nan_to_num(ratio32, nan=math.inf)  # a NaN is outside
+    bad = ~ok & finite & ~branch
+    if bool(bad.any()):
+        i = bad.nonzero()[:3, 0]
+        raise AssertionError(
+            f"{label}: X3 outside rtol {BSDF_RTOL} / atol {BSDF_ATOL} of "
+            f"the float64 VJP on {int(bad.sum())} lanes of the float32 "
+            f"branches, e.g. {i.tolist()}: "
+            f"{[g[i].tolist() for g in got]} vs "
+            f"{[r[i].tolist() for r in ref]}")
+    use = ok & finite
+    out32 = finite & (ratio32 > 1.0)
+    return (float(ratio[use].max()) if bool(use.any()) else 0.0,
+            int(use.sum()), int((~ok & finite & branch).sum()),
+            int((~finite).sum()), int(out32.sum()),
+            float(ratio32[finite].max()) if bool(finite.any()) else 0.0,
+            float(err[use].max()) if bool(use.any()) else 0.0)
+
+
+def _bsdf_sample_set(label, s, rng):
+    """X1 and X3 ("sample") on one sample call's inputs s; returns
+    (X1's max abs error, X3's, the log's counts)."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops
+
+    desc, wo, eo = s["desc"], s["wo"], s["eta_outer"]
+    args = (s["u1"], s["u2"], s["use_prime"], eo, s["prev_flags"])
+    got = bsdf_ops.sample_cuda(desc, wo, *args)
+    want = bsdf_ops.sample_plain(desc, wo, *args)
+    err1 = _bits_equal(f"{label}: X1", ("f", "wi", "pdf", "flags",
+                                         "alpha_i", "eta_sampled"),
+                       got[:6], want)
+    n = wo.shape[0]
+    cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        DEVICE) for shape in ((n, 3), (n,), (n,))]
+    x3 = bsdf_ops.f_bwd_cuda("sample", desc, wo, got[1], s["use_prime"], eo,
+                             *cots, u2=s["u2"], prev_flags=s["prev_flags"],
+                             bits=got[6])
+    at = (_f64(desc), _f64(wo), _f64(got[1]), _f64(s["u1"]), _f64(s["u2"]),
+          s["use_prime"], _f64(eo), s["prev_flags"], got[3])
+    ref = bsdf_ops.sample_at_bwd_plain(*at, *[_f64(c) for c in cots])
+    f_ref = bsdf_ops.sample_at_plain(*at)[0]
+    plain32 = bsdf_ops.sample_bwd_plain(desc, wo, *args, *cots)
+    err3 = _x3_against_float64(f"{label}: X3 sample", x3, got[0], ref, f_ref,
+                               plain32)
+    return err1, err3
+
+
+def _bsdf_eval_set(label, s, rng):
+    """X2 and X3 ("eval") on one eval call's inputs s."""
+    import torch
+
+    from nart_tpu_torch import bsdf_ops
+
+    desc, wo, wi, up, eo = (s["desc"], s["wo"], s["wi"], s["use_prime"],
+                            s["eta_outer"])
+    got = bsdf_ops.eval_cuda(desc, wo, wi, up, eo)
+    want = bsdf_ops.eval_plain(desc, wo, wi, up, eo)
+    err2 = _bits_equal(f"{label}: X2", ("f", "pdf"), got, want)
+    g_f = torch.from_numpy(rng.normal(size=(wo.shape[0], 3)).astype(
+        np.float32)).to(DEVICE)
+    x3 = bsdf_ops.f_bwd_cuda("eval", desc, wo, wi, up, eo, g_f)
+    at = (_f64(desc), _f64(wo), _f64(wi), up, _f64(eo))
+    ref = bsdf_ops.eval_bwd_plain(*at, _f64(g_f))
+    f_ref = bsdf_ops.eval_plain(*at)[0]
+    plain32 = bsdf_ops.eval_bwd_plain(desc, wo, wi, up, eo, g_f)
+    err3 = _x3_against_float64(f"{label}: X3 eval", x3, got[0], ref, f_ref,
+                               plain32)
+    return err2, err3
+
+
+def bsdf_bytes_dense(kernel, n):
+    """The bytes of every input tensor read once and every output written
+    once at n lanes (more than a launch must move: a lane reads only what
+    its lobes need, bsdf_bytes)."""
+    i64, f32, row3 = 8, 4, 12
+    desc = 2 * i64 + i64 + 3 * row3 + 3 * f32  # n_lobes, lobe, rho, scalars
+    if kernel == "bsdf_sample":  # + wo, u1, u2, use_prime, eta_outer, prev
+        ins = desc + row3 + f32 + 2 * f32 + 1 + f32 + i64
+        outs = row3 + row3 + f32 + i64 + f32 + f32 + 4  # ..., bits
+    elif kernel == "bsdf_eval":  # + wo, wi, use_prime, eta_outer
+        ins = desc + 2 * row3 + 1 + f32
+        outs = row3 + f32
+    else:  # "sample": + wo, wi, u2, use_prime, eta_outer, prev, bits,
+        # g_f, g_alpha_i, g_eta_sampled
+        ins = desc + 2 * row3 + 2 * f32 + 1 + f32 + i64 + 4 + row3 + 2 * f32
+        outs = 3 * row3 + 3 * f32 + row3 + f32  # the DIFF rows
+    return n * (ins + outs)
+
+
+def bsdf_bytes(kernel, s, x1):
+    """The bytes a launch must move on the lanes of call s (x1: X1's
+    outputs on the sample call): each output written once, and of the
+    inputs what each lane's lobe codes need (LOBE_READS: the rows and
+    scalars of the lobes it samples or evaluates, one alpha as use_prime
+    picks it), read once.  X1: n_lobes, the lobe codes it reads, u1, the
+    u2 and prev_flags its picked lobe reads, and the rows of the picked
+    lobe and of the other where it is mixed in (X1's flags not
+    SPECULAR).  X2: n_lobes, the codes, wi where a lobe is not specular,
+    the rows of its non-specular lobes (a specular one's f and pdf are 0).
+    X3 ("sample"): X1's lobe bits, the cotangents its lobe reaches, wi,
+    u2 and prev_flags where its lobe reads them, and the rows of the
+    picked lobe and of the other where X1 added it (a Lambert lobe's
+    gradient reads no row: rho_d / pi)."""
+    import torch
+
+    from nart_tpu_torch import bxdf
+
+    d = s["desc"]
+    dev = d.n_lobes.device
+    two = d.n_lobes >= 2
+    l0, l1 = d.lobe[:, 0], d.lobe[:, 1]
+    table = torch.tensor([LOBE_READS[c] for c in range(5)], dtype=torch.bool,
+                         device=dev)
+    widths = torch.tensor(LOBE_READ_BYTES, dtype=torch.int64, device=dev)
+
+    def rows(code, used):
+        return table[code.clamp(0, 4)] & used[:, None]
+
+    def evaluated(code):  # a lobe whose f and pdf are not 0 by its code
+        return (code >= bxdf.L_LAMBERT) & (code <= bxdf.L_DIELECTRIC)
+
+    def among(code, *codes):
+        return sum((code == c).long() for c in codes)
+
+    every = torch.ones_like(two)
+    if kernel == "bsdf_sample":
+        idx = (s["u1"] * d.n_lobes.float()).long().clamp(0, 1)
+        code = torch.where(idx == 0, l0, l1)
+        other = torch.where(idx == 1, l0, l1)
+        mix = (((x1[3] & bxdf.SPECULAR) == 0) & two
+               & (other != bxdf.L_SPECULAR) & (other != bxdf.L_SPECDIEL))
+        need = rows(code, every) | rows(other, mix)
+        lane = (8 + 8 + 8 * two.long() + 4  # n_lobes, codes, u1
+                + 8 * among(code, bxdf.L_LAMBERT, bxdf.L_TS,
+                            bxdf.L_DIELECTRIC)
+                + 4 * among(code, bxdf.L_SPECDIEL)  # u2
+                + 8 * among(code, bxdf.L_DIELECTRIC, bxdf.L_SPECDIEL)
+                + 48)  # f, wi, pdf, flags, alpha_i, eta_sampled, bits
+    elif kernel == "bsdf_eval":
+        e0, e1 = evaluated(l0), two & evaluated(l1)
+        need = rows(l0, e0) | rows(l1, e1)
+        lane = 8 + 8 + 8 * two.long() + 12 * (e0 | e1).long() + 16
+    else:
+        bits = x1[6].long()
+        code, other = (bits & 7) - 1, ((bits >> 3) & 7) - 1
+        add = (bits & 64) != 0
+        need = (rows(code, code != bxdf.L_LAMBERT)
+                | rows(other, add & (other != bxdf.L_LAMBERT)))
+        wi = torch.where(add | (among(code, bxdf.L_TS, bxdf.L_DIELECTRIC)
+                                > 0), 12, 4 * among(code, bxdf.L_SPECULAR))
+        lane = (4 + 12 + wi  # bits, g_f, wi
+                + 4 * among(code, bxdf.L_TS, bxdf.L_DIELECTRIC)  # g_alpha_i
+                + 4 * (code != bxdf.L_LAMBERT).long()  # g_eta_sampled
+                + (4 + 8) * among(code, bxdf.L_SPECDIEL)  # u2, prev_flags
+                + 64)  # the DIFF rows
+    return int((lane + (need.long() * widths).sum(-1)).sum())
+
+
+def bsdf_ops_ms(kernel, desc):
+    """The operations side of a BSDF kernel's bound on these lanes: each
+    lane's BSDF_OPS by its (lobe 0, lobe 1), the float32 ones over
+    PEAK_FLOPS and the float64 ones over PEAK_FLOPS64 (separate pipes: the
+    larger).  Returns (ms, float32 ops, float64 ops)."""
+    import torch
+
+    pairs, counts = torch.unique(desc.lobe, dim=0, return_counts=True)
+    f32 = f64 = 0.0
+    for (l0, l1), c in zip(pairs.tolist(), counts.tolist()):
+        a, b = BSDF_OPS[(l0, l1)][kernel]
+        f32, f64 = f32 + a * c, f64 + b * c
+    return 1e3 * max(f32 / PEAK_FLOPS, f64 / PEAK_FLOPS64), f32, f64
+
+
+def bsdf_checks():
+    """Phase 27: X1-X3 (csrc/bsdf.cu) against their plain versions on the
+    card: 65,536 lanes of each LOBES kind and the three BSDF calls of a
+    mid-trace round of macbeth 1280x720 and simple_glass 512x512
+    (mid_trace_bsdf).  X1's and X2's outputs the plain version's
+    bits on every lane; X3 within BSDF_RTOL / BSDF_ATOL of the float64 VJP
+    of the plain version, wi held fixed (bsdf_ops.sample_at_plain,
+    bxdf.bsdf_f), on every lane whose float64 forward takes the float32
+    forward's branches and whose float64 VJP is finite (the others
+    counted).  Then, at macbeth's mid-trace calls: each kernel's and plain
+    version's device ms (the plain VJP's over eager calls: stream_ms),
+    ms per call, and the bound (bytes over 3.35 TB/s; no PyTorch call
+    computes a BSDF: library none).  Returns the kernels' records."""
+    import torch
+
+    from nart_tpu_torch import (bench, bsdf_ops, cuda_build, render, scene,
+                                testing)
+
+    rng = np.random.default_rng(27)
+    worst = 0.0  # X3's largest error over its tolerance
+    errs = 0.0  # and absolute
+    cuda_build.reset_launch_counts()
+
+    def x3_log(r):
+        ratio, used, br, nf, out32, worst32, _ = r
+        return (f"X3 within rtol {BSDF_RTOL} / atol {BSDF_ATOL} of the "
+                f"float64 VJP on {used} lanes (at most {ratio:.3g} of the "
+                f"tolerance); outside it on another float64 branch {br}; a "
+                f"non-finite float64 VJP (the plain version's fault) on {nf};"
+                f" the plain float32 VJP outside the tolerance on {out32} "
+                f"lanes (up to {worst32:.3g} times it)")
+
+    for i, kind in enumerate(testing.BSDF_LOBES):
+        s = testing.bsdf_lane_set(kind, BSDF_LANES, 2700 + i, DEVICE)
+        for mode, (_, r) in (("sample", _bsdf_sample_set(kind, s, rng)),
+                             ("eval", _bsdf_eval_set(kind, s, rng))):
+            worst, errs = max(worst, r[0]), max(errs, r[6])
+            log(f"    {kind} ({BSDF_LANES} lanes), {mode}: the plain "
+                f"version's bits on every lane; {x3_log(r)}")
+    _, glass = bench.bench_scene()
+    macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
+    p_mac = render.load_sessions(MACBETH, {"spp": 1})[0]
+    p_glass = render.RenderParams(image_width=512, image_height=512, spp=1,
+                                  bounces=10, filter_width=2.0,
+                                  roughening_factor=0.2)
+    mid = {}
+    for label, sc, p in (("macbeth 1280x720", macbeth, p_mac),
+                         ("simple_glass 512x512", glass, p_glass)):
+        r, deep, calls = mid_trace_bsdf(
+            lambda: render.RenderSession(sc, p, DEVICE, per_round=True))
+        mid[label] = calls
+        for name, s in calls.items():
+            at = f"{label}, round {r}, {name}"
+            _, x3r = (_bsdf_eval_set if name == "eval B"
+                      else _bsdf_sample_set)(at, s, rng)
+            worst, errs = max(worst, x3r[0]), max(errs, x3r[6])
+            codes = torch.bincount(s["desc"].lobe[:, 0] + 1, minlength=6)
+            log(f"    {at} ({s['wo'].shape[0]} lanes, {deep} live past "
+                f"their first bounce, lobe 0 codes -1..4: "
+                f"{codes.tolist()}): the plain version's bits on every "
+                f"lane; {x3_log(x3r)}")
+    if any(cuda_build.launch_counts[k] <= 0 for k in BSDF):
+        raise AssertionError(f"phase 27 launches {cuda_build.launch_counts}")
+
+    # times and bounds at macbeth's mid-trace calls (65,536 lanes)
+    calls = mid["macbeth 1280x720"]
+    sa, eb = calls["sample A"], calls["eval B"]
+    n = sa["wo"].shape[0]
+    s_args = (sa["desc"], sa["wo"], sa["u1"], sa["u2"], sa["use_prime"],
+              sa["eta_outer"], sa["prev_flags"])
+    e_args = (eb["desc"], eb["wo"], eb["wi"], eb["use_prime"],
+              eb["eta_outer"])
+    x1 = bsdf_ops.sample_cuda(*s_args)
+    cots = [torch.ones(n, 3, device=DEVICE), torch.ones(n, device=DEVICE),
+            torch.ones(n, device=DEVICE)]
+    bwd_kw = dict(u2=sa["u2"], prev_flags=sa["prev_flags"], bits=x1[6])
+    fns = {
+        "bsdf_sample": (lambda: bsdf_ops.sample_cuda(*s_args),
+                        lambda: bsdf_ops.sample_plain(*s_args), device_ms),
+        "bsdf_eval": (lambda: bsdf_ops.eval_cuda(*e_args),
+                      lambda: bsdf_ops.eval_plain(*e_args), device_ms),
+        "bsdf_f_bwd": (
+            lambda: bsdf_ops.f_bwd_cuda(
+                "sample", sa["desc"], sa["wo"], x1[1], sa["use_prime"],
+                sa["eta_outer"], *cots, **bwd_kw),
+            lambda: bsdf_ops.sample_bwd_plain(*s_args, *cots), stream_ms),
+    }
+    records = {}
+    for k, (kern, plain, plain_timer) in fns.items():
+        t = kernel_ms(kern, 20)
+        tp = plain_timer(plain, launches=3)
+        nbytes = bsdf_bytes(k, eb if k == "bsdf_eval" else sa, x1)
+        dense = bsdf_bytes_dense(k, n)
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES
+        ops_ms, f32, f64 = bsdf_ops_ms(
+            k, (eb if k == "bsdf_eval" else sa)["desc"])
+        bound = max(bytes_ms, ops_ms)
+        side = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"    {k} at macbeth's mid-trace call ({n} lanes): {fmt(t)}; "
+            f"plain version {fmt(tp)} ({tp['method']}); library none (no "
+            f"PyTorch call computes a BSDF); bound {bound:.6f} ms ({side}; "
+            f"bytes {nbytes}: {bytes_ms:.6f} ms (every input tensor once: "
+            f"{dense} B, {1e3 * dense / PEAK_BYTES:.6f} ms), operations "
+            f"{f32:.0f} "
+            f"float32 and {f64:.0f} float64: {ops_ms:.6f} ms), "
+            f"{100 * bound / t['ms']:.2f}% reached")
+        records[k] = dict(
+            ms=t["ms"], ms_min=t["min"], ms_max=t["max"],
+            ms_per_call=t["ms_per_call"], plain_ms=tp["ms"],
+            plain_method=tp["method"], library_ms=None, bound_ms=bound,
+            bound_by=side, bytes=nbytes, bytes_dense=dense, ops_f32=f32,
+            ops_f64=f64, lanes=n,
+            max_abs_err=errs if k == "bsdf_f_bwd" else 0.0,
+            x3_tolerance_ratio=worst if k == "bsdf_f_bwd" else None,
+            shape="macbeth 1280x720, mid-trace, "
+            f"{'strategy B' if k == 'bsdf_eval' else 'strategy A'}")
+    return records
+
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -3947,6 +4693,39 @@ LARGE_SHAPES = (("macbeth env map", 65536, 64 * 128, 3),
                 ("volume_blob density cells", 32768, 31**3, 8))
 # phase 24's table rows where both backward kernels are timed
 S1_S2_ROWS = (3, 64, 1024, 4096, 8192, 16384, 65536)
+# phase 27's lanes a LOBES set (testing.bsdf_lane_set); X3's tolerance
+# against the float64 VJP of the plain version
+BSDF_LANES = 65536
+# the inputs a lobe of each code reads where a lane samples or evaluates it
+# (csrc/bsdf.cu's lobe functions): (rho_d row, rho_s row, tau row, alpha
+# with use_prime, eta and eta_outer, wo), and their bytes a lane
+LOBE_READS = {0: (1, 0, 0, 0, 0, 0), 1: (0, 1, 0, 1, 1, 1),
+              2: (0, 1, 1, 1, 1, 1), 3: (0, 1, 0, 0, 1, 1),
+              4: (0, 1, 1, 0, 1, 1)}
+LOBE_READ_BYTES = (12, 12, 12, 4 + 1, 4 + 4, 12)
+BSDF_RTOL, BSDF_ATOL = 1e-5, 1e-6
+# the float32 and float64 operations a lane of each BSDF kernel does, by
+# the lane's (lobe 0, lobe 1): the mean over 4,096 lanes of the LOBES set
+# of that pair (tests/test_torch_shading.py's inputs), counted by a host
+# build of csrc/bsdf.cu whose float and double are counting types (an add,
+# subtract, multiply, divide, compare, min, max, sqrt, sin, cos or floor
+# one operation, an FMA two); X3 in "sample" mode
+BSDF_OPS = {
+    (0, -1): {"bsdf_sample": (27.0, 0), "bsdf_eval": (9.0, 0),
+              "bsdf_f_bwd": (0, 24.0)},
+    (0, 1): {"bsdf_sample": (263.0, 0), "bsdf_eval": (190.0, 0),
+             "bsdf_f_bwd": (116.9, 1340.5)},
+    (0, 3): {"bsdf_sample": (40.4, 0), "bsdf_eval": (9.0, 0),
+             "bsdf_f_bwd": (21.9, 239.1)},
+    (1, -1): {"bsdf_sample": (313.5, 0), "bsdf_eval": (186.0, 0),
+              "bsdf_f_bwd": (116.9, 1318.2)},
+    (2, -1): {"bsdf_sample": (384.3, 0), "bsdf_eval": (215.9, 0),
+              "bsdf_f_bwd": (108.9, 1299.5)},
+    (4, -1): {"bsdf_sample": (98.1, 0), "bsdf_eval": (5.0, 0),
+              "bsdf_f_bwd": (89.0, 945.1)},
+    (3, -1): {"bsdf_sample": (54.0, 0), "bsdf_eval": (5.0, 0),
+              "bsdf_f_bwd": (44.0, 457.0)}}
+PEAK_FLOPS64 = 34e12  # float64 outside the tensor cores, H100 SXM
 
 
 def main():
@@ -3969,13 +4748,14 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE)
+    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE, BSDF_SOURCE)
     libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
-    with ThreadPoolExecutor(len(libs) + 2) as pool:  # one nvcc a source
-        report = pool.submit(ptxas_report, BVH_SOURCE)
+    with ThreadPoolExecutor(len(libs) + 3) as pool:  # one nvcc a source
+        reports = [pool.submit(ptxas_report, f)
+                   for f in (BVH_SOURCE, BSDF_SOURCE)]
         host = pool.submit(cuda_build.build_host, "core")  # g++
         list(pool.map(cuda_build.build, libs))
-        report, host = report.result(), host.result()
+        reports, host = [r.result() for r in reports], host.result()
     for lib in libs:
         cuda_build.load(lib)
     from nart_tpu_torch import native
@@ -3984,9 +4764,10 @@ def main():
         f"({os.path.basename(host)}), together, in "
         f"{time.perf_counter() - t0:.2f} s")
     from nart_tpu_torch.kernel_variants import ptxas_kernels
-    for kname, regs, frame, st, ld in ptxas_kernels(report):
-        log(f"ptxas {BVH_SOURCE}: {kname} {regs} registers, stack frame "
-            f"{frame} B, spill stores {st} B, spill loads {ld} B")
+    for source, report in zip((BVH_SOURCE, BSDF_SOURCE), reports):
+        for kname, regs, frame, st, ld in ptxas_kernels(report):
+            log(f"ptxas {source}: {kname} {regs} registers, stack frame "
+                f"{frame} B, spill stores {st} B, spill loads {ld} B")
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -4017,7 +4798,7 @@ def main():
     counts_bench = phase("bench subprocess", bench_subprocess, 128, 4)
     counts_cornell = phase("cornell golden", cornell_golden)
     phase("round sync check", round_sync_check, 1)
-    phase("graphed rounds", graphed_rounds)
+    rounds_records = phase("graphed rounds", graphed_rounds)
     phase("graphed replay", graphed_replay)
     records.update(phase("small-table look-ups", lut_checks, DEVICE))
     large = phase("large-table look-ups", large_lut_checks, DEVICE)
@@ -4028,12 +4809,23 @@ def main():
     records.update(large)
     counts_large = phase("large mesh", large_mesh)
     phase("scaling evidence", scaling_phase)
+    records.update(phase("BSDF kernels", bsdf_checks))
+    # the forward kernels a graphed macbeth path round with the BSDF calls
+    # on their plain versions and on the kernels (phase 21)
+    mac = rounds_records["macbeth 1280x720 @ 4 spp"]["graphed"]
+    before, after = mac["plain_bsdf"]["kernels_a_round"], mac["kernels_a_round"]
+    log(f"forward kernels and copies a graphed macbeth 1280x720 @ 4 spp "
+        f"round (phase 21): {before:.1f} with the BSDF calls' plain "
+        f"versions, {after:.1f} with X1 and X2 ({before / after:.2f}x fewer)")
+    for k in BSDF:
+        records[k]["forward_kernels_a_round"] = {"before": before,
+                                                 "after": after}
 
     # `launches`: a traversal kernel's in the forward render (phase 5), a
     # look-up kernel's (small or large tables) in the fwd+bwd (phase 6),
     # whose backward the look-ups are on, B1's in the graphed "bvh" render
     # (phase 17), the path of the accel kind it serves
-    runs = {k: (counts, "forward") if k in TRAVERSAL else
+    runs = {k: (counts, "forward") if k in TRAVERSAL + BSDF[:2] else
             (counts_bvh, "bvh render") if k == "bvh_hit" else
             (counts_train, "fwd+bwd") for k in KERNELS}
     for k, (run, label) in runs.items():
@@ -4065,6 +4857,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--turn"]:
         sys.path.insert(0, sys.argv[2])
         turn(sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--witness"]:
+        sys.path.insert(0, HERE)
+        log(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+        leaf_witness()
         sys.exit(0)
     if sys.argv[1:2] == ["--turns"]:
         sys.path.insert(0, HERE)

@@ -14,8 +14,9 @@ imported.
 ``launch_counts`` counts the kernels' launches on the card, per wrapper:
 the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py), the LBVH
 walk of csrc/bvh_walk.cu (bvh.py: "bvh_hit", its closest-hit and any-hit
-entries alike) and the look-up kernels of csrc/small_lut.cu and
-csrc/large_lut.cu (select.py).
+entries alike), the look-up kernels of csrc/small_lut.cu and
+csrc/large_lut.cu (select.py) and the BSDF kernels of csrc/bsdf.cu
+(bsdf_ops.py: "bsdf_sample", "bsdf_eval", "bsdf_f_bwd").
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ _loaded: dict = {}
 launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
                  "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
-                 "bvh_hit": 0, "bvh_hit_reference": 0}
+                 "bvh_hit": 0, "bvh_hit_reference": 0, "bsdf_sample": 0,
+                 "bsdf_eval": 0, "bsdf_f_bwd": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

@@ -37,7 +37,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .. import bxdf, camera, rng
+from .. import bsdf_ops, bxdf, camera, rng
 from ..bvh import intersect_bvh, occluded_bvh
 from ..cluster_accel import (
     intersect_clusters,
@@ -466,7 +466,7 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None,
         ua_x, st8 = rng.masked_next_float(st8, m_valid)
         ua_y, st8 = rng.masked_next_float(st8, m_valid)
         ua_l, st8 = rng.masked_next_float(st8, m_valid)
-        fA, wiA, pdfA, dflags, _, _ = bxdf.bsdf_sample_f(
+        fA, wiA, pdfA, dflags, _, _ = bsdf_ops.sample_f(
             desc, wo, ua_l, torch.stack([ua_x, ua_y], -1), ones_b, eta_outer,
             torch.zeros(n, dtype=torch.int64, device=dev))
         wiA, pdfA = det(wiA), det(pdfA)
@@ -484,8 +484,8 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None,
         wiB = det(bxdf.to_local(frame, wiB_world))
         # strategy B's bsdf terms do not depend on occlusion: evaluated
         # before the shadow query so provably-zero lanes never trace
-        pdfB = det(bxdf.bsdf_pdf(desc, wo, wiB, ones_b, eta_outer))
-        fB = bxdf.bsdf_f(desc, wo, wiB, ones_b, eta_outer)
+        fB, pdfB = bsdf_ops.eval_f_pdf(desc, wo, wiB, ones_b, eta_outer)
+        pdfB = det(pdfB)
 
         # one batched shadow query for both strategies; lanes that cannot
         # contribute are parked with t_max = 0
@@ -539,7 +539,7 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None,
         us_x, st8 = rng.masked_next_float(st8, m_valid)
         us_y, st8 = rng.masked_next_float(st8, m_valid)
         us_l, st8 = rng.masked_next_float(st8, m_valid)
-        fS, wiS, pdfS, new_flags, alpha_i, eta_smp = bxdf.bsdf_sample_f(
+        fS, wiS, pdfS, new_flags, alpha_i, eta_smp = bsdf_ops.sample_f(
             desc, wo, us_l, torch.stack([us_x, us_y], -1), ~ones_b,
             eta_outer, p.flags)
         wiS, pdfS = det(wiS), det(pdfS)

@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import bxdf
 from .scene import (
     LIGHT_DISK,
     LIGHT_DISTANT,
@@ -149,3 +150,61 @@ def distant_scene(materials=("lambert", "glass")):
                     inner_radius=0.0, intensity=torch.tensor(1.0),
                     le_const=torch.ones(3), le_tex=None, env2d=None)
     return dataclasses.replace(base, lights=base.lights + [sun])
+
+
+# (lobe 0, lobe 1, n_lobes) of the materials' lobe mixes: all five lobe
+# codes, plastic's two mixes and mirror (tests/test_torch_shading.py's
+# LOBES)
+BSDF_LOBES = {
+    "lambert": (bxdf.L_LAMBERT, -1, 1),
+    "plastic": (bxdf.L_LAMBERT, bxdf.L_TS, 2),
+    "plastic_spec": (bxdf.L_LAMBERT, bxdf.L_SPECULAR, 2),
+    "glossy": (bxdf.L_TS, -1, 1),
+    "glass_rough": (bxdf.L_DIELECTRIC, -1, 1),
+    "glass_delta": (bxdf.L_SPECDIEL, -1, 1),
+    "mirror": (bxdf.L_SPECULAR, -1, 1),
+}
+
+
+def bsdf_lane_set(kind, n, seed, device="cpu"):
+    """n lanes of one BSDF_LOBES kind from a numpy seed, drawn as
+    tests/test_torch_shading.py draws them: a BsdfDesc and a sample call's
+    and an eval call's inputs (directions in the upper hemisphere but for
+    glass; eta_outer the lane's eta on a fifth of the lanes), and random
+    cotangents of f, alpha_i and eta_sampled.  Returns a dict of tensors
+    on `device` (desc, wo, wi, use_prime, eta_outer, u1, u2, prev_flags,
+    g_f, g_alpha_i, g_eta_sampled)."""
+    l0, l1, n_lobes = BSDF_LOBES[kind]
+    g = np.random.default_rng(seed)
+    alpha = g.uniform(0.01, 0.8, n).astype(np.float32)
+    eta = g.uniform(1.2, 2.0, n).astype(np.float32)
+    upper = not kind.startswith("glass")
+
+    def dirs():
+        w = g.normal(size=(n, 3)).astype(np.float32)
+        if upper:
+            w[:, 2] = np.abs(w[:, 2]) + 0.05
+        return w / np.linalg.norm(w, axis=-1, keepdims=True)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    desc = bxdf.BsdfDesc(
+        n_lobes=t(np.full(n, n_lobes, np.int64)),
+        lobe=t(np.tile(np.array([l0, l1], np.int64), (n, 1))),
+        rho_d=t(g.random((n, 3), dtype=np.float32)),
+        rho_s=t(g.random((n, 3), dtype=np.float32)),
+        tau=t(g.random((n, 3), dtype=np.float32)), eta=t(eta),
+        alpha0=t(np.maximum(alpha, np.float32(1e-4))),
+        alpha_prime=t((alpha * g.uniform(0.5, 1.5, n)).astype(np.float32)))
+    return dict(
+        desc=desc, wo=t(dirs()), wi=t(dirs()),
+        use_prime=t(g.random(n) < 0.5),
+        eta_outer=t(np.where(g.random(n) < 0.2, eta, 1.0).astype(
+            np.float32)),
+        u1=t(g.random(n, dtype=np.float32)),
+        u2=t(g.random((n, 2), dtype=np.float32)),
+        prev_flags=t(g.integers(0, 16, n).astype(np.int64)),
+        g_f=t(g.normal(size=(n, 3)).astype(np.float32)),
+        g_alpha_i=t(g.normal(size=n).astype(np.float32)),
+        g_eta_sampled=t(g.normal(size=n).astype(np.float32)))

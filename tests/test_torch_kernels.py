@@ -1,6 +1,6 @@
 """CUDA kernels (nart_tpu_torch/csrc/cluster_hit.cu, csrc/small_lut.cu,
-csrc/large_lut.cu, csrc/bvh_walk.cu) vs their plain PyTorch versions, on
-the card.
+csrc/large_lut.cu, csrc/bvh_walk.cu, csrc/bsdf.cu) vs their plain PyTorch
+versions, on the card.
 
 Marked ``gpu``: each test skips (with its reason) when no CUDA device is
 present, deciding inside the fixture, never at import.  Run them on a
@@ -27,7 +27,12 @@ the bits of the reference kernel (the walk's first design) on every ray:
 soups of 1, 40 and 40,000 triangles, axis-aligned rays, ties within and
 across leaves (the plain walk's triangle and t on every ray), one window
 for every ray, t_max = 0, and a tree deeper than its stack or packed
-arrays off their alignment refused before any launch.
+arrays off their alignment refused before any launch.  The BSDF kernels
+(csrc/bsdf.cu) on every lobe kind of testing.BSDF_LOBES: X1 and
+X2 the plain version's bits on every lane, also from a CUDA graph's
+replay, X3 within rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain
+version (wi held fixed) and finite where the plain VJP is not; the
+Functions of bsdf_ops launch them once a call.
 """
 
 import os
@@ -39,6 +44,7 @@ import torch
 from nart_tpu_torch import cluster_accel as ca
 from nart_tpu_torch import cuda_build
 from nart_tpu_torch import select as tsel
+from nart_tpu_torch.testing import BSDF_LOBES, bsdf_lane_set
 
 pytestmark = pytest.mark.gpu
 
@@ -777,3 +783,161 @@ def test_bvh_kernel_refuses(cuda):
         with pytest.raises(ValueError, match="aligned"):
             tbvh.intersect_bvh(o, d, t_min, t_max, replace(tree, **{name: off}))
     assert cuda_build.launch_counts == before
+
+
+# the BSDF kernels (csrc/bsdf.cu): X3's tolerance against the float64 VJP
+BSDF_RTOL, BSDF_ATOL = 1e-5, 1e-6
+
+
+def _bsdf_set(kind, n, seed, dev):
+    """bsdf_lane_set's lanes: (desc, the other inputs)."""
+    x = bsdf_lane_set(kind, n, seed, dev)
+    return x.pop("desc"), x
+
+
+def _f64(x):
+    from nart_tpu_torch import bxdf
+
+    if isinstance(x, bxdf.BsdfDesc):
+        return bxdf.BsdfDesc(*[_f64(t) for t in x])
+    return x.double() if x.dtype == torch.float32 else x
+
+
+def _same_bits(got, want):
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _x3_close(got, f_fwd, ref, f_ref):
+    """X3 against the float64 VJP on the lanes whose float64 forward takes
+    the float32 forward's branches and whose float64 VJP is finite (nearly
+    all); returns those lanes' count."""
+    n = f_fwd.shape[0]
+    f32 = f_fwd.double()
+    use = (torch.isclose(f_ref, f32, rtol=1e-3, atol=1e-5)
+           & ((f_ref == 0.0) == (f32 == 0.0))).all(-1)
+    for r in ref:
+        use &= torch.isfinite(r).reshape(n, -1).all(-1)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.double().reshape(n, -1)[use],
+                                   b.reshape(n, -1)[use], rtol=BSDF_RTOL,
+                                   atol=BSDF_ATOL)
+    return int(use.sum())
+
+
+@pytest.mark.parametrize("kind", sorted(BSDF_LOBES))
+def test_bsdf_kernels_match_plain(cuda, kind):
+    """X1 and X2 give the plain version's bits on every lane (one launch
+    each); X3 in both modes is within rtol 1e-5 / atol 1e-6 of the float64
+    VJP of the plain version with wi held fixed."""
+    from nart_tpu_torch import bsdf_ops
+
+    n = 8192
+    desc, x = _bsdf_set(kind, n, len(kind), cuda)
+    args = (x["u1"], x["u2"], x["use_prime"], x["eta_outer"],
+            x["prev_flags"])
+    before = dict(cuda_build.launch_counts)
+    got = bsdf_ops.sample_cuda(desc, x["wo"], *args)
+    ev = bsdf_ops.eval_cuda(desc, x["wo"], x["wi"], x["use_prime"],
+                            x["eta_outer"])
+    torch.cuda.synchronize()
+    _same_bits(got[:6], bsdf_ops.sample_plain(desc, x["wo"], *args))
+    _same_bits(ev, bsdf_ops.eval_plain(desc, x["wo"], x["wi"],
+                                       x["use_prime"], x["eta_outer"]))
+    x3s = bsdf_ops.f_bwd_cuda("sample", desc, x["wo"], got[1],
+                              x["use_prime"], x["eta_outer"], x["g_f"],
+                              x["g_alpha_i"], x["g_eta_sampled"], u2=x["u2"],
+                              prev_flags=x["prev_flags"], bits=got[6])
+    x3e = bsdf_ops.f_bwd_cuda("eval", desc, x["wo"], x["wi"],
+                              x["use_prime"], x["eta_outer"], x["g_f"])
+    grew = {k: cuda_build.launch_counts[k] - before[k]
+            for k in ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")}
+    assert grew == {"bsdf_sample": 1, "bsdf_eval": 1, "bsdf_f_bwd": 2}
+    at = (_f64(desc), _f64(x["wo"]), _f64(got[1]), _f64(x["u1"]),
+          _f64(x["u2"]), x["use_prime"], _f64(x["eta_outer"]),
+          x["prev_flags"], got[3])
+    ref = bsdf_ops.sample_at_bwd_plain(*at, *[_f64(x[k]) for k in (
+        "g_f", "g_alpha_i", "g_eta_sampled")])
+    assert _x3_close(x3s, got[0], ref,
+                     bsdf_ops.sample_at_plain(*at)[0]) >= 0.99 * n
+    at = (_f64(desc), _f64(x["wo"]), _f64(x["wi"]), x["use_prime"],
+          _f64(x["eta_outer"]))
+    ref = bsdf_ops.eval_bwd_plain(*at, _f64(x["g_f"]))
+    assert _x3_close(x3e, ev[0], ref,
+                     bsdf_ops.eval_plain(*at)[0]) >= 0.99 * n
+
+
+def test_bsdf_functions_launch_the_kernels(cuda):
+    """The Functions on CUDA tensors: X1 and X2 forward, X3 backward (one
+    launch each a call), the gradients X3's, wi, pdf and flags without a
+    gradient, and a wi that requires grad refused; X1 from a CUDA graph's
+    replay gives the eager launch's bits."""
+    from nart_tpu_torch import bsdf_ops
+
+    desc, x = _bsdf_set("plastic", 4096, 3, cuda)
+    leaves = [t.clone().requires_grad_() for t in
+              bsdf_ops._diff(desc, x["wo"], x["eta_outer"])]
+    d, wo, eo = bsdf_ops._with_diff(desc, leaves)
+    before = dict(cuda_build.launch_counts)
+    f, wi, pdf, flags, alpha_i, eta_s = bsdf_ops.sample_f(
+        d, wo, x["u1"], x["u2"], x["use_prime"], eo, x["prev_flags"])
+    assert not (wi.requires_grad or pdf.requires_grad or flags.requires_grad)
+    got = torch.autograd.grad((f, alpha_i, eta_s), leaves,
+                              (x["g_f"], x["g_alpha_i"], x["g_eta_sampled"]))
+    bits = bsdf_ops.sample_cuda(desc, x["wo"], x["u1"], x["u2"],
+                                x["use_prime"], x["eta_outer"],
+                                x["prev_flags"])[6]
+    want = bsdf_ops.f_bwd_cuda("sample", desc, x["wo"], wi, x["use_prime"],
+                               x["eta_outer"], x["g_f"], x["g_alpha_i"], x["g_eta_sampled"],
+                               u2=x["u2"], prev_flags=x["prev_flags"],
+                               bits=bits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    f2, pdf2 = bsdf_ops.eval_f_pdf(d, wo, wi, x["use_prime"], eo)
+    torch.autograd.grad(f2.sum(), leaves)
+    grew = {k: cuda_build.launch_counts[k] - before[k]
+            for k in ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")}
+    assert grew == {"bsdf_sample": 2, "bsdf_eval": 1, "bsdf_f_bwd": 3}
+    with pytest.raises(ValueError, match="wi must not require grad"):
+        bsdf_ops.eval_f_pdf(d, wo, wi.clone().requires_grad_(),
+                            x["use_prime"], eo)
+    args = (desc, x["wo"], x["u1"], x["u2"], x["use_prime"],
+            x["eta_outer"], x["prev_flags"])
+    eager = bsdf_ops.sample_cuda(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bsdf_ops.sample_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bsdf_ops.sample_cuda(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    _same_bits(out, eager)
+
+
+def test_bsdf_x3_finite_where_the_plain_vjp_is_not(cuda):
+    """Grazing mirror lanes at alpha 1e-4: the plain VJP, which
+    differentiates every lobe kind and selects after, gives NaN
+    (ROADMAP section 3); X3, a lane's own lobes only, zeros."""
+    from nart_tpu_torch import bsdf_ops
+
+    n = 256
+    desc, x = _bsdf_set("mirror", n, 5, cuda)
+    desc = desc._replace(alpha0=torch.full((n,), 1e-4, device=cuda),
+                         alpha_prime=torch.full((n,), 1e-4, device=cuda))
+    wo, wi = x["wo"].clone(), x["wi"].clone()
+    wo[:, 2] = 1e-9
+    wi[:, 2] = torch.logspace(-12, -3, n, device=cuda)
+    up = torch.ones(n, dtype=torch.bool, device=cuda)
+    plain = bsdf_ops.eval_bwd_plain(desc, wo, wi, up, x["eta_outer"],
+                                    x["g_f"])
+    x3 = bsdf_ops.f_bwd_cuda("eval", desc, wo, wi, up, x["eta_outer"],
+                             x["g_f"])
+    assert not bool(torch.isfinite(plain[5]).all())
+    for a in x3:
+        assert torch.equal(a, torch.zeros_like(a))
