@@ -20,7 +20,9 @@ Phases (any failure raises and exits non-zero):
      build/nart_tpu_torch, one nvcc a source, all started together (timed):
      cluster_hit.cu, small_lut.cu, large_lut.cu, bvh_walk.cu and bsdf.cu;
      beside them bvh_walk.cu and bsdf.cu once more with -Xptxas -v, whose
-     registers, stack frames and spills are logged, and the host core
+     registers, stack frames and spills are logged (bsdf.cu's with each
+     kernel's design: the redesign's and the first design's), and the
+     host core
      core.cpp with g++
      (the .geo/.vol parsers and the LBVH build of native.py, which the
      card's entry points take);
@@ -310,18 +312,22 @@ Phases (any failure raises and exits non-zero):
      of macbeth 1280x720 and of simple_glass 512x512 (per-round renders
      of 1 spp: of their first 8 rounds, the one with the most live lanes
      past their first bounce): X1's and X2's outputs the plain version's
-     bits on every lane; X3 (both modes, random cotangents) within rtol
-     1e-5 / atol 1e-6 of the float64 VJP of the plain version with wi
-     held fixed (bsdf_ops.sample_at_bwd_plain, eval_bwd_plain) on every
-     lane where that VJP is finite, but those whose float64 forward takes
-     another branch (counted, with the non-finite ones); the plain
-     float32 VJP measured against the same float64 VJP, not held to it.
+     bits on every lane, X1's also the bits of its first design
+     (nart_bsdf_sample_ref); X3 (both modes, random cotangents) within
+     rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain version with wi
+     held fixed (bsdf_ops.sample_at_bwd_plain, eval_bwd_plain), which must
+     be finite on every lane, on every lane but those whose float64
+     forward takes another branch (counted); X3's first design
+     (nart_bsdf_f_bwd_ref) read beside it (its distance from the float64
+     VJP, the share of its values X3's bits); the plain float32 VJP
+     measured against the same float64 VJP, not held to it.
      At macbeth's mid-trace calls (65,536 lanes): each kernel's device ms
      and ms per call, its plain version's device ms (the plain VJP's over
      eager calls), the bound (the larger of the bytes over 3.35 TB/s and
      BSDF_OPS's counted operations over the peak rates; library none;
      the bytes what each lane's lobe codes read, bsdf_bytes, beside every
-     input tensor once).
+     input tensor once); X1 and X3 against their first designs in turns
+     (reference, new, new, reference), device ms each.
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -338,7 +344,8 @@ traversal kernel's and X1's and X2's in phase 5's forward, a look-up
 kernel's and X3's in phase 6's fwd+bwd, B1's in phase 17's graphed "bvh"
 render; each must be > 0; the BSDF kernels' forward_kernels_a_round:
 phase 21's macbeth count with the BSDF calls' plain versions and with
-the kernels;
+the kernels; X1's and X3's reference_ms and turns_ms: their first
+designs' device ms, in phase 27's turns;
 launches_modes: phase 8's graphed "regen" and "spp" renders,
 launches_sharded: phases 13-15, launches_bench: phase 18,
 launches_large_mesh: phase 25's counted renders, every kernel's the
@@ -405,6 +412,8 @@ KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
 LARGE = ("lut_gather_large_bwd",)  # the kernel of large_lut.cu
 BSDF = ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")  # the kernels of bsdf.cu
+# X1's and X3's first designs (no path launches them)
+BSDF_REF = ("bsdf_sample_reference", "bsdf_f_bwd_reference")
 SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
            else BVH_SOURCE if k == "bvh_hit" else BSDF_SOURCE if k in BSDF
            else LUT_SOURCE for k in KERNELS}
@@ -994,14 +1003,17 @@ def check_replay_launches(label, counts, rounds, ran, runner):
     # rounds, both kernels in the backward's round graph (the small-table
     # backward's two-launch reference never)
     # the BSDF kernels: X1 twice and X2 once a forward round run, and in
-    # the backward's round graph (which re-runs the round) with X3
+    # the backward's round graph (which re-runs the round) with X3; their
+    # first designs never
     fwd, back = runner.launches, runner.back_launches
     if not (counts["bsdf_sample"] == 2 * counts["bsdf_eval"] > 0
             and fwd.get("bsdf_sample", 0) == 2 * runner.k
             and fwd.get("bsdf_eval", 0) == runner.k
             and not fwd.get("bsdf_f_bwd", 0)
             and back.get("bsdf_sample", 0) == 2 * back.get("bsdf_eval", 0) > 0
-            and back.get("bsdf_f_bwd", 0) > 0 and counts["bsdf_f_bwd"] > 0):
+            and back.get("bsdf_f_bwd", 0) > 0 and counts["bsdf_f_bwd"] > 0
+            and not any(counts[k] or fwd.get(k, 0) or back.get(k, 0)
+                        for k in BSDF_REF)):
         raise AssertionError(
             f"{label}: BSDF launches {counts}, per forward replay {fwd}, "
             f"per backward round {back}")
@@ -1401,16 +1413,18 @@ def volume_session(overrides=None, per_round=False):
 
 def _no_traversal(label, counts):
     """The volume's paths: no traversal kernel, no BSDF kernel."""
-    if any(counts.get(k, 0) for k in TRAVERSAL + BSDF):
+    if any(counts.get(k, 0) for k in TRAVERSAL + BSDF + BSDF_REF):
         raise AssertionError(f"{label} launched a traversal or BSDF kernel: "
                              f"{counts}")
 
 
 def check_bsdf_launches(label, counts, rounds_run):
     """A path forward's BSDF kernels: X1 twice (strategy A, the scatter)
-    and X2 once (strategy B) in every round the card ran, X3 never."""
+    and X2 once (strategy B) in every round the card ran, X3 and the first
+    designs never."""
     want = {"bsdf_sample": 2 * rounds_run, "bsdf_eval": rounds_run,
-            "bsdf_f_bwd": 0}
+            "bsdf_f_bwd": 0, "bsdf_sample_reference": 0,
+            "bsdf_f_bwd_reference": 0}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"{label}: BSDF launches {counts}, want {want}")
 
@@ -2548,7 +2562,7 @@ def _graphed_against_per_round(label, make, traversal):
         after = machine_totals(sess.machines)
         return film, {"wall_s": wall, "stats": dict(sess.stats),
                       "launches": {k: cuda_build.launch_counts[k]
-                                   for k in KERNELS[:2] + BSDF},
+                                   for k in KERNELS[:2] + BSDF + BSDF_REF},
                       "rounds_run": after["rounds_run"] - before["rounds_run"],
                       "replays": after["replays"] - before["replays"],
                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
@@ -4260,58 +4274,10 @@ def scaling_phase(ranks=(4, 8)):
         f"{one}")
 
 
-def mid_trace_bsdf(make_session, rounds=8):
-    """The inputs of a path round's three BSDF calls (strategy A's sample,
-    strategy B's eval, the scatter's sample) mid-trace: of the first
-    `rounds` rounds of a per-round render (make_session() -> a
-    RenderSession with per_round=True, stopped there by
-    round_ops.stop_after if it runs longer), the one with the most live
-    lanes in their second or later bounce (the first rounds of a chunk
-    trace its first rows' camera rays: macbeth's are sky).
-    Returns (that round, those lanes, {"sample A": {...}, "eval B": {...},
-    "scatter": {...}}: each call's tensors, copied)."""
-    import torch
-
-    from nart_tpu_torch import bsdf_ops, bxdf, round_ops
-    from nart_tpu_torch.integrators import path
-
-    per_round = []  # (lanes past their first bounce, [calls])
-    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
-
-    def copy(t):
-        return t.detach().clone(memory_format=torch.contiguous_format)
-
-    def keep(fn, names, args):
-        per_round[-1][1].append({
-            k: bxdf.BsdfDesc(*map(copy, v)) if k == "desc" else copy(v)
-            for k, v in zip(names, args)})
-        return fn(*args)
-
-    def new_round(bounce, p, *tables):
-        per_round.append((int((p.alive & (bounce >= 1)).sum()), []))
-
-    bsdf_ops.sample_f = lambda *a: keep(real[0], (
-        "desc", "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags"), a)
-    bsdf_ops.eval_f_pdf = lambda *a: keep(real[1], (
-        "desc", "wo", "wi", "use_prime", "eta_outer"), a)
-    make_bounce = round_ops.stop_after(path, "make_bounce", rounds,
-                                       {"rounds": 0}, new_round)
-    try:
-        make_session().render()  # a render of fewer rounds ends itself
-    except round_ops.Done:
-        pass
-    finally:
-        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
-        path.make_bounce = make_bounce
-    best = max(range(len(per_round)), key=lambda r: per_round[r][0])
-    lanes, calls = per_round[best]
-    return best + 1, lanes, dict(zip(("sample A", "eval B", "scatter"),
-                                     calls))
-
-
-def _bits_equal(label, names, got, want):
-    """Raises unless every output has the plain version's bits on every
-    lane; returns the largest absolute difference (0)."""
+def _bits_equal(label, names, got, want, whose="the plain version's"):
+    """Raises unless every output has want's bits (whose: the plain
+    version's, or another kernel's) on every lane; returns the largest
+    absolute difference (0)."""
     import torch
 
     for name, a, b in zip(names, got, want):
@@ -4321,7 +4287,7 @@ def _bits_equal(label, names, got, want):
         if not bool(same.all()):
             bad = (~same).reshape(a.shape[0], -1).any(-1).nonzero()[:4, 0]
             raise AssertionError(
-                f"{label}: {name} differs from the plain version's bits on "
+                f"{label}: {name} differs from {whose} bits on "
                 f"{int((~same).reshape(a.shape[0], -1).any(-1).sum())} lanes,"
                 f" e.g. lanes {bad.tolist()}: {a[bad].tolist()} vs "
                 f"{b[bad].tolist()}")
@@ -4340,9 +4306,10 @@ def _f64(x):
 
 def _x3_against_float64(label, got, f_fwd, ref, f_ref, plain32):
     """X3's per-lane gradients (got, bsdf_ops.DIFF's order) against the
-    float64 VJP of the plain version (ref): within BSDF_RTOL / BSDF_ATOL
-    on every lane where the float64 VJP is finite, but those whose float64
-    forward (f_ref) takes another branch than the float32 forward (f_fwd):
+    float64 VJP of the plain version (ref), which must be finite on every
+    lane: within BSDF_RTOL / BSDF_ATOL on every lane but those whose
+    float64 forward (f_ref) takes another branch than the float32 forward
+    (f_fwd):
     f beyond rtol 1e-3 / atol 1e-5 of it, or zero where it is not (a TIR
     or a grazing cut at its boundary).  The plain float32 VJP (plain32:
     the CPU route's, and the parent's on the card) is measured against the
@@ -4374,7 +4341,13 @@ def _x3_against_float64(label, got, f_fwd, ref, f_ref, plain32):
                                           .abs() / scale).amax(-1))
     ok = ratio <= 1.0
     ratio32 = torch.nan_to_num(ratio32, nan=math.inf)  # a NaN is outside
-    bad = ~ok & finite & ~branch
+    if not bool(finite.all()):
+        i = (~finite).nonzero()[:3, 0]
+        raise AssertionError(
+            f"{label}: the float64 VJP of the plain version is not finite on "
+            f"{int((~finite).sum())} lanes (the plain VJP's fault), e.g. "
+            f"{i.tolist()}: {[r[i].tolist() for r in ref]}")
+    bad = ~ok & ~branch
     if bool(bad.any()):
         i = bad.nonzero()[:3, 0]
         raise AssertionError(
@@ -4393,25 +4366,32 @@ def _x3_against_float64(label, got, f_fwd, ref, f_ref, plain32):
 
 
 def _bsdf_sample_set(label, s, rng):
-    """X1 and X3 ("sample") on one sample call's inputs s; returns
-    (X1's max abs error, X3's, the log's counts)."""
+    """X1 and X3 ("sample") on one sample call's inputs s, beside their
+    first designs (nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref): X1's outputs
+    the plain version's and the reference's bits on every lane; returns
+    (X1's max abs error, X3's readings (_x3_against_float64), X3's share of
+    the reference X3's bits, the reference X3's readings)."""
     import torch
 
     from nart_tpu_torch import bsdf_ops
+    from nart_tpu_torch.testing import bit_share
 
     desc, wo, eo = s["desc"], s["wo"], s["eta_outer"]
     args = (s["u1"], s["u2"], s["use_prime"], eo, s["prev_flags"])
     got = bsdf_ops.sample_cuda(desc, wo, *args)
     want = bsdf_ops.sample_plain(desc, wo, *args)
-    err1 = _bits_equal(f"{label}: X1", ("f", "wi", "pdf", "flags",
-                                         "alpha_i", "eta_sampled"),
-                       got[:6], want)
+    names = ("f", "wi", "pdf", "flags", "alpha_i", "eta_sampled", "bits")
+    err1 = _bits_equal(f"{label}: X1", names, got[:6], want)
+    _bits_equal(f"{label}: X1", names, got,
+                bsdf_ops.sample_ref_cuda(desc, wo, *args),
+                "its first design's (nart_bsdf_sample_ref)")
     n = wo.shape[0]
     cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
         DEVICE) for shape in ((n, 3), (n,), (n,))]
-    x3 = bsdf_ops.f_bwd_cuda("sample", desc, wo, got[1], s["use_prime"], eo,
-                             *cots, u2=s["u2"], prev_flags=s["prev_flags"],
-                             bits=got[6])
+    bwd = (desc, wo, got[1], s["use_prime"], eo, *cots)
+    kw = dict(u2=s["u2"], prev_flags=s["prev_flags"], bits=got[6])
+    x3 = bsdf_ops.f_bwd_cuda("sample", *bwd, **kw)
+    x3_ref = bsdf_ops.f_bwd_ref_cuda("sample", *bwd, **kw)
     at = (_f64(desc), _f64(wo), _f64(got[1]), _f64(s["u1"]), _f64(s["u2"]),
           s["use_prime"], _f64(eo), s["prev_flags"], got[3])
     ref = bsdf_ops.sample_at_bwd_plain(*at, *[_f64(c) for c in cots])
@@ -4419,14 +4399,18 @@ def _bsdf_sample_set(label, s, rng):
     plain32 = bsdf_ops.sample_bwd_plain(desc, wo, *args, *cots)
     err3 = _x3_against_float64(f"{label}: X3 sample", x3, got[0], ref, f_ref,
                                plain32)
-    return err1, err3
+    err_ref = _x3_against_float64(f"{label}: X3's first design, sample",
+                                  x3_ref, got[0], ref, f_ref, plain32)
+    return err1, err3, bit_share(x3, x3_ref), err_ref
 
 
 def _bsdf_eval_set(label, s, rng):
-    """X2 and X3 ("eval") on one eval call's inputs s."""
+    """X2 and X3 ("eval") on one eval call's inputs s, X3 beside its first
+    design: _bsdf_sample_set's readings."""
     import torch
 
     from nart_tpu_torch import bsdf_ops
+    from nart_tpu_torch.testing import bit_share
 
     desc, wo, wi, up, eo = (s["desc"], s["wo"], s["wi"], s["use_prime"],
                             s["eta_outer"])
@@ -4436,13 +4420,16 @@ def _bsdf_eval_set(label, s, rng):
     g_f = torch.from_numpy(rng.normal(size=(wo.shape[0], 3)).astype(
         np.float32)).to(DEVICE)
     x3 = bsdf_ops.f_bwd_cuda("eval", desc, wo, wi, up, eo, g_f)
+    x3_ref = bsdf_ops.f_bwd_ref_cuda("eval", desc, wo, wi, up, eo, g_f)
     at = (_f64(desc), _f64(wo), _f64(wi), up, _f64(eo))
     ref = bsdf_ops.eval_bwd_plain(*at, _f64(g_f))
     f_ref = bsdf_ops.eval_plain(*at)[0]
     plain32 = bsdf_ops.eval_bwd_plain(desc, wo, wi, up, eo, g_f)
     err3 = _x3_against_float64(f"{label}: X3 eval", x3, got[0], ref, f_ref,
                                plain32)
-    return err2, err3
+    err_ref = _x3_against_float64(f"{label}: X3's first design, eval",
+                                  x3_ref, got[0], ref, f_ref, plain32)
+    return err2, err3, bit_share(x3, x3_ref), err_ref
 
 
 def bsdf_bytes_dense(kernel, n):
@@ -4552,15 +4539,20 @@ def bsdf_checks():
     """Phase 27: X1-X3 (csrc/bsdf.cu) against their plain versions on the
     card: 65,536 lanes of each LOBES kind and the three BSDF calls of a
     mid-trace round of macbeth 1280x720 and simple_glass 512x512
-    (mid_trace_bsdf).  X1's and X2's outputs the plain version's
+    (testing.mid_trace_bsdf).  X1's and X2's outputs the plain version's
     bits on every lane; X3 within BSDF_RTOL / BSDF_ATOL of the float64 VJP
     of the plain version, wi held fixed (bsdf_ops.sample_at_plain,
-    bxdf.bsdf_f), on every lane whose float64 forward takes the float32
-    forward's branches and whose float64 VJP is finite (the others
-    counted).  Then, at macbeth's mid-trace calls: each kernel's and plain
-    version's device ms (the plain VJP's over eager calls: stream_ms),
-    ms per call, and the bound (bytes over 3.35 TB/s; no PyTorch call
-    computes a BSDF: library none).  Returns the kernels' records."""
+    bxdf.bsdf_f), which must be finite on every lane, on every lane whose
+    float64 forward takes the float32 forward's branches (the others
+    counted).  X1's outputs are also the bits of its first design
+    (nart_bsdf_sample_ref) on every lane, and X3 is read beside its first
+    design (nart_bsdf_f_bwd_ref: the share of its bits, and its own
+    distance from the float64 VJP).  Then, at macbeth's mid-trace calls:
+    each kernel's and plain version's device ms (the plain VJP's over
+    eager calls: stream_ms), ms per call, and the bound (bytes over 3.35
+    TB/s; no PyTorch call computes a BSDF: library none); X1 and X3 against
+    their first designs in turns (reference, new, new, reference), device
+    ms each.  Returns the kernels' records."""
     import torch
 
     from nart_tpu_torch import (bench, bsdf_ops, cuda_build, render, scene,
@@ -4571,22 +4563,27 @@ def bsdf_checks():
     errs = 0.0  # and absolute
     cuda_build.reset_launch_counts()
 
-    def x3_log(r):
+    def x3_log(r, share, r_ref):
         ratio, used, br, nf, out32, worst32, _ = r
         return (f"X3 within rtol {BSDF_RTOL} / atol {BSDF_ATOL} of the "
                 f"float64 VJP on {used} lanes (at most {ratio:.3g} of the "
                 f"tolerance); outside it on another float64 branch {br}; a "
-                f"non-finite float64 VJP (the plain version's fault) on {nf};"
-                f" the plain float32 VJP outside the tolerance on {out32} "
-                f"lanes (up to {worst32:.3g} times it)")
+                f"non-finite float64 VJP on {nf}; the first design's X3 at "
+                f"most {r_ref[0]:.3g} of the tolerance, {100 * share:.2f}% "
+                f"of its values X3's bits; the plain float32 VJP outside "
+                f"the tolerance on {out32} lanes (up to {worst32:.3g} times "
+                f"it)")
 
     for i, kind in enumerate(testing.BSDF_LOBES):
         s = testing.bsdf_lane_set(kind, BSDF_LANES, 2700 + i, DEVICE)
-        for mode, (_, r) in (("sample", _bsdf_sample_set(kind, s, rng)),
-                             ("eval", _bsdf_eval_set(kind, s, rng))):
+        for mode, (_, r, share, r_ref) in (
+                ("sample", _bsdf_sample_set(kind, s, rng)),
+                ("eval", _bsdf_eval_set(kind, s, rng))):
             worst, errs = max(worst, r[0]), max(errs, r[6])
+            also = " and the first design's" if mode == "sample" else ""
             log(f"    {kind} ({BSDF_LANES} lanes), {mode}: the plain "
-                f"version's bits on every lane; {x3_log(r)}")
+                f"version's bits{also} on every lane; "
+                f"{x3_log(r, share, r_ref)}")
     _, glass = bench.bench_scene()
     macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
     p_mac = render.load_sessions(MACBETH, {"spp": 1})[0]
@@ -4596,20 +4593,21 @@ def bsdf_checks():
     mid = {}
     for label, sc, p in (("macbeth 1280x720", macbeth, p_mac),
                          ("simple_glass 512x512", glass, p_glass)):
-        r, deep, calls = mid_trace_bsdf(
+        r, deep, calls = testing.mid_trace_bsdf(
             lambda: render.RenderSession(sc, p, DEVICE, per_round=True))
         mid[label] = calls
         for name, s in calls.items():
             at = f"{label}, round {r}, {name}"
-            _, x3r = (_bsdf_eval_set if name == "eval B"
-                      else _bsdf_sample_set)(at, s, rng)
+            _, x3r, share, r_ref = (_bsdf_eval_set if name == "eval B"
+                                    else _bsdf_sample_set)(at, s, rng)
             worst, errs = max(worst, x3r[0]), max(errs, x3r[6])
             codes = torch.bincount(s["desc"].lobe[:, 0] + 1, minlength=6)
+            also = "" if name == "eval B" else " and the first design's"
             log(f"    {at} ({s['wo'].shape[0]} lanes, {deep} live past "
                 f"their first bounce, lobe 0 codes -1..4: "
-                f"{codes.tolist()}): the plain version's bits on every "
-                f"lane; {x3_log(x3r)}")
-    if any(cuda_build.launch_counts[k] <= 0 for k in BSDF):
+                f"{codes.tolist()}): the plain version's bits{also} on "
+                f"every lane; {x3_log(x3r, share, r_ref)}")
+    if any(cuda_build.launch_counts[k] <= 0 for k in BSDF + BSDF_REF):
         raise AssertionError(f"phase 27 launches {cuda_build.launch_counts}")
 
     # times and bounds at macbeth's mid-trace calls (65,536 lanes)
@@ -4664,6 +4662,29 @@ def bsdf_checks():
             x3_tolerance_ratio=worst if k == "bsdf_f_bwd" else None,
             shape="macbeth 1280x720, mid-trace, "
             f"{'strategy B' if k == 'bsdf_eval' else 'strategy A'}")
+
+    # X1 and X3 against their first designs, in turns
+    x3_args = ("sample", sa["desc"], sa["wo"], x1[1], sa["use_prime"],
+               sa["eta_outer"], *cots)
+    pairs = {"bsdf_sample": (lambda: bsdf_ops.sample_ref_cuda(*s_args),
+                             lambda: bsdf_ops.sample_cuda(*s_args)),
+             "bsdf_f_bwd": (lambda: bsdf_ops.f_bwd_ref_cuda(*x3_args,
+                                                            **bwd_kw),
+                            lambda: bsdf_ops.f_bwd_cuda(*x3_args, **bwd_kw))}
+    for k, (ref_fn, new_fn) in pairs.items():
+        per_call = call_ms(ref_fn, 5)
+        ms = {"reference": [], "new": []}
+        for turn in ("reference", "new", "new", "reference"):
+            fn = ref_fn if turn == "reference" else new_fn
+            ms[turn].append(device_ms(fn, launches_for(per_call))["ms"])
+        ref_ms = statistics.mean(ms["reference"])
+        log(f"    turns {k}, macbeth's mid-trace call ({n} lanes): "
+            f"reference {ms['reference'][0]:.4f}, new {ms['new'][0]:.4f}, "
+            f"new {ms['new'][1]:.4f}, reference {ms['reference'][1]:.4f} ms; "
+            f"reference / new {ref_ms / statistics.mean(ms['new']):.3f}x")
+        records[k].update(reference_ms=ref_ms, turns_ms=ms,
+                          reference_bound_share=records[k]["bound_ms"]
+                          / ref_ms)
     return records
 
 
@@ -4763,11 +4784,12 @@ def main():
     log(f"build: {', '.join(sources)} and the host core {CORE_SOURCE} "
         f"({os.path.basename(host)}), together, in "
         f"{time.perf_counter() - t0:.2f} s")
-    from nart_tpu_torch.kernel_variants import ptxas_kernels
+    from nart_tpu_torch.kernel_variants import bsdf_design, ptxas_kernels
     for source, report in zip((BVH_SOURCE, BSDF_SOURCE), reports):
         for kname, regs, frame, st, ld in ptxas_kernels(report):
-            log(f"ptxas {source}: {kname} {regs} registers, stack frame "
-                f"{frame} B, spill stores {st} B, spill loads {ld} B")
+            design = bsdf_design(kname)
+            log(f"ptxas {source}: {kname}{design} {regs} registers, stack "
+                f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()

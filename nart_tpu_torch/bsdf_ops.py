@@ -19,7 +19,10 @@ gradient (every call site detaches them, as the JAX package's
 stop_gradient sites do), and ``eval_f_pdf`` refuses a wi that requires
 grad.  Launches count in ``cuda_build.launch_counts`` as "bsdf_sample",
 "bsdf_eval" and "bsdf_f_bwd" (inside a CUDA graph capture, at every
-replay).
+replay).  X1's and X3's first designs stay as ``nart_bsdf_sample_ref`` and
+``nart_bsdf_f_bwd_ref`` (``sample_ref_cuda``, ``f_bwd_ref_cuda``, counted
+as "bsdf_sample_reference" and "bsdf_f_bwd_reference"): the references
+the card's checks hold the redesign to; no path launches them.
 
 On CPU tensors ``sample_f`` and ``eval_f_pdf`` call the plain versions
 (``bxdf``'s functions, wi and pdf detached) and autograd differentiates
@@ -189,11 +192,12 @@ def sample_at_plain(desc, wo, wi, u1, u2, use_prime, eta_outer, prev_flags,
     f = bxdf._lobe_f(desc, code, wo, wi, use_prime, eta_outer)
     matched = (eta_outer == desc.eta) & picked[2]
     f = torch.where(matched[..., None], desc.tau, f)
-    f = torch.where(picked[3][..., None],
-                    bxdf.specular_sample(desc, wo, eta_outer)[0], f)
+    f = torch.where(picked[3][..., None], bxdf.specular_sample(
+        *bxdf._guard(picked[3], desc, wo, eta_outer))[0], f)
     specdiel = ~(picked[0] | picked[1] | picked[2] | picked[3])
+    d, wo_s, eo_s = bxdf._guard(specdiel, desc, wo, eta_outer)
     f = torch.where(specdiel[..., None], bxdf.specdiel_sample(
-        desc, wo, u2, eta_outer, prev_flags)[0], f)
+        d, wo_s, u2, eo_s, prev_flags)[0], f)
     mix = (((flags & bxdf.SPECULAR) == 0) & (desc.n_lobes >= 2)
            & ~bxdf.lobe_static_specular(other))
     add = mix & (bxdf._lobe_pdf(desc, other, wo, wi, use_prime,
@@ -259,11 +263,13 @@ def _kernel_lib():
     lib = cuda_build.load("bsdf")
     if lib.nart_bsdf_sample.argtypes is None:
         p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn in (lib.nart_bsdf_sample, lib.nart_bsdf_eval):
+        for fn in (lib.nart_bsdf_sample, lib.nart_bsdf_sample_ref,
+                   lib.nart_bsdf_eval):
             fn.argtypes = [p, p, i64, p]
             fn.restype = ctypes.c_int
-        lib.nart_bsdf_f_bwd.argtypes = [p, p, i64, i, p]
-        lib.nart_bsdf_f_bwd.restype = ctypes.c_int
+        for fn in (lib.nart_bsdf_f_bwd, lib.nart_bsdf_f_bwd_ref):
+            fn.argtypes = [p, p, i64, i, p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -327,6 +333,19 @@ def sample_cuda(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
     """Launch nart_bsdf_sample (X1): contiguous CUDA tensors of N lanes ->
     (f, wi, pdf, flags, alpha_i, eta_sampled, bits), the last X1's lobe bits
     (int32) for X3."""
+    return _sample_launch("nart_bsdf_sample", "bsdf_sample", desc, wo, u1,
+                          u2, use_prime, eta_outer, prev_flags)
+
+
+def sample_ref_cuda(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
+    """sample_cuda by X1's first design, nart_bsdf_sample_ref: the
+    reference the redesign keeps the bits of (only the checks call it)."""
+    return _sample_launch("nart_bsdf_sample_ref", "bsdf_sample_reference",
+                          desc, wo, u1, u2, use_prime, eta_outer, prev_flags)
+
+
+def _sample_launch(entry, count, desc, wo, u1, u2, use_prime, eta_outer,
+                   prev_flags):
     n = wo.shape[0]
     dev = wo.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -336,10 +355,10 @@ def sample_cuda(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
             torch.empty(n, **f32), torch.empty(n, **f32),
             torch.empty(n, dtype=torch.int32, device=dev))
     if n:
-        _launch("nart_bsdf_sample", n,
+        _launch(entry, n,
                 dict(_desc_inputs(desc, wo, use_prime, eta_outer), u1=u1,
                      u2=u2, prev_flags=prev_flags), outs)
-        cuda_build.count_launch("bsdf_sample")
+        cuda_build.count_launch(count)
     return outs
 
 
@@ -364,6 +383,23 @@ def f_bwd_cuda(mode, desc, wo, wi, use_prime, eta_outer, g_f,
     bits X1's, u2 and prev_flags its inputs) or "eval" (X2's f).  A None
     cotangent is zero.  Returns per-lane gradients of the DIFF inputs, in
     DIFF's order."""
+    return _f_bwd_launch("nart_bsdf_f_bwd", "bsdf_f_bwd", mode, desc, wo,
+                         wi, use_prime, eta_outer, g_f, g_alpha_i,
+                         g_eta_sampled, u2, prev_flags, bits)
+
+
+def f_bwd_ref_cuda(mode, desc, wo, wi, use_prime, eta_outer, g_f,
+                   g_alpha_i=None, g_eta_sampled=None, u2=None,
+                   prev_flags=None, bits=None):
+    """f_bwd_cuda by X3's first design, nart_bsdf_f_bwd_ref: the reference
+    the redesign is held beside (only the checks call it)."""
+    return _f_bwd_launch("nart_bsdf_f_bwd_ref", "bsdf_f_bwd_reference",
+                         mode, desc, wo, wi, use_prime, eta_outer, g_f,
+                         g_alpha_i, g_eta_sampled, u2, prev_flags, bits)
+
+
+def _f_bwd_launch(entry, count, mode, desc, wo, wi, use_prime, eta_outer,
+                  g_f, g_alpha_i, g_eta_sampled, u2, prev_flags, bits):
     if mode not in ("sample", "eval"):
         raise ValueError(f"mode {mode!r}: 'sample' or 'eval'")
     sample = mode == "sample"
@@ -378,6 +414,6 @@ def f_bwd_cuda(mode, desc, wo, wi, use_prime, eta_outer, g_f,
         if sample:
             inputs.update(u2=u2, prev_flags=prev_flags, bits=bits,
                           g_alpha_i=g_alpha_i, g_eta_sampled=g_eta_sampled)
-        _launch("nart_bsdf_f_bwd", n, inputs, outs, 0 if sample else 1)
-        cuda_build.count_launch("bsdf_f_bwd")
+        _launch(entry, n, inputs, outs, 0 if sample else 1)
+        cuda_build.count_launch(count)
     return outs

@@ -15,6 +15,10 @@
 //                       tau, eta, alpha0, alpha_prime, wo and eta_outer (no
 //                       reduction, no atomics; autograd sums them into the
 //                       leaves through the look-ups' backwards)
+//   * nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref: X1's and X3's first design,
+//                       the references the redesign is held to (X1 bit for
+//                       bit, X3 to the float64 VJP's tolerance); no path
+//                       launches them
 //
 // No Pallas kernel stands behind these functions: on the TPU XLA fuses the
 // JAX package's masked evaluation of every lobe kind on every lane into a
@@ -35,33 +39,48 @@
 // the choices) is float only: its results are detached.  A derivative is
 // torch's where the plain autograd defines one (abs' sign(0) = 0, a clamp
 // passes the gradient on its closed interval, a where only to the branch
-// taken); unlike the plain VJP, which differentiates every lobe and selects
-// after, an unselected branch cannot turn a zero cotangent into NaN.
+// taken), and an unselected branch is never evaluated.
 //
-// Numerics: the file is compiled with --fmad=false, and each operation is
-// the plain version's on the card, in its order, rounded where it rounds:
-// torch's sum over a last dimension of 3 adds ((x0 + x2) + x1) from a zero
-// (so -0 comes out +0), torch.linalg.cross rounds each component's
-// difference of products once, fused (a1 b2 - a2 b1 = fma(a1, b2, -(a2 b1))),
-// x ** 2 is x * x, 1.0 / x is the reciprocal, clamps are fminf / fmaxf
-// passing NaN through, and cosf, sinf, sqrtf and division give the card's
-// torch kernels' bits (checked per operation on an H100: chip_smoke.py
-// phase 27 holds every output of X1 and X2 to the plain version's bits).
+// Numerics: the file is compiled with --fmad=false, and each float
+// operation is the plain version's on the card, in its order, rounded where
+// it rounds: torch's sum over a last dimension of 3 adds ((x0 + x2) + x1)
+// from a zero (so -0 comes out +0), torch.linalg.cross rounds each
+// component's difference of products once, fused (a1 b2 - a2 b1 =
+// fma(a1, b2, -(a2 b1))), x ** 2 is x * x, 1.0 / x is the reciprocal, clamps
+// are fminf / fmaxf passing NaN through, and cosf, sinf, sqrtf and division
+// give the card's torch kernels' bits (checked per operation on an H100:
+// chip_smoke.py phase 27 holds every output of X1 and X2 to the plain
+// version's bits).
 //
 // What bounds it on an H100: the bytes.  X1 moves 157 bytes a lane (each
 // input read once, each output written once), X2 117, X3 205: at 65,536
 // lanes 2.3-4.0 us at 3.35 TB/s.  A lane's operations take less: at most
 // ~400 float32 ones in X1 and X2, ~1,300-1,600 float64 ones in X3's
 // duals (counted by a host build with counting scalars:
-// chip_smoke.py's BSDF_OPS).  The lanes of a warp that take other lobes
-// wait on each other (a plastic lane's two lobes, a dielectric's
-// refraction), and X3's duals hold ~220 registers a thread.  This first
-// design keeps the plain version's lane order; sorting lanes by lobe or
-// warp specialisation by lobe is later work.
+// chip_smoke.py's BSDF_OPS).  The first design (Design with both steps
+// off below, the _ref entries) read a lane's table row by a runtime index
+// (an 88-byte stack frame in X1), and X3 kept a lane's dual inputs and its
+// rows' gradients in a 496-byte stack frame and took seven float64
+// divisions for each dual division, with no FMA (224 registers).  The
+// redesign's two steps are switches of Design, so that `python -m
+// nart_tpu_torch.kernel_variants --kernel bsdf` builds and times them
+// alone and together (PERF.md, X1 and X3):
+//   1. kRcp: X3's duals take one float64 reciprocal a division (and one
+//      rsqrt a square root) and multiply by it for the value and the
+//      tangents, and update the tangents with explicit fma() (which
+//      --fmad=false leaves alone).  The float32 value keeps its operations.
+//   2. kConstRows: no local memory.  A lobe's table row is picked by
+//      constant indices (a select over the three rows), the rows'
+//      gradients are per-table sums of named scalars, and a dual is
+//      selected member by member on values (pick): a select of two duals'
+//      addresses kept the lane's inputs in local memory.  Stack frame 0 B
+//      in X1, X2 and X3.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -73,116 +92,177 @@ constexpr float kPi = static_cast<float>(3.141592653589793);
 constexpr float kInvPi = static_cast<float>(1.0 / 3.141592653589793);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
 
+// The design's switches (see the steps above)
+template <bool kRcp_, bool kConstRows_>
+struct Design {
+  static constexpr bool kRcp = kRcp_;
+  static constexpr bool kConstRows = kConstRows_;
+};
+using FirstDesign = Design<false, false>;
+// the redesign (kernel_variants' substitutions edit these lines)
+constexpr bool kRcpOn = true;
+constexpr bool kConstRowsOn = true;
+using Redesign = Design<kRcpOn, kConstRowsOn>;
+
 // ---------------------------------------------------------------------------
 // Scalars: float, and Dual (value + 6 derivatives)
 // ---------------------------------------------------------------------------
 
-constexpr int kTan = 6;
+constexpr int kDirs = 6;
 enum { D_ETA, D_ALPHA, D_WOX, D_WOY, D_WOZ, D_ETA_OUTER };
 
 // v: the float32 value, by the float version's operations, which decides
 // every branch; w: the same value in float64, at which the derivatives d
 // are taken (so X3 is the float64 VJP of the plain version along the
-// float32 forward's branches)
+// float32 forward's branches); d: the derivatives along the six directions
+template <class D>
 struct Dual {
   float v;
   double w;
-  double d[kTan];
+  double d[kDirs];
   __device__ __forceinline__ Dual(float x = 0.0f) : v(x), w(x) {
 #pragma unroll
-    for (int k = 0; k < kTan; ++k) d[k] = 0.0;
+    for (int k = 0; k < kDirs; ++k) d[k] = 0.0;
   }
+  // x with derivative 1 along direction k
   __device__ __forceinline__ static Dual seed(float x, int k) {
     Dual r(x);
-    r.d[k] = 1.0;
+#pragma unroll
+    for (int j = 0; j < kDirs; ++j) r.d[j] = j == k ? 1.0 : 0.0;
     return r;
   }
 };
 
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(const Dual& x) { return x.v; }
+template <class D>
+__device__ __forceinline__ float val(const Dual<D>& x) {
+  return x.v;
+}
 
-__device__ __forceinline__ Dual operator+(const Dual& a, const Dual& b) {
-  Dual r(a.v + b.v);
+template <class D>
+__device__ __forceinline__ Dual<D> operator+(const Dual<D>& a,
+                                             const Dual<D>& b) {
+  Dual<D> r(a.v + b.v);
   r.w = a.w + b.w;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = a.d[k] + b.d[k];
+  for (int k = 0; k < kDirs; ++k) r.d[k] = a.d[k] + b.d[k];
   return r;
 }
-__device__ __forceinline__ Dual operator-(const Dual& a, const Dual& b) {
-  Dual r(a.v - b.v);
+template <class D>
+__device__ __forceinline__ Dual<D> operator-(const Dual<D>& a,
+                                             const Dual<D>& b) {
+  Dual<D> r(a.v - b.v);
   r.w = a.w - b.w;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = a.d[k] - b.d[k];
+  for (int k = 0; k < kDirs; ++k) r.d[k] = a.d[k] - b.d[k];
   return r;
 }
-__device__ __forceinline__ Dual operator-(const Dual& a) {
-  Dual r(-a.v);
+template <class D>
+__device__ __forceinline__ Dual<D> operator-(const Dual<D>& a) {
+  Dual<D> r(-a.v);
   r.w = -a.w;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = -a.d[k];
+  for (int k = 0; k < kDirs; ++k) r.d[k] = -a.d[k];
   return r;
 }
-__device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
-  Dual r(a.v * b.v);
+template <class D>
+__device__ __forceinline__ Dual<D> operator*(const Dual<D>& a,
+                                             const Dual<D>& b) {
+  Dual<D> r(a.v * b.v);
   r.w = a.w * b.w;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = a.d[k] * b.w + a.w * b.d[k];
+  for (int k = 0; k < kDirs; ++k) {
+    if constexpr (D::kRcp)
+      r.d[k] = fma(a.d[k], b.w, a.w * b.d[k]);
+    else
+      r.d[k] = a.d[k] * b.w + a.w * b.d[k];
+  }
   return r;
 }
-__device__ __forceinline__ Dual operator/(const Dual& a, const Dual& b) {
-  Dual r(a.v / b.v);
-  r.w = a.w / b.w;
+template <class D>
+__device__ __forceinline__ Dual<D> operator/(const Dual<D>& a,
+                                             const Dual<D>& b) {
+  Dual<D> r(a.v / b.v);
+  if constexpr (D::kRcp) {
+    const double inv = __drcp_rn(b.w);
+    r.w = a.w * inv;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = (a.d[k] - r.w * b.d[k]) / b.w;
+    for (int k = 0; k < kDirs; ++k)
+      r.d[k] = fma(-r.w, b.d[k], a.d[k]) * inv;
+  } else {
+    r.w = a.w / b.w;
+#pragma unroll
+    for (int k = 0; k < kDirs; ++k)
+      r.d[k] = (a.d[k] - r.w * b.d[k]) / b.w;
+  }
   return r;
 }
-__device__ __forceinline__ bool operator<(const Dual& a, const Dual& b) {
+template <class D>
+__device__ __forceinline__ bool operator<(const Dual<D>& a,
+                                          const Dual<D>& b) {
   return a.v < b.v;
 }
-__device__ __forceinline__ bool operator>(const Dual& a, const Dual& b) {
+template <class D>
+__device__ __forceinline__ bool operator>(const Dual<D>& a,
+                                          const Dual<D>& b) {
   return a.v > b.v;
 }
-__device__ __forceinline__ bool operator>=(const Dual& a, const Dual& b) {
+template <class D>
+__device__ __forceinline__ bool operator>=(const Dual<D>& a,
+                                           const Dual<D>& b) {
   return a.v >= b.v;
 }
-__device__ __forceinline__ bool operator==(const Dual& a, const Dual& b) {
+template <class D>
+__device__ __forceinline__ bool operator==(const Dual<D>& a,
+                                           const Dual<D>& b) {
   return a.v == b.v;
 }
-__device__ __forceinline__ bool operator!=(const Dual& a, const Dual& b) {
+template <class D>
+__device__ __forceinline__ bool operator!=(const Dual<D>& a,
+                                           const Dual<D>& b) {
   return a.v != b.v;
 }
 
 // torch.sqrt, .abs() (gradient sign(x), 0 at 0), clamp(min=) / clamp(max=)
 // (NaN passes; the gradient on the closed side, as clamp's backward)
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
-__device__ __forceinline__ Dual sqrt_(const Dual& x) {
-  Dual r(sqrtf(x.v));
+template <class D>
+__device__ __forceinline__ Dual<D> sqrt_(const Dual<D>& x) {
+  Dual<D> r(sqrtf(x.v));
   if (!(x.w > 0.0)) {  // positive in float32 only: no slope in float64
     r.w = 0.0;
     return r;
   }
-  r.w = sqrt(x.w);
-  double h = 0.5 / r.w;
+  double h;
+  if constexpr (D::kRcp) {
+    const double rs = rsqrt(x.w);
+    r.w = x.w * rs;
+    h = 0.5 * rs;
+  } else {
+    r.w = sqrt(x.w);
+    h = 0.5 / r.w;
+  }
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = x.d[k] * h;
+  for (int k = 0; k < kDirs; ++k) r.d[k] = x.d[k] * h;
   return r;
 }
 __device__ __forceinline__ float abs_(float x) { return fabsf(x); }
-__device__ __forceinline__ Dual abs_(const Dual& x) {
-  Dual r(fabsf(x.v));
+template <class D>
+__device__ __forceinline__ Dual<D> abs_(const Dual<D>& x) {
+  Dual<D> r(fabsf(x.v));
   r.w = fabs(x.w);
   double s = x.w > 0.0 ? 1.0 : x.w < 0.0 ? -1.0 : 0.0;
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) r.d[k] = x.d[k] * s;
+  for (int k = 0; k < kDirs; ++k) r.d[k] = x.d[k] * s;
   return r;
 }
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return isnan(x) ? x : fmaxf(x, lo);
 }
-__device__ __forceinline__ Dual clamp_min(const Dual& x, float lo) {
+template <class D>
+__device__ __forceinline__ Dual<D> clamp_min(const Dual<D>& x, float lo) {
   if (isnan(x.v)) return x;
-  Dual r = x.v >= lo ? x : Dual(lo);
+  Dual<D> r = x.v >= lo ? x : Dual<D>(lo);
   r.v = fmaxf(x.v, lo);
   r.w = fmax(r.w, static_cast<double>(lo));  // the float64 twin too
   return r;
@@ -190,15 +270,39 @@ __device__ __forceinline__ Dual clamp_min(const Dual& x, float lo) {
 __device__ __forceinline__ float clamp_max(float x, float hi) {
   return isnan(x) ? x : fminf(x, hi);
 }
-__device__ __forceinline__ Dual clamp_max(const Dual& x, float hi) {
+template <class D>
+__device__ __forceinline__ Dual<D> clamp_max(const Dual<D>& x, float hi) {
   if (isnan(x.v)) return x;
-  Dual r = x.v <= hi ? x : Dual(hi);
+  Dual<D> r = x.v <= hi ? x : Dual<D>(hi);
   r.v = fminf(x.v, hi);
   r.w = fmin(r.w, static_cast<double>(hi));
   return r;
 }
 __device__ __forceinline__ float clamp(float x, float lo, float hi) {
   return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// c ? a : b of two scalars that are lvalues.  For a Dual under step 2,
+// member by member on values: a select of the two objects' addresses
+// would keep whatever they live in (a lane's inputs) in local memory
+template <class T>
+constexpr bool kValueSelect = false;
+template <class D>
+constexpr bool kValueSelect<Dual<D>> = D::kConstRows;
+__device__ __forceinline__ float pick(bool c, float a, float b) {
+  return c ? a : b;
+}
+__device__ __forceinline__ double pick(bool c, double a, double b) {
+  return c ? a : b;
+}
+template <class D>
+__device__ __forceinline__ Dual<D> pick(bool c, const Dual<D>& a,
+                                        const Dual<D>& b) {
+  Dual<D> r(pick(c, a.v, b.v));
+  r.w = pick(c, a.w, b.w);
+#pragma unroll
+  for (int k = 0; k < kDirs; ++k) r.d[k] = pick(c, a.d[k], b.d[k]);
+  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -242,6 +346,15 @@ template <class T>
 __device__ __forceinline__ V3<T> sel(bool c, const V3<T>& a,
                                      const V3<T>& b) {
   return c ? a : b;
+}
+template <class D>
+__device__ __forceinline__ V3<Dual<D>> sel(bool c, const V3<Dual<D>>& a,
+                                           const V3<Dual<D>>& b) {
+  if constexpr (kValueSelect<Dual<D>>)
+    return V3<Dual<D>>{pick(c, a.x, b.x), pick(c, a.y, b.y),
+                       pick(c, a.z, b.z)};
+  else
+    return c ? a : b;
 }
 
 // torch's sum over a last dimension of 3 on the card: ((x0 + x2) + x1),
@@ -361,12 +474,19 @@ struct Lane {
   V3<T> wo;
 };
 
-// the value of f's channel c
-template <class T>
+// the value of f's channel c (the row by constant indices where the
+// design says so)
+template <class D, class T>
 __device__ __forceinline__ float f_value(const Lane<T>& L, const LobeF<T>& f,
                                          int c) {
   if (f.tab == F_ZERO) return 0.0f;
   if (f.tab == F_ONE) return 1.0f;
+  if constexpr (D::kConstRows) {
+    const float r = f.tab == F_RHO_D   ? L.rho[F_RHO_D][c]
+                    : f.tab == F_RHO_S ? L.rho[F_RHO_S][c]
+                                       : L.rho[F_TAU][c];
+    return r * val(f.s);
+  }
   return L.rho[f.tab][c] * val(f.s);
 }
 
@@ -402,8 +522,13 @@ template <class T>
 __device__ __forceinline__ void oriented_etas(const Lane<T>& L, T& eta_o,
                                               T& eta_i) {
   bool below = L.wo.z < T(0.0f);
-  eta_o = below ? L.eta : L.eta_outer;
-  eta_i = below ? L.eta_outer : L.eta;
+  if constexpr (kValueSelect<T>) {
+    eta_o = pick(below, L.eta, L.eta_outer);
+    eta_i = pick(below, L.eta_outer, L.eta);
+  } else {
+    eta_o = below ? L.eta : L.eta_outer;
+    eta_i = below ? L.eta_outer : L.eta;
+  }
 }
 
 template <class T>
@@ -760,20 +885,29 @@ __device__ __forceinline__ Lane<T> load_lane(const Args& a, int64_t i) {
   return L;
 }
 
+// BSDF::Sample_f's lobe pick: the lane's u1 * n_lobes chooses lobe 0 or 1
+__device__ __forceinline__ void pick_lobes(const Args& a, int64_t i,
+                                           int64_t& code, int64_t& other) {
+  float n_f = static_cast<float>(a.n_lobes[i]);
+  int64_t idx = static_cast<int64_t>(a.u1[i] * n_f);
+  idx = idx < 0 ? 0 : idx > 1 ? 1 : idx;
+  int64_t l0 = a.lobe[2 * i], l1 = a.lobe[2 * i + 1];
+  code = idx == 0 ? l0 : l1;
+  other = idx == 1 ? l0 : l1;
+}
+
+template <class D>
 __global__ void __launch_bounds__(kThreads)
     bsdf_sample_kernel(const Args a) {
   int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (i >= a.n) return;
   Lane<float> L = load_lane<float>(a, i);
   int64_t n_lobes = a.n_lobes[i];
-  int64_t l0 = a.lobe[2 * i], l1 = a.lobe[2 * i + 1];
   float n_f = static_cast<float>(n_lobes);
   float u1 = a.u1[i];
-  int64_t idx = static_cast<int64_t>(u1 * n_f);
-  idx = idx < 0 ? 0 : idx > 1 ? 1 : idx;
   float u1r = u1 * n_f - floorf(u1 * n_f);  // glm::fract
-  int64_t code = idx == 0 ? l0 : l1;
-  int64_t other = idx == 1 ? l0 : l1;
+  int64_t code, other;
+  pick_lobes(a, i, code, other);
 
   Sample s = lobe_sample(L, code, u1r, a.u2[2 * i], a.u2[2 * i + 1],
                          a.prev_flags[i]);
@@ -787,7 +921,8 @@ __global__ void __launch_bounds__(kThreads)
   pdf = non_spec ? pdf / n_f : pdf;  // parity: only off the specular path
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    a.f[3 * i + c] = f_value(L, s.f, c) + (add ? f_value(L, fo, c) : 0.0f);
+    a.f[3 * i + c] =
+        f_value<D>(L, s.f, c) + (add ? f_value<D>(L, fo, c) : 0.0f);
   }
   a.wi_out[3 * i] = s.wi.x;
   a.wi_out[3 * i + 1] = s.wi.y;
@@ -799,6 +934,7 @@ __global__ void __launch_bounds__(kThreads)
   a.bits_out[i] = pack_bits(code, other, add);
 }
 
+template <class D>
 __global__ void __launch_bounds__(kThreads) bsdf_eval_kernel(const Args a) {
   int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (i >= a.n) return;
@@ -811,86 +947,147 @@ __global__ void __launch_bounds__(kThreads) bsdf_eval_kernel(const Args a) {
   LobeF<float> f1 = two ? lobe_f(L, l1, wi) : lf_zero<float>();
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    a.f[3 * i + c] = f_value(L, f0, c) + (two ? f_value(L, f1, c) : 0.0f);
+    a.f[3 * i + c] =
+        f_value<D>(L, f0, c) + (two ? f_value<D>(L, f1, c) : 0.0f);
   float p = lobe_pdf(L, l0, wi);
   p = p + (two ? lobe_pdf(L, l1, wi) : 0.0f);
   a.pdf[i] = p / static_cast<float>(n_lobes);
 }
 
+// The rows' gradients: the first design adds g[c] * s to g_rho[table][c]
+// term by term (RowArray); under step 2 a term adds its s to its table's
+// sum (RowSums: named scalars, no array), times g[c] at the end (from a
+// zero, as the first design's sum begins)
+struct RowArray {
+  double g_rho[3][3] = {};
+  __device__ __forceinline__ double get(int t, int c, const float (&)[3]) {
+    return g_rho[t][c];
+  }
+};
+struct RowSums {
+  double w_d = 0.0, w_s = 0.0, w_t = 0.0;
+  __device__ __forceinline__ void add(int tab, double s) {
+    w_d += tab == F_RHO_D ? s : 0.0;
+    w_s += tab == F_RHO_S ? s : 0.0;
+    w_t += tab == F_TAU ? s : 0.0;
+  }
+  __device__ __forceinline__ double get(int t, int c, const float (&g)[3]) {
+    return 0.0 + g[c] * (t == F_RHO_D ? w_d : t == F_RHO_S ? w_s : w_t);
+  }
+};
+template <class D>
+using RowGrads = std::conditional_t<D::kConstRows, RowSums, RowArray>;
+
 // one term's contribution to the gradients: g . (row * s)
-__device__ __forceinline__ void add_term(const Lane<Dual>& L,
-                                         const LobeF<Dual>& f,
+template <class D>
+__device__ __forceinline__ void add_term(const Lane<Dual<D>>& L,
+                                         const LobeF<Dual<D>>& f,
                                          const float (&g)[3],
-                                         double (&g_rho)[3][3],
-                                         double (&g_s)[kTan]) {
+                                         RowGrads<D>& rg,
+                                         double (&g_s)[kDirs]) {
   if (f.tab < F_RHO_D || f.tab > F_TAU) return;  // zero or a constant
   double gs = 0.0;
+  if constexpr (D::kConstRows) {
+    rg.add(f.tab, f.s.w);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    g_rho[f.tab][c] += g[c] * f.s.w;
-    gs += static_cast<double>(g[c]) * L.rho[f.tab][c];
+    for (int c = 0; c < 3; ++c) {
+      const float r0 = L.rho[F_RHO_D][c], r1 = L.rho[F_RHO_S][c],
+                  r2 = L.rho[F_TAU][c];
+      const float r = f.tab == F_RHO_D ? r0 : f.tab == F_RHO_S ? r1 : r2;
+      gs += static_cast<double>(g[c]) * r;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      rg.g_rho[f.tab][c] += g[c] * f.s.w;
+      gs += static_cast<double>(g[c]) * L.rho[f.tab][c];
+    }
   }
 #pragma unroll
-  for (int k = 0; k < kTan; ++k) g_s[k] += gs * f.s.d[k];
+  for (int k = 0; k < kDirs; ++k) {
+    if constexpr (D::kRcp)
+      g_s[k] = fma(gs, f.s.d[k], g_s[k]);
+    else
+      g_s[k] += gs * f.s.d[k];
+  }
 }
 
-template <int kMode>  // 0: X1's outputs, 1: X2's
+// the lane's inputs as duals, each seeded along its own direction
+template <class D>
+__device__ __forceinline__ Lane<Dual<D>> dual_lane(const Lane<float>& Lf) {
+  Lane<Dual<D>> L;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) L.rho[t][c] = Lf.rho[t][c];
+  L.eta = Dual<D>::seed(Lf.eta, D_ETA);
+  L.alpha = Dual<D>::seed(Lf.alpha, D_ALPHA);
+  L.eta_outer = Dual<D>::seed(Lf.eta_outer, D_ETA_OUTER);
+  L.wo = V3<Dual<D>>{Dual<D>::seed(Lf.wo.x, D_WOX),
+                     Dual<D>::seed(Lf.wo.y, D_WOY),
+                     Dual<D>::seed(Lf.wo.z, D_WOZ)};
+  return L;
+}
+
+// a lane's terms (kMode 0: X1's sampled lobe and the other it mixed in,
+// from X1's bits; 1: X2's lobes) added to rg and g_s; returns X1's lobe
+template <class D, int kMode>
+__device__ __forceinline__ int64_t add_terms(const Args& a, int64_t i,
+                                             const Lane<Dual<D>>& L,
+                                             const V3<float>& wi,
+                                             const float (&g)[3],
+                                             RowGrads<D>& rg,
+                                             double (&g_s)[kDirs]) {
+  if (kMode == 0) {
+    int32_t bits = a.bits[i];
+    int64_t code = (bits & 7) - 1;
+    int64_t other = ((bits >> 3) & 7) - 1;
+    add_term(L, sampled_f(L, code, wi, a.u2[2 * i], a.prev_flags[i]), g, rg,
+             g_s);
+    if (bits & 64) add_term(L, lobe_f(L, other, lift<Dual<D>>(wi)), g, rg, g_s);
+    return code;
+  }
+  V3<Dual<D>> wi_d = lift<Dual<D>>(wi);
+  add_term(L, lobe_f(L, a.lobe[2 * i], wi_d), g, rg, g_s);
+  if (a.n_lobes[i] >= 2)
+    add_term(L, lobe_f(L, a.lobe[2 * i + 1], wi_d), g, rg, g_s);
+  return 0;
+}
+
+template <class D, int kMode>  // kMode 0: X1's outputs, 1: X2's
 __global__ void __launch_bounds__(kThreads) bsdf_f_bwd_kernel(const Args a) {
   int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (i >= a.n) return;
-  Lane<Dual> L;
-  {
-    Lane<float> Lf = load_lane<float>(a, i);
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) L.rho[t][c] = Lf.rho[t][c];
-    L.eta = Dual::seed(Lf.eta, D_ETA);
-    L.alpha = Dual::seed(Lf.alpha, D_ALPHA);
-    L.eta_outer = Dual::seed(Lf.eta_outer, D_ETA_OUTER);
-    L.wo = V3<Dual>{Dual::seed(Lf.wo.x, D_WOX), Dual::seed(Lf.wo.y, D_WOY),
-                    Dual::seed(Lf.wo.z, D_WOZ)};
-  }
+  const Lane<float> Lf = load_lane<float>(a, i);
   V3<float> wi{a.wi[3 * i], a.wi[3 * i + 1], a.wi[3 * i + 2]};
   float g[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) g[c] = a.g_f ? a.g_f[3 * i + c] : 0.0f;
-  double g_rho[3][3] = {};
-  double g_s[kTan] = {};
-  int64_t code;
+  RowGrads<D> rg;
+  double g_dir[kDirs] = {};
+  int64_t code = add_terms<D, kMode>(a, i, dual_lane<D>(Lf), wi, g, rg, g_dir);
   if (kMode == 0) {
-    int32_t bits = a.bits[i];
-    code = (bits & 7) - 1;
-    int64_t other = ((bits >> 3) & 7) - 1;
-    add_term(L, sampled_f(L, code, wi, a.u2[2 * i], a.prev_flags[i]), g,
-             g_rho, g_s);
-    if (bits & 64)
-      add_term(L, lobe_f(L, other, lift<Dual>(wi)), g, g_rho, g_s);
     // alpha_i = alpha on the microfacet lobes; eta_sampled = eta but on
     // Lambert
     if (a.g_alpha_i && (code == L_TS || code == L_DIELECTRIC))
-      g_s[D_ALPHA] += a.g_alpha_i[i];
-    if (a.g_eta_sampled && code != L_LAMBERT) g_s[D_ETA] += a.g_eta_sampled[i];
-  } else {
-    V3<Dual> wi_d = lift<Dual>(wi);
-    add_term(L, lobe_f(L, a.lobe[2 * i], wi_d), g, g_rho, g_s);
-    if (a.n_lobes[i] >= 2)
-      add_term(L, lobe_f(L, a.lobe[2 * i + 1], wi_d), g, g_rho, g_s);
+      g_dir[D_ALPHA] += a.g_alpha_i[i];
+    if (a.g_eta_sampled && code != L_LAMBERT)
+      g_dir[D_ETA] += a.g_eta_sampled[i];
   }
 #pragma unroll
   for (int t = 0; t < 3; ++t)
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      a.g_rho[t][3 * i + c] = static_cast<float>(g_rho[t][c]);
-  a.g_eta[i] = static_cast<float>(g_s[D_ETA]);
-  float g_alpha = static_cast<float>(g_s[D_ALPHA]);
+      a.g_rho[t][3 * i + c] = static_cast<float>(rg.get(t, c, g));
+  a.g_eta[i] = static_cast<float>(g_dir[D_ETA]);
+  float g_alpha = static_cast<float>(g_dir[D_ALPHA]);
   bool prime = a.use_prime[i];
   a.g_alpha_prime[i] = prime ? g_alpha : 0.0f;
   a.g_alpha0[i] = prime ? 0.0f : g_alpha;
-  a.g_wo[3 * i] = static_cast<float>(g_s[D_WOX]);
-  a.g_wo[3 * i + 1] = static_cast<float>(g_s[D_WOY]);
-  a.g_wo[3 * i + 2] = static_cast<float>(g_s[D_WOZ]);
-  a.g_eta_outer[i] = static_cast<float>(g_s[D_ETA_OUTER]);
+  a.g_wo[3 * i] = static_cast<float>(g_dir[D_WOX]);
+  a.g_wo[3 * i + 1] = static_cast<float>(g_dir[D_WOY]);
+  a.g_wo[3 * i + 2] = static_cast<float>(g_dir[D_WOZ]);
+  a.g_eta_outer[i] = static_cast<float>(g_dir[D_ETA_OUTER]);
 }
 
 // in[] order of every entry: n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
@@ -925,13 +1122,9 @@ unsigned blocks(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-extern "C" {
-
-// X1. out: f, wi, pdf, flags (int64), alpha_i, eta_sampled, bits (int32)
-int nart_bsdf_sample(const void* const* in, void* const* out, int64_t n,
-                     void* stream) {
+template <class D>
+int launch_sample(const void* const* in, void* const* out, int64_t n,
+                  void* stream) {
   Args a = args_in(in, n);
   a.f = static_cast<float*>(out[0]);
   a.wi_out = static_cast<float*>(out[1]);
@@ -940,27 +1133,14 @@ int nart_bsdf_sample(const void* const* in, void* const* out, int64_t n,
   a.alpha_i = static_cast<float*>(out[4]);
   a.eta_sampled = static_cast<float*>(out[5]);
   a.bits_out = static_cast<int32_t*>(out[6]);
-  bsdf_sample_kernel<<<blocks(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  bsdf_sample_kernel<D><<<blocks(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// X2. out: f, pdf
-int nart_bsdf_eval(const void* const* in, void* const* out, int64_t n,
-                   void* stream) {
-  Args a = args_in(in, n);
-  a.f = static_cast<float*>(out[0]);
-  a.pdf = static_cast<float*>(out[1]);
-  bsdf_eval_kernel<<<blocks(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// X3, mode 0 (X1's f, alpha_i, eta_sampled; wi is X1's, bits X1's) or 1
-// (X2's f).  out: g_rho_d, g_rho_s, g_tau, g_eta, g_alpha0, g_alpha_prime,
-// g_wo, g_eta_outer
-int nart_bsdf_f_bwd(const void* const* in, void* const* out, int64_t n,
-                    int mode, void* stream) {
+template <class D>
+int launch_f_bwd(const void* const* in, void* const* out, int64_t n,
+                 int mode, void* stream) {
   Args a = args_in(in, n);
   for (int t = 0; t < 3; ++t) a.g_rho[t] = static_cast<float*>(out[t]);
   a.g_eta = static_cast<float*>(out[3]);
@@ -970,10 +1150,51 @@ int nart_bsdf_f_bwd(const void* const* in, void* const* out, int64_t n,
   a.g_eta_outer = static_cast<float*>(out[7]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0)
-    bsdf_f_bwd_kernel<0><<<blocks(n), kThreads, 0, s>>>(a);
+    bsdf_f_bwd_kernel<D, 0><<<blocks(n), kThreads, 0, s>>>(a);
   else
-    bsdf_f_bwd_kernel<1><<<blocks(n), kThreads, 0, s>>>(a);
+    bsdf_f_bwd_kernel<D, 1><<<blocks(n), kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// X1. out: f, wi, pdf, flags (int64), alpha_i, eta_sampled, bits (int32)
+int nart_bsdf_sample(const void* const* in, void* const* out, int64_t n,
+                     void* stream) {
+  return launch_sample<Redesign>(in, out, n, stream);
+}
+
+// X1's first design (the reference), on the same arguments
+int nart_bsdf_sample_ref(const void* const* in, void* const* out, int64_t n,
+                         void* stream) {
+  return launch_sample<FirstDesign>(in, out, n, stream);
+}
+
+// X2. out: f, pdf
+int nart_bsdf_eval(const void* const* in, void* const* out, int64_t n,
+                   void* stream) {
+  Args a = args_in(in, n);
+  a.f = static_cast<float*>(out[0]);
+  a.pdf = static_cast<float*>(out[1]);
+  bsdf_eval_kernel<Redesign><<<blocks(n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X3, mode 0 (X1's f, alpha_i, eta_sampled; wi is X1's, bits X1's) or 1
+// (X2's f).  out: g_rho_d, g_rho_s, g_tau, g_eta, g_alpha0, g_alpha_prime,
+// g_wo, g_eta_outer
+int nart_bsdf_f_bwd(const void* const* in, void* const* out, int64_t n,
+                    int mode, void* stream) {
+  return launch_f_bwd<Redesign>(in, out, n, mode, stream);
+}
+
+// X3's first design (the reference), on the same arguments
+int nart_bsdf_f_bwd_ref(const void* const* in, void* const* out, int64_t n,
+                        int mode, void* stream) {
+  return launch_f_bwd<FirstDesign>(in, out, n, mode, stream);
 }
 
 }  // extern "C"

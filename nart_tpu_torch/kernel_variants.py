@@ -1,8 +1,9 @@
 """Development tool: what each design choice of csrc/cluster_hit.cu (K1,
-K2) or csrc/bvh_walk.cu (B1) buys.
+K2), csrc/bvh_walk.cu (B1) or csrc/bsdf.cu (X1, X3) buys.
 
     python -m nart_tpu_torch.kernel_variants [--rounds 3] [--reps 20]
     python -m nart_tpu_torch.kernel_variants --kernel bvh [--rounds 3]
+    python -m nart_tpu_torch.kernel_variants --kernel bsdf [--rounds 3]
 
 Builds the kernel source as it is and variants of it made by exact text
 substitution (``VARIANTS``; a substitution whose anchor is not found exactly
@@ -48,8 +49,24 @@ every leaf size on the any-hit walk too; the stack in shared memory
 sets (bvh trees of the same triangles) on the device (calls captured into
 one CUDA graph, replay ms over calls), beside the reference kernel
 (nart_bvh_hit_ref, the walk's first design) in every round, and check
-every output against the reference's bits.  Needs a CUDA device and
-nvcc.
+every output against the reference's bits.
+
+``--kernel bsdf`` does the same for X1 and X3 (``BSDF_VARIANTS``): the
+source's design switches (``kRcpOn``, ``kConstRowsOn``: csrc/bsdf.cu's
+steps 1 and 2) and two steps that were measured and not taken (3, lanes
+regrouped by lobe in a block; 4, X3's directions in two passes or its
+blocks an SM), each by text substitution: every step off (the first
+design), each step alone, steps 1-2 (as built) with each form of step 4,
+steps 1-3, and steps 1-4 together.  Its rows time X1, X2
+and X3 (both modes) on two lane sets, phase 27's macbeth mid-trace round
+(``testing.mid_trace_bsdf``, 1280x720 @ 1: strategy A's sample and
+strategy B's eval) and 65,536 lanes of one kind (``testing.bsdf_lane_set``,
+"glossy": one lobe, so regrouping has nothing to regroup), on the device
+(calls captured into one CUDA graph) beside the reference entries
+(nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref) in every round; X1's and X2's
+outputs must be the reference's bits, X3's within rtol 1e-5 / atol 1e-6 of
+the reference's (their share of equal bits printed).  Needs a CUDA device
+and nvcc.
 """
 
 from __future__ import annotations
@@ -66,12 +83,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-from . import bvh, camera, cluster_accel as ca, cuda_build
+from . import bsdf_ops, bvh, camera, cluster_accel as ca, cuda_build, testing
 from .kernel_stats import DEFAULT_SCENE
 from .scene import load_scene
 
 SOURCE = os.path.join(cuda_build.SRC_DIR, "cluster_hit.cu")
 BVH_SOURCE = os.path.join(cuda_build.SRC_DIR, "bvh_walk.cu")
+BSDF_SOURCE = os.path.join(cuda_build.SRC_DIR, "bsdf.cu")
 
 # a zero that the compiler cannot know, for the repeated passes
 _ZERO = [
@@ -325,7 +343,164 @@ BVH_VARIANTS = {
     "64 threads": [("constexpr int kThreads = 128;",
                     "constexpr int kThreads = 64;")],
 }
-KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS)}
+
+# X1's and X3's variants (csrc/bsdf.cu): its design switches (steps 1 and
+# 2) set by substitution, and the steps measured and not taken: 3, a block's
+# lanes regrouped by lobe (a counting sort in shared memory, warp by warp:
+# each thread computes the block's lane at its sorted slot; no lane's
+# arithmetic changes), and 4, X3's six directions in two passes (each
+# recomputing the value) or its blocks an SM for __launch_bounds__
+BSDF_AS_BUILT = {"kRcpOn": "true", "kConstRowsOn": "true"}
+_BSDF_SAMPLE_HEAD = """    bsdf_sample_kernel(const Args a) {
+  int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+"""
+_BSDF_BWD_HEAD = """bsdf_f_bwd_kernel(const Args a) {
+  int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+"""
+_BSDF_PICK = "// BSDF::Sample_f's lobe pick"
+# a key below kKeys (two lobe codes + 1, three bits each); every thread of
+# the block calls regroup (lanes past n give the last key and compute
+# nothing), which returns the lane this thread computes
+_BSDF_REGROUP = """constexpr int kKeys = 64;
+struct Regroup {
+  int count[kKeys];
+  int16_t order[kThreads];
+};
+
+__device__ __forceinline__ int lobe_key(int64_t code, int64_t other) {
+  return static_cast<int>(((code + 1) & 7) | (((other + 1) & 7) << 3));
+}
+
+__device__ __forceinline__ int64_t regroup(Regroup& s, int64_t base,
+                                           int key) {
+  const unsigned kFull = 0xffffffffu;
+  const int t = threadIdx.x, lane = t & 31;
+  if (t < kKeys) s.count[t] = 0;
+  __syncthreads();
+  const unsigned peers = __match_any_sync(kFull, key);
+  const int leader = __ffs(peers) - 1;
+  int start = 0;
+  if (lane == leader) start = atomicAdd(&s.count[key], __popc(peers));
+  start = __shfl_sync(kFull, start, leader) +
+          __popc(peers & ((1u << lane) - 1u));
+  __syncthreads();
+  if (t < 32) {  // exclusive scan of the counts, two a lane
+    const int c0 = s.count[2 * t], c1 = s.count[2 * t + 1];
+    int incl = c0 + c1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    s.count[2 * t] = incl - c0 - c1;
+    s.count[2 * t + 1] = incl - c1;
+  }
+  __syncthreads();
+  s.order[s.count[key] + start] = static_cast<int16_t>(t);
+  __syncthreads();
+  return base + s.order[t];
+}
+
+"""
+_BSDF_REGROUP_X1 = """  {
+    __shared__ Regroup s;
+    int key = kKeys - 1;
+    if (i < a.n) {
+      int64_t code, other;
+      pick_lobes(a, i, code, other);
+      key = lobe_key(code, other);
+    }
+    i = regroup(s, i - threadIdx.x, key);
+  }
+"""
+_BSDF_REGROUP_X3 = """  {
+    __shared__ Regroup s;
+    int key = kKeys - 1;
+    if (i < a.n) {
+      if (kMode == 0) {
+        key = a.bits[i] & (kKeys - 1);
+      } else {
+        const int64_t two = a.n_lobes[i] >= 2;
+        key = lobe_key(a.lobe[2 * i], two ? a.lobe[2 * i + 1] : -1);
+      }
+    }
+    i = regroup(s, i - threadIdx.x, key);
+  }
+"""
+_BSDF_ONE_PASS = """  RowGrads<D> rg;
+  double g_dir[kDirs] = {};
+  int64_t code = add_terms<D, kMode>(a, i, dual_lane<D>(Lf), wi, g, rg, g_dir);
+"""
+_BSDF_TWO_PASSES = """  RowGrads<D> rg;
+  double g_dir[kAllDirs];
+  int64_t code = 0;
+#pragma unroll 1
+  for (int p = 0; p < kPasses; ++p) {  // directions p * kDirs on
+    const int k0 = p * kDirs;
+    Lane<Dual<D>> L = dual_lane<D>(Lf);
+    L.eta = Dual<D>::seed(Lf.eta, D_ETA - k0);
+    L.alpha = Dual<D>::seed(Lf.alpha, D_ALPHA - k0);
+    L.eta_outer = Dual<D>::seed(Lf.eta_outer, D_ETA_OUTER - k0);
+    L.wo = V3<Dual<D>>{Dual<D>::seed(Lf.wo.x, D_WOX - k0),
+                       Dual<D>::seed(Lf.wo.y, D_WOY - k0),
+                       Dual<D>::seed(Lf.wo.z, D_WOZ - k0)};
+    RowGrads<D> rg_p;  // every pass's; the first's kept
+    double g_s[kDirs] = {};
+    code = add_terms<D, kMode>(a, i, L, wi, g, rg_p, g_s);
+    if (p == 0) rg = rg_p;
+#pragma unroll
+    for (int k = 0; k < kDirs; ++k)
+#pragma unroll
+      for (int q = 0; q < kPasses; ++q)  // constant indices only
+        if (q == p) g_dir[q * kDirs + k] = g_s[k];
+  }
+"""
+_BSDF_BWD_BOUNDS = ("__global__ void __launch_bounds__(kThreads) "
+                    "bsdf_f_bwd_kernel(const Args a) {")
+
+
+def _bsdf_steps(rcp=True, rows=True, regroup=(), split=False, blocks=1):
+    """The substitutions of one variant of csrc/bsdf.cu: steps 1 (rcp) and
+    2 (rows) on or off, step 3 for the kernels in regroup ("X1", "X3"),
+    step 4's two passes (split) and X3's blocks an SM."""
+    subs = [(f"constexpr bool {k} = true;", f"constexpr bool {k} = false;")
+            for k, on in (("kRcpOn", rcp), ("kConstRowsOn", rows)) if not on]
+    if regroup:
+        subs.append((_BSDF_PICK, _BSDF_REGROUP + _BSDF_PICK))
+    if "X1" in regroup:
+        subs.append((_BSDF_SAMPLE_HEAD, _BSDF_SAMPLE_HEAD + _BSDF_REGROUP_X1))
+    if "X3" in regroup:
+        subs.append((_BSDF_BWD_HEAD, _BSDF_BWD_HEAD + _BSDF_REGROUP_X3))
+    if split:
+        subs += [("constexpr int kDirs = 6;",
+                  "constexpr int kPasses = 2, kAllDirs = 6, "
+                  "kDirs = kAllDirs / kPasses;"),
+                 (_BSDF_ONE_PASS, _BSDF_TWO_PASSES)]
+    if blocks > 1:
+        subs.append((_BSDF_BWD_BOUNDS, _BSDF_BWD_BOUNDS.replace(
+            "(kThreads)", f"(kThreads, {blocks})")))
+    return subs
+
+
+_OFF = dict(rcp=False, rows=False)
+BSDF_VARIANTS = {
+    "as built": [],
+    "first design": _bsdf_steps(**_OFF),
+    "1 rcp + fma": _bsdf_steps(rows=False),
+    "2 const rows": _bsdf_steps(rcp=False),
+    "3 regroup X1": _bsdf_steps(**_OFF, regroup=("X1",)),
+    "3 regroup X3": _bsdf_steps(**_OFF, regroup=("X3",)),
+    "4 split": _bsdf_steps(**_OFF, split=True),
+    "4 four blocks": _bsdf_steps(**_OFF, blocks=4),
+    "1-2 + split": _bsdf_steps(split=True),
+    "1-2 + three blocks": _bsdf_steps(blocks=3),
+    "1-2 + four blocks": _bsdf_steps(blocks=4),
+    "1-3": _bsdf_steps(regroup=("X1", "X3")),
+    "1-4 (split, three blocks)": _bsdf_steps(regroup=("X1", "X3"),
+                                             split=True, blocks=3),
+}
+KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS),
+           "bsdf": (BSDF_SOURCE, BSDF_VARIANTS)}
 
 
 def variant_sources(kernel="cluster") -> dict:
@@ -358,6 +533,18 @@ def ptxas_kernels(report):
         name, frame, st, ld, regs = m.groups()
         rows.append((name, int(regs), int(frame), int(st), int(ld)))
     return sorted(rows)
+
+
+def bsdf_design(name):
+    """The Design switches in a csrc/bsdf.cu kernel's mangled name, for a
+    log line: ' (the first design)', ' (the redesign)' or ' (rcp 1, rows
+    0)' and the like; '' for another kernel."""
+    m = re.search(r"DesignILb([01])ELb([01])E", name)
+    if m is None:
+        return ""
+    return {("0", "0"): " (the first design)",
+            ("1", "1"): " (the redesign)"}.get(
+        m.groups(), " (rcp {}, rows {})".format(*m.groups()))
 
 
 def graph_ms(fn, calls=20, replays=5):
@@ -518,6 +705,117 @@ def _run_bvh(built, args):
                 raise AssertionError(f"variant {row!r} changed a result")
 
 
+def bsdf_sets(dev, seed=0):
+    """X1-X3's lane sets: {"macbeth": phase 27's mid-trace round of macbeth
+    1280x720 @ 1 (its strategy A sample call and strategy B eval call),
+    "glossy": 65,536 lanes of testing.bsdf_lane_set's "glossy" (the sample
+    call's inputs, and the eval call's on the same lanes)}: each (sample
+    inputs, eval inputs), dicts of tensors on dev."""
+    from . import render
+
+    sc = load_scene(DEFAULT_SCENE)
+    params = render.load_sessions(DEFAULT_SCENE, {"spp": 1})[0]
+    _, _, calls = testing.mid_trace_bsdf(
+        lambda: render.RenderSession(sc, params, dev, per_round=True))
+    glossy = testing.bsdf_lane_set("glossy", 65536, seed, dev)
+    return {"macbeth": (calls["sample A"], calls["eval B"]),
+            "glossy": (glossy, glossy)}
+
+
+def bsdf_cases(sets, seed=0):
+    """{"kernel set": a call of X1, X2 or X3 ("sample" or "eval" mode)
+    through its bsdf_ops wrapper on a set of bsdf_sets} (reference=True:
+    X1's and X3's first designs; X2 has none and runs as built): each
+    returns a tuple of output tensors.  X3's "sample" mode takes the
+    reference X1's wi and bits, its cotangents are normals from seed."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for label, (s, e) in sets.items():
+        desc, wo, up, eo = s["desc"], s["wo"], s["use_prime"], s["eta_outer"]
+        args = (desc, wo, s["u1"], s["u2"], up, eo, s["prev_flags"])
+        x1 = bsdf_ops.sample_ref_cuda(*args)
+        n = wo.shape[0]
+
+        def normal(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(wo.device)
+
+        cots = (normal(n, 3), normal(n), normal(n))
+        g_e = normal(n, 3)
+        e_args = (e["desc"], e["wo"], e["wi"], e["use_prime"],
+                  e["eta_outer"])
+
+        def x1_call(reference=False, a=args):
+            return (bsdf_ops.sample_ref_cuda if reference
+                    else bsdf_ops.sample_cuda)(*a)
+
+        def x2_call(reference=False, a=e_args):
+            return bsdf_ops.eval_cuda(*a)
+
+        def x3s_call(reference=False, a=args, x=x1, c=cots):
+            return (bsdf_ops.f_bwd_ref_cuda if reference
+                    else bsdf_ops.f_bwd_cuda)(
+                "sample", a[0], a[1], x[1], a[4], a[5], *c, u2=a[3],
+                prev_flags=a[6], bits=x[6])
+
+        def x3e_call(reference=False, a=e_args, g=g_e):
+            return (bsdf_ops.f_bwd_ref_cuda if reference
+                    else bsdf_ops.f_bwd_cuda)("eval", *a, g)
+
+        cases[f"X1 {label}"] = x1_call
+        cases[f"X2 {label}"] = x2_call
+        cases[f"X3s {label}"] = x3s_call
+        cases[f"X3e {label}"] = x3e_call
+    return cases
+
+
+def bsdf_same(key, got, want):
+    """(outputs within the rule, share of equal bits): X1 and X2 the
+    reference's bits, X3 within rtol 1e-5 / atol 1e-6 of the reference's."""
+    if key.startswith("X3"):
+        return all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                   for a, b in zip(got, want)), testing.bit_share(got, want)
+    same = all(torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in zip(got, want))
+    return same, float(same)
+
+
+def _run_bsdf(built, args):
+    """X1-X3's rows: every variant (and the reference, from the as-built
+    library) timed on every case, in turns, checked against the
+    reference's outputs."""
+    sets = bsdf_sets(torch.device("cuda"))
+    for label, (s, e) in sets.items():
+        print(f"lane set {label}: {s['wo'].shape[0]} sample lanes, lobe 0 "
+              f"codes -1..4 {torch.bincount(s['desc'].lobe[:, 0] + 1, minlength=6).tolist()}; "
+              f"{e['wo'].shape[0]} eval lanes", flush=True)
+    libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
+    with mock.patch.object(cuda_build, "load",
+                           lambda _name: libs["as built"]):
+        cases = bsdf_cases(sets)
+        want = {key: fn(reference=True) for key, fn in cases.items()}
+    for rnd in range(args.rounds):
+        rows = [("reference", "as built", True)] + [
+            (name, name, False) for name in built]
+        for row, lib_name, ref in rows:
+            with mock.patch.object(cuda_build, "load",
+                                   lambda _name, n=lib_name: libs[n]):
+                same = True
+                times = []
+                for key, fn in cases.items():
+                    ok, share = bsdf_same(key, fn(reference=ref), want[key])
+                    same &= ok
+                    ms = graph_ms(lambda f=fn: f(reference=ref), args.reps)
+                    times.append(f"{key} {ms:.4f}" + (
+                        f" ({share:.3f} bits)" if key.startswith("X3")
+                        and not ref else ""))
+            print(f"round {rnd + 1} {row:26s} " + "  ".join(times)
+                  + f"  same={same}", flush=True)
+            if not same:
+                raise AssertionError(f"variant {row!r} changed a result")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="cluster")
@@ -538,11 +836,14 @@ def main(argv=None):
             sources.values())))
     for name, (_, report) in built.items():
         for kname, regs, frame, st, ld in ptxas_kernels(report):
-            print(f"ptxas {name}: {kname} {regs} registers, stack frame "
-                  f"{frame} B, spill stores {st} B, spill loads {ld} B",
-                  flush=True)
+            print(f"ptxas {name}: {kname}{bsdf_design(kname)} {regs} "
+                  f"registers, stack frame {frame} B, spill stores {st} B, "
+                  f"spill loads {ld} B", flush=True)
     if args.kernel == "bvh":
         _run_bvh(built, args)
+        return
+    if args.kernel == "bsdf":
+        _run_bsdf(built, args)
         return
 
     sets = ray_sets(torch.device("cuda"), np.random.default_rng(0))

@@ -208,3 +208,59 @@ def bsdf_lane_set(kind, n, seed, device="cpu"):
         g_f=t(g.normal(size=(n, 3)).astype(np.float32)),
         g_alpha_i=t(g.normal(size=n).astype(np.float32)),
         g_eta_sampled=t(g.normal(size=n).astype(np.float32)))
+
+
+def bit_share(got, want):
+    """The share of the float32 values in the tensors got that have the
+    bits of the tensors want, paired in order (X3 against its first
+    design)."""
+    return (sum(int((a.view(torch.int32) == b.view(torch.int32)).sum())
+                for a, b in zip(got, want))
+            / sum(a.numel() for a in got))
+
+
+def mid_trace_bsdf(make_session, rounds=8):
+    """The inputs of a path round's three BSDF calls (strategy A's sample,
+    strategy B's eval, the scatter's sample) mid-trace: of the first
+    `rounds` rounds of a per-round render (make_session() -> a
+    RenderSession with per_round=True, stopped there by
+    round_ops.stop_after if it runs longer), the one with the most live
+    lanes in their second or later bounce (the first rounds of a chunk
+    trace its first rows' camera rays: macbeth's are sky).
+    Returns (that round, those lanes, {"sample A": {...}, "eval B": {...},
+    "scatter": {...}}: each call's tensors, copied)."""
+    from . import bsdf_ops, round_ops
+    from .integrators import path
+
+    per_round = []  # (lanes past their first bounce, [calls])
+    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+
+    def copy(t):
+        return t.detach().clone(memory_format=torch.contiguous_format)
+
+    def keep(fn, names, args):
+        per_round[-1][1].append({
+            k: bxdf.BsdfDesc(*map(copy, v)) if k == "desc" else copy(v)
+            for k, v in zip(names, args)})
+        return fn(*args)
+
+    def new_round(bounce, p, *tables):
+        per_round.append((int((p.alive & (bounce >= 1)).sum()), []))
+
+    bsdf_ops.sample_f = lambda *a: keep(real[0], (
+        "desc", "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags"), a)
+    bsdf_ops.eval_f_pdf = lambda *a: keep(real[1], (
+        "desc", "wo", "wi", "use_prime", "eta_outer"), a)
+    make_bounce = round_ops.stop_after(path, "make_bounce", rounds,
+                                       {"rounds": 0}, new_round)
+    try:
+        make_session().render()  # a render of fewer rounds ends itself
+    except round_ops.Done:
+        pass
+    finally:
+        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+        path.make_bounce = make_bounce
+    best = max(range(len(per_round)), key=lambda r: per_round[r][0])
+    lanes, calls = per_round[best]
+    return best + 1, lanes, dict(zip(("sample A", "eval B", "scatter"),
+                                     calls))

@@ -1,8 +1,9 @@
 """nart_tpu_torch/kernel_variants.py without a card: every variant's
-substitutions still find their anchors in csrc/cluster_hit.cu (K1, K2)
-and csrc/bvh_walk.cu (B1), the shipped sources carry none of the
-measuring code, and ptxas' report is read right.  (The variants are built
-and timed on the card only.)
+substitutions still find their anchors in csrc/cluster_hit.cu (K1, K2),
+csrc/bvh_walk.cu (B1) and csrc/bsdf.cu (X1, X3), the shipped sources
+carry none of the measuring code nor the steps measured and not taken,
+ptxas' report is read right, and the BSDF rows' comparison reads bits.
+(The variants are built and timed on the card only.)
 """
 
 import pytest
@@ -43,6 +44,38 @@ def test_bvh_variant_applies_to_the_source(name):
     for _, new in kv.BVH_VARIANTS[name]:
         assert new in text
     assert text.count("{") == text.count("}")
+
+
+def test_bsdf_as_built_is_the_shipped_source():
+    with open(kv.BSDF_SOURCE) as f:
+        shipped = f.read()
+    assert kv.variant_sources("bsdf")["as built"] == shipped
+    for k, v in kv.BSDF_AS_BUILT.items():
+        assert f" {k} = {v};" in shipped
+    assert "Regroup" not in shipped and "kPasses" not in shipped
+
+
+@pytest.mark.parametrize("name", [k for k in kv.BSDF_VARIANTS
+                                  if k != "as built"])
+def test_bsdf_variant_applies_to_the_source(name):
+    sources = kv.variant_sources("bsdf")
+    text = sources[name]
+    assert text != sources["as built"]
+    for _, new in kv.BSDF_VARIANTS[name]:
+        assert new in text
+    assert "first design" in kv.BSDF_VARIANTS
+    assert text.count("{") == text.count("}")
+
+
+def test_bsdf_same_reads_bits():
+    x = torch.tensor([0.0, 1.0, -2.5, 3.0])
+    y = torch.tensor([-0.0, 1.0, -2.5, 3.0000003])
+    flags = torch.tensor([1, 2], dtype=torch.int64)
+    assert kv.bsdf_same("X1 macbeth", (x, flags),
+                        (x.clone(), flags.clone())) == (True, 1.0)
+    assert kv.bsdf_same("X1 macbeth", (x,), (y,)) == (False, 0.0)
+    assert kv.bsdf_same("X3s macbeth", (x,), (y,)) == (True, 0.5)
+    assert not kv.bsdf_same("X3e glossy", (x,), (x + 1e-3,))[0]
 
 
 def test_outdated_anchor_raises(monkeypatch):

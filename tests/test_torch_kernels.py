@@ -30,8 +30,12 @@ for every ray, t_max = 0, and a tree deeper than its stack or packed
 arrays off their alignment refused before any launch.  The BSDF kernels
 (csrc/bsdf.cu) on every lobe kind of testing.BSDF_LOBES: X1 and
 X2 the plain version's bits on every lane, also from a CUDA graph's
-replay, X3 within rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain
-version (wi held fixed) and finite where the plain VJP is not; the
+replay, X1 also its first design's (nart_bsdf_sample_ref), X3 within rtol
+1e-5 / atol 1e-6 of the float64 VJP of the plain version (wi held fixed)
+on every lane of the float32 branches, beside its first design
+(nart_bsdf_f_bwd_ref), and zero on grazing mirror lanes; X1's and X3's
+outputs follow their lanes through a permutation bit for bit, as built
+and with kernel_variants' regrouping of a block's lanes by lobe; the
 Functions of bsdf_ops launch them once a call.
 """
 
@@ -44,7 +48,7 @@ import torch
 from nart_tpu_torch import cluster_accel as ca
 from nart_tpu_torch import cuda_build
 from nart_tpu_torch import select as tsel
-from nart_tpu_torch.testing import BSDF_LOBES, bsdf_lane_set
+from nart_tpu_torch.testing import BSDF_LOBES, bit_share, bsdf_lane_set
 
 pytestmark = pytest.mark.gpu
 
@@ -921,9 +925,10 @@ def test_bsdf_functions_launch_the_kernels(cuda):
 
 
 def test_bsdf_x3_finite_where_the_plain_vjp_is_not(cuda):
-    """Grazing mirror lanes at alpha 1e-4: the plain VJP, which
-    differentiates every lobe kind and selects after, gives NaN
-    (ROADMAP section 3); X3, a lane's own lobes only, zeros."""
+    """Grazing mirror lanes at alpha 1e-4, where the plain VJP, which
+    differentiates every lobe kind and selects after, gave NaN before its
+    lobes were guarded (bxdf._guard; ROADMAP section 3): now it is finite
+    and zero there, and X3, a lane's own lobes only, zeros too."""
     from nart_tpu_torch import bsdf_ops
 
     n = 256
@@ -938,6 +943,128 @@ def test_bsdf_x3_finite_where_the_plain_vjp_is_not(cuda):
                                     x["g_f"])
     x3 = bsdf_ops.f_bwd_cuda("eval", desc, wo, wi, up, x["eta_outer"],
                              x["g_f"])
-    assert not bool(torch.isfinite(plain[5]).all())
+    for a in plain:
+        assert bool(torch.isfinite(a).all())
+    assert not bool(plain[5].any())
     for a in x3:
         assert torch.equal(a, torch.zeros_like(a))
+
+
+def _x3_every_lane(got, f_fwd, ref, f_ref):
+    """X3 against the float64 VJP, finite on every lane: within rtol 1e-5 /
+    atol 1e-6 on every lane whose float64 forward takes the float32
+    forward's branches; returns those lanes' count."""
+    n = f_fwd.shape[0]
+    f32 = f_fwd.double()
+    use = (torch.isclose(f_ref, f32, rtol=1e-3, atol=1e-5)
+           & ((f_ref == 0.0) == (f32 == 0.0))).all(-1)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(b).all())
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.double().reshape(n, -1)[use],
+                                   b.reshape(n, -1)[use], rtol=BSDF_RTOL,
+                                   atol=BSDF_ATOL)
+    return int(use.sum())
+
+
+@pytest.mark.parametrize("kind", sorted(BSDF_LOBES))
+def test_bsdf_redesign_against_first_design(cuda, kind, record_property):
+    """X1 (redesigned: no local memory) has the bits of its first design,
+    nart_bsdf_sample_ref, and of the plain version on every lane; X3
+    (redesigned: one reciprocal a division, FMA derivatives, no local
+    memory) is within rtol 1e-5 / atol 1e-6 of the float64 VJP on
+    every lane of the float32 branches, in both modes; the share of its
+    values with the first design's bits is recorded.  The references count
+    as launches of their own."""
+    from nart_tpu_torch import bsdf_ops
+
+    n = 8192
+    desc, x = _bsdf_set(kind, n, 17 + len(kind), cuda)
+    args = (desc, x["wo"], x["u1"], x["u2"], x["use_prime"], x["eta_outer"],
+            x["prev_flags"])
+    before = dict(cuda_build.launch_counts)
+    got = bsdf_ops.sample_cuda(*args)
+    ref = bsdf_ops.sample_ref_cuda(*args)
+    _same_bits(got, ref)
+    _same_bits(got[:6], bsdf_ops.sample_plain(*args))
+    cots = (x["g_f"], x["g_alpha_i"], x["g_eta_sampled"])
+    bwd = ("sample", desc, x["wo"], got[1], x["use_prime"], x["eta_outer"],
+           *cots)
+    kw = dict(u2=x["u2"], prev_flags=x["prev_flags"], bits=got[6])
+    x3, x3_ref = (bsdf_ops.f_bwd_cuda(*bwd, **kw),
+                  bsdf_ops.f_bwd_ref_cuda(*bwd, **kw))
+    at = (_f64(desc), _f64(x["wo"]), _f64(got[1]), _f64(x["u1"]),
+          _f64(x["u2"]), x["use_prime"], _f64(x["eta_outer"]),
+          x["prev_flags"], got[3])
+    f64_vjp = bsdf_ops.sample_at_bwd_plain(*at, *[_f64(c) for c in cots])
+    assert _x3_every_lane(x3, got[0], f64_vjp,
+                          bsdf_ops.sample_at_plain(*at)[0]) >= 0.99 * n
+    e_args = (desc, x["wo"], x["wi"], x["use_prime"], x["eta_outer"],
+              x["g_f"])
+    e3, e3_ref = (bsdf_ops.f_bwd_cuda("eval", *e_args),
+                  bsdf_ops.f_bwd_ref_cuda("eval", *e_args))
+    at = (_f64(desc), _f64(x["wo"]), _f64(x["wi"]), x["use_prime"],
+          _f64(x["eta_outer"]))
+    assert _x3_every_lane(
+        e3, bsdf_ops.eval_cuda(*e_args[:5])[0],
+        bsdf_ops.eval_bwd_plain(*at, _f64(x["g_f"])),
+        bsdf_ops.eval_plain(*at)[0]) >= 0.99 * n
+    record_property("x3_first_design_bit_share",
+                    (bit_share(x3, x3_ref), bit_share(e3, e3_ref)))
+    grew = {k: cuda_build.launch_counts[k] - before[k]
+            for k in ("bsdf_sample", "bsdf_sample_reference", "bsdf_f_bwd",
+                      "bsdf_f_bwd_reference")}
+    assert grew == {"bsdf_sample": 1, "bsdf_sample_reference": 1,
+                    "bsdf_f_bwd": 2, "bsdf_f_bwd_reference": 2}
+
+
+@pytest.mark.parametrize("variant", ["as built", "1-3"])
+def test_bsdf_outputs_do_not_depend_on_lane_order(cuda, variant,
+                                                  monkeypatch):
+    """Lanes of every BSDF_LOBES kind shuffled together (mixed lobes in
+    every block), and the same lanes permuted again: X1's and X3's (both
+    modes) per-lane outputs are permuted with them, bit for bit, from the
+    kernels as built (one thread a lane) and from kernel_variants' "1-3",
+    whose blocks regroup their lanes by lobe (step 3, measured and not
+    taken: a thread computes its block's lane at its sorted slot), which
+    also keeps the built kernels' bits: no lane's result depends on its
+    position or its block's other lanes."""
+    import ctypes
+
+    from nart_tpu_torch import bsdf_ops, bxdf
+    from nart_tpu_torch import kernel_variants as kv
+
+    parts = [_bsdf_set(k, 1000, i, cuda) for i, k in
+             enumerate(sorted(BSDF_LOBES))]
+    g = torch.Generator().manual_seed(3)
+    order = torch.randperm(1000 * len(parts), generator=g).to(cuda)
+
+    def cat(idx):
+        desc = bxdf.BsdfDesc(*[torch.cat([p[0][f] for p in parts])[idx]
+                               .contiguous() for f in range(8)])
+        return desc, {k: torch.cat([p[1][k] for p in parts])[idx]
+                      .contiguous() for k in parts[0][1]}
+
+    def run(desc, x):
+        s = bsdf_ops.sample_cuda(desc, x["wo"], x["u1"], x["u2"],
+                                 x["use_prime"], x["eta_outer"],
+                                 x["prev_flags"])
+        b = bsdf_ops.f_bwd_cuda(
+            "sample", desc, x["wo"], s[1], x["use_prime"], x["eta_outer"],
+            x["g_f"], x["g_alpha_i"], x["g_eta_sampled"], u2=x["u2"],
+            prev_flags=x["prev_flags"], bits=s[6])
+        e = bsdf_ops.f_bwd_cuda("eval", desc, x["wo"], x["wi"],
+                                x["use_prime"], x["eta_outer"], x["g_f"])
+        return (*s, *b, *e)
+
+    built = run(*cat(order))
+    if variant != "as built":
+        so, _ = kv._build(f"bsdf {variant}",
+                          kv.variant_sources("bsdf")[variant])
+        lib = ctypes.CDLL(so)
+        monkeypatch.setattr(cuda_build, "load", lambda _name: lib)
+    first = run(*cat(order))
+    _same_bits(first, built)
+    perm = torch.randperm(order.numel(), generator=g).to(cuda)
+    again = run(*cat(order[perm]))
+    _same_bits(again, [t[perm] for t in first])
