@@ -50,8 +50,10 @@ Phases (any failure raises and exits non-zero):
      once in every round the card ran (the rounds past the end of the last
      replay, fewer than k, included), one capture for both runs; the
      look-up kernels' forwards launched (the small tables' and the env
-     map's), their backwards never; the BSDF kernels X1 twice and X2 once
-     in every round the card ran, X3 never;
+     map's), their backwards never; the BSDF kernels X1 (the scatter) and
+     the sample+eval launch (strategy A's sample with B's eval, X2's
+     redesign) once each in every round the card ran, X2's first design
+     and X3 never;
      EXR written to a temporary directory and checked finite with a nonzero
      mean; then the counter tool's entry point (kernel_stats.main) on the
      same scene (both walks), its launches counted the same way;
@@ -66,8 +68,9 @@ Phases (any failure raises and exits non-zero):
      than k past the end) and never in the backward (its graph captured no
      launch); the look-up forward (every table) in the forward's graph,
      it and both backwards (small and large tables) in the backward's
-     round graph; X1 twice and X2 once a forward round, X3 only in the
-     backward's round graph.  The timed call once more under
+     round graph; X1 and the sample+eval launch once each a forward round
+     (X2's first design never), in the backward's round graph the same
+     and X3 three times.  The timed call once more under
      torch.profiler: the top device operations and the shares of
      indexing_backward_kernel*, of the look-up kernels, of the sorts and
      of the memsets.  Then the forward queue alone, twice on one kept
@@ -84,8 +87,9 @@ Phases (any failure raises and exits non-zero):
      rendered through the session's kept machines (twice: the first render
      captures) and on the per-round loop (per_round=True): the films, the
      per-pixel RNG states and the stats the same bits, one capture a
-     machine, K1 and K2 launched once and X1 twice and X2 once in every
-     round the card ran (none in the volume); logged for both routes:
+     machine, K1 and K2 launched once and X1 and the sample+eval launch
+     once each in every round the card ran (none in the volume); logged
+     for both routes:
      wall s, device ms (busy share) under torch.profiler, rounds run,
      peak MiB, capture s.  The "regen"
      film equals the "spp" film bit for bit, and both image means are
@@ -192,13 +196,15 @@ Phases (any failure raises and exits non-zero):
      through the session's k-round CUDA graph (twice: the first render
      captures) and on the per-round loop (RenderSession(per_round=True)):
      the films the same bits, equal rays and rounds, one capture, K1/K2
-     launched once per round run, X1 twice and X2 once; logged: each
+     launched once per round run, X1 and the sample+eval launch once
+     each; logged: each
      route's wall s, rounds run and ms a round, peak MiB, capture +
      instantiate s, the card's busy share of the graphed forward under
      torch.profiler (which traces the kernels of a replayed graph one by
      one) and its kernels and copies a round; macbeth's graphed render
      again with the BSDF calls on their plain versions (bsdf_ops'
-     sample_plain and eval_plain, bxdf.py op by op): the same film bits,
+     sample_plain and sample_eval_plain, bxdf.py op by op): the same film
+     bits,
      its kernels and copies a round, the "before" beside the kernels'
      "after"; volume_blob 96x96 @ 32 spp in
      8 chunks of 4: one capture for all, the per-round loop's film; k = 4,
@@ -305,15 +311,20 @@ Phases (any failure raises and exits non-zero):
      another on the card: per-rank rounds, drain-tail rounds, rays and
      device ms, the balance and the drain fraction; the ranks' rays sum to
      a one-process render's;
- 27. the BSDF kernels (csrc/bsdf.cu: X1 nart_bsdf_sample, X2
+ 27. the BSDF kernels (csrc/bsdf.cu: X1 nart_bsdf_sample, the sample+eval
+     launch nart_bsdf_sample_eval (X2's redesign), X2's first design
      nart_bsdf_eval, X3 nart_bsdf_f_bwd) against their plain versions on
      the card: 65,536 lanes of each of tests/test_torch_shading.py's LOBES
-     kinds (from a seed) and the three BSDF calls of a mid-trace round
+     kinds (from a seed) and the two BSDF calls of a mid-trace round
      of macbeth 1280x720 and of simple_glass 512x512 (per-round renders
      of 1 spp: of their first 8 rounds, the one with the most live lanes
-     past their first bounce): X1's and X2's outputs the plain version's
-     bits on every lane, X1's also the bits of its first design
-     (nart_bsdf_sample_ref); X3 (both modes, random cotangents) within
+     past their first bounce; strategy A's sample with strategy B's eval,
+     the scatter's sample): X1's, X2's and the sample+eval launch's
+     outputs the plain version's bits on every lane, X1's also the bits of
+     its first design (nart_bsdf_sample_ref), the sample+eval launch's
+     nine also those of X1 followed by X2 (at the LOBES sets' eval
+     directions and at the rounds' strategy B directions); X3 (both
+     modes, random cotangents) within
      rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain version with wi
      held fixed (bsdf_ops.sample_at_bwd_plain, eval_bwd_plain), which must
      be finite on every lane, on every lane but those whose float64
@@ -326,8 +337,10 @@ Phases (any failure raises and exits non-zero):
      eager calls), the bound (the larger of the bytes over 3.35 TB/s and
      BSDF_OPS's counted operations over the peak rates; library none;
      the bytes what each lane's lobe codes read, bsdf_bytes, beside every
-     input tensor once); X1 and X3 against their first designs in turns
-     (reference, new, new, reference), device ms each.
+     input tensor once); X1 and X3 against their first designs, and the
+     sample+eval launch against X1 then X2 (at 65,536 lanes and at the
+     same lanes four times over, 262,144), in turns (reference, new, new,
+     reference), device ms each.
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -340,12 +353,14 @@ by the plain float32 VJP and by the float64 VJP (leaf_witness): on each
 leaf value where X3 and the plain VJP differ past that tolerance, which
 lies nearer the float64 one.
 The line before the last is the kernels' JSON record (`launches`: a
-traversal kernel's and X1's and X2's in phase 5's forward, a look-up
-kernel's and X3's in phase 6's fwd+bwd, B1's in phase 17's graphed "bvh"
-render; each must be > 0; the BSDF kernels' forward_kernels_a_round:
-phase 21's macbeth count with the BSDF calls' plain versions and with
-the kernels; X1's and X3's reference_ms and turns_ms: their first
-designs' device ms, in phase 27's turns;
+traversal kernel's and X1's and the sample+eval launch's in phase 5's
+forward, a look-up kernel's and X3's in phase 6's fwd+bwd, B1's in phase
+17's graphed "bvh" render; each must be > 0; the BSDF kernels'
+forward_kernels_a_round: phase 21's macbeth count with the BSDF calls'
+plain versions and with the kernels; X1's and X3's reference_ms and
+turns_ms: their first designs' device ms, in phase 27's turns; the
+sample+eval launch's: X1 then X2's, and at 262,144 lanes (_x4), and
+first_design_ms: X2's first design alone;
 launches_modes: phase 8's graphed "regen" and "spp" renders,
 launches_sharded: phases 13-15, launches_bench: phase 18,
 launches_large_mesh: phase 25's counted renders, every kernel's the
@@ -406,14 +421,19 @@ REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             # bsdf_sample_f (with _lobe_sample :566, _vndf_sample :212),
             # bsdf_f with bsdf_pdf, and XLA's autodiff of their f
             "bsdf_sample": "nart_tpu/bxdf.py:618",
-            "bsdf_eval": "nart_tpu/bxdf.py:594, nart_tpu/bxdf.py:602",
+            # X2's redesign: X1's sample and bsdf_f with bsdf_pdf (X2's
+            # first design, nart_bsdf_eval, is now a reference) in one launch
+            "bsdf_sample_eval": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594, "
+                                "nart_tpu/bxdf.py:602",
             "bsdf_f_bwd": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594"}
 KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
 LARGE = ("lut_gather_large_bwd",)  # the kernel of large_lut.cu
-BSDF = ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")  # the kernels of bsdf.cu
-# X1's and X3's first designs (no path launches them)
-BSDF_REF = ("bsdf_sample_reference", "bsdf_f_bwd_reference")
+# the kernels of bsdf.cu a path launches
+BSDF = ("bsdf_sample", "bsdf_sample_eval", "bsdf_f_bwd")
+# X1's, X2's and X3's first designs (no path launches them; X2's,
+# nart_bsdf_eval, is eval_f_pdf's kernel for other callers)
+BSDF_REF = ("bsdf_sample_reference", "bsdf_eval", "bsdf_f_bwd_reference")
 SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
            else BVH_SOURCE if k == "bvh_hit" else BSDF_SOURCE if k in BSDF
            else LUT_SOURCE for k in KERNELS}
@@ -422,7 +442,8 @@ SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
 LUT_NAMES = ("lut_gather_many_kernel", "lut_bwd_many_kernel",
              "lut_partial_kernel", "lut_final_kernel")
 LARGE_NAMES = ("lut_sort_kernel", "lut_seg_kernel", "lut_carry_kernel")
-BSDF_NAMES = ("bsdf_sample_kernel", "bsdf_eval_kernel", "bsdf_f_bwd_kernel")
+BSDF_NAMES = ("bsdf_sample_kernel", "bsdf_sample_eval_kernel",
+              "bsdf_eval_kernel", "bsdf_f_bwd_kernel")
 # torch.sort's kernels (the path round's ray sort, and S2's order of lanes)
 SORT_NAMES = ("RadixSort", "radixSort", "sortKeyValue", "SegmentedSort",
               "bitonicSort")
@@ -1002,16 +1023,19 @@ def check_replay_launches(label, counts, rounds, ran, runner):
     # the small tables' look-ups: the forward kernel in the forward's
     # rounds, both kernels in the backward's round graph (the small-table
     # backward's two-launch reference never)
-    # the BSDF kernels: X1 twice and X2 once a forward round run, and in
-    # the backward's round graph (which re-runs the round) with X3; their
-    # first designs never
+    # the BSDF kernels: X1 (the scatter) and the sample+eval launch
+    # (strategy A and B) once each a forward round run; the backward's
+    # round graph (which re-runs the round) the same and X3 three times (the
+    # scatter's sample, A's sample, B's eval); the first designs, X2's
+    # among them, never
     fwd, back = runner.launches, runner.back_launches
-    if not (counts["bsdf_sample"] == 2 * counts["bsdf_eval"] > 0
-            and fwd.get("bsdf_sample", 0) == 2 * runner.k
-            and fwd.get("bsdf_eval", 0) == runner.k
+    if not (counts["bsdf_sample"] == counts["bsdf_sample_eval"] > 0
+            and fwd.get("bsdf_sample", 0) == runner.k
+            and fwd.get("bsdf_sample_eval", 0) == runner.k
             and not fwd.get("bsdf_f_bwd", 0)
-            and back.get("bsdf_sample", 0) == 2 * back.get("bsdf_eval", 0) > 0
-            and back.get("bsdf_f_bwd", 0) > 0 and counts["bsdf_f_bwd"] > 0
+            and back.get("bsdf_sample", 0) == 1
+            and back.get("bsdf_sample_eval", 0) == 1
+            and back.get("bsdf_f_bwd", 0) == 3 and counts["bsdf_f_bwd"] > 0
             and not any(counts[k] or fwd.get(k, 0) or back.get(k, 0)
                         for k in BSDF_REF)):
         raise AssertionError(
@@ -1419,11 +1443,12 @@ def _no_traversal(label, counts):
 
 
 def check_bsdf_launches(label, counts, rounds_run):
-    """A path forward's BSDF kernels: X1 twice (strategy A, the scatter)
-    and X2 once (strategy B) in every round the card ran, X3 and the first
-    designs never."""
-    want = {"bsdf_sample": 2 * rounds_run, "bsdf_eval": rounds_run,
-            "bsdf_f_bwd": 0, "bsdf_sample_reference": 0,
+    """A path forward's BSDF kernels: X1 (the scatter) and the sample+eval
+    launch (strategy A's sample, strategy B's eval) once each in every
+    round the card ran, X3 and the first designs (X2's among them)
+    never."""
+    want = {"bsdf_sample": rounds_run, "bsdf_sample_eval": rounds_run,
+            "bsdf_eval": 0, "bsdf_f_bwd": 0, "bsdf_sample_reference": 0,
             "bsdf_f_bwd_reference": 0}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"{label}: BSDF launches {counts}, want {want}")
@@ -2687,9 +2712,9 @@ def graphed_rounds():
 
 def plain_bsdf_round(scene, params, film_kernels):
     """Phase 21's macbeth cell with the path round's BSDF calls on their
-    plain versions (bsdf_ops.sample_f and eval_f_pdf replaced by
-    sample_plain and eval_plain: bxdf.py's functions op by op, the route
-    before X1-X3): a graphed render that captures, then one under
+    plain versions (bsdf_ops.sample_f and sample_eval_f replaced by
+    sample_plain and sample_eval_plain: bxdf.py's functions op by op, the
+    route before X1-X3): a graphed render that captures, then one under
     torch.profiler (device_busy, as the cell's).  Its film must be the
     kernels' film_kernels bit for bit.  Returns {"kernels", "rounds_run",
     "kernels_a_round", "device_ms"} of the profiled render."""
@@ -2698,9 +2723,9 @@ def plain_bsdf_round(scene, params, film_kernels):
     from nart_tpu_torch import bsdf_ops, render
 
     label = "macbeth 1280x720 @ 4 spp, plain BSDF calls"
-    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+    real = (bsdf_ops.sample_f, bsdf_ops.sample_eval_f)
     bsdf_ops.sample_f = bsdf_ops.sample_plain
-    bsdf_ops.eval_f_pdf = bsdf_ops.eval_plain
+    bsdf_ops.sample_eval_f = bsdf_ops.sample_eval_plain
     try:
         sess = render.RenderSession(scene, params, DEVICE)
         sess.render()
@@ -2711,7 +2736,7 @@ def plain_bsdf_round(scene, params, film_kernels):
             lambda: films.append(sess.render()), None)
         rounds_run = machine_totals(sess.machines)["rounds_run"] - before
     finally:
-        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+        bsdf_ops.sample_f, bsdf_ops.sample_eval_f = real
     if not torch.equal(films[0], film_kernels):
         raise AssertionError(f"{label}: the film differs from the BSDF "
                              "kernels' film")
@@ -2858,11 +2883,12 @@ def _replay_cell(label, fn, traversal, large):
         if {e["launches"][k] for k in KERNELS[:2]} != {e["rounds"]}:
             raise AssertionError(f"{label}: per-round launches "
                                  f"{e['launches']}")
-        # X1 twice and X2 once a forward round, again where the backward
-        # re-runs a round, X3 in the backward only
-        if not (e["launches"]["bsdf_sample"] == 2 * e["launches"][
-                "bsdf_eval"] and e["launches"]["bsdf_eval"] >= e["rounds"]
-                and e["launches"]["bsdf_f_bwd"] > 0):
+        # X1 and the sample+eval launch once each a forward round, again
+        # where the backward re-runs a round, X3 in the backward only, X2's
+        # first design never
+        e_l = e["launches"]
+        if not (e_l["bsdf_sample"] == e_l["bsdf_sample_eval"] >= e["rounds"]
+                and e_l["bsdf_f_bwd"] > 0 and not e_l["bsdf_eval"]):
             raise AssertionError(f"{label}: per-round BSDF launches "
                                  f"{e['launches']}")
     else:
@@ -3129,8 +3155,8 @@ def leaf_witness():
     macbeth 1280x720 @ 4 spp fwd+bwd (the turns' cell whose leaves move
     with X3).  The same fwd+bwd (its forward the same bits every time)
     with the BSDF calls' backward by X3 and by the plain version's float32
-    autograd VJP (sample_f and eval_f_pdf replaced by bsdf_ops'
-    sample_plain and eval_plain: bxdf.py op by op, the parent's
+    autograd VJP (sample_f and sample_eval_f replaced by bsdf_ops'
+    sample_plain and sample_eval_plain: bxdf.py op by op, the parent's
     arithmetic), each on the kept graphed replay (the turns' route) and on
     the per-round replay, and by the float64 VJP of the plain version
     (_f64_bsdf_functions) on the per-round replay (a backward that runs
@@ -3156,16 +3182,17 @@ def leaf_witness():
     samples = _image_samples(params, DEVICE)
     cot = _rgb_cot(samples)
     theta = grad.get_params(sess.scene)
-    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+    real = (bsdf_ops.sample_f, bsdf_ops.sample_eval_f)
     f64_sample, f64_eval, f64_stats = _f64_bsdf_functions()
     routes = {"x3": real, "plain": (bsdf_ops.sample_plain,
-                                    bsdf_ops.eval_plain),
-              "float64": (f64_sample, f64_eval)}
+                                    bsdf_ops.sample_eval_plain),
+              "float64": (f64_sample,
+                          bsdf_ops.sample_then_eval(f64_sample, f64_eval))}
     runs = {}
     for name, per_round in (("x3", False), ("plain", False), ("x3", True),
                             ("plain", True), ("float64", True)):
         label = f"{name}, {'per-round' if per_round else 'graphed'}"
-        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = routes[name]
+        bsdf_ops.sample_f, bsdf_ops.sample_eval_f = routes[name]
         try:
             machines = {}
             t0 = time.perf_counter()
@@ -3176,7 +3203,7 @@ def leaf_witness():
                         w, h, machines=machines, per_round=per_round))
             torch.cuda.synchronize()
         finally:
-            bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+            bsdf_ops.sample_f, bsdf_ops.sample_eval_f = real
         runs[label] = dict(loss=float(loss), rays=int(rays),
                            rounds=int(rounds_),
                            named={k: g.detach().reshape(-1).double().cpu()
@@ -4438,9 +4465,12 @@ def bsdf_bytes_dense(kernel, n):
     its lobes need, bsdf_bytes)."""
     i64, f32, row3 = 8, 4, 12
     desc = 2 * i64 + i64 + 3 * row3 + 3 * f32  # n_lobes, lobe, rho, scalars
-    if kernel == "bsdf_sample":  # + wo, u1, u2, use_prime, eta_outer, prev
+    if kernel in ("bsdf_sample", "bsdf_sample_eval"):
+        # + wo, u1, u2, use_prime, eta_outer, prev
         ins = desc + row3 + f32 + 2 * f32 + 1 + f32 + i64
         outs = row3 + row3 + f32 + i64 + f32 + f32 + 4  # ..., bits
+        if kernel == "bsdf_sample_eval":  # + wi_b in; f_b, pdf_b out
+            ins, outs = ins + row3, outs + row3 + f32
     elif kernel == "bsdf_eval":  # + wo, wi, use_prime, eta_outer
         ins = desc + 2 * row3 + 1 + f32
         outs = row3 + f32
@@ -4461,6 +4491,8 @@ def bsdf_bytes(kernel, s, x1):
     lobe and of the other where it is mixed in (X1's flags not
     SPECULAR).  X2: n_lobes, the codes, wi where a lobe is not specular,
     the rows of its non-specular lobes (a specular one's f and pdf are 0).
+    The sample+eval launch (s: the sample call's inputs and wi_b): X1's,
+    and X2's at wi_b, each row and code read once (a row either reads).
     X3 ("sample"): X1's lobe bits, the cotangents its lobe reaches, wi,
     u2 and prev_flags where its lobe reads them, and the rows of the
     picked lobe and of the other where X1 added it (a Lambert lobe's
@@ -4487,7 +4519,8 @@ def bsdf_bytes(kernel, s, x1):
         return sum((code == c).long() for c in codes)
 
     every = torch.ones_like(two)
-    if kernel == "bsdf_sample":
+    e0, e1 = evaluated(l0), two & evaluated(l1)
+    if kernel in ("bsdf_sample", "bsdf_sample_eval"):
         idx = (s["u1"] * d.n_lobes.float()).long().clamp(0, 1)
         code = torch.where(idx == 0, l0, l1)
         other = torch.where(idx == 1, l0, l1)
@@ -4500,8 +4533,10 @@ def bsdf_bytes(kernel, s, x1):
                 + 4 * among(code, bxdf.L_SPECDIEL)  # u2
                 + 8 * among(code, bxdf.L_DIELECTRIC, bxdf.L_SPECDIEL)
                 + 48)  # f, wi, pdf, flags, alpha_i, eta_sampled, bits
+        if kernel == "bsdf_sample_eval":  # + wi_b, f_b and pdf_b
+            need = need | rows(l0, e0) | rows(l1, e1)
+            lane = lane + 12 * (e0 | e1).long() + 16
     elif kernel == "bsdf_eval":
-        e0, e1 = evaluated(l0), two & evaluated(l1)
         need = rows(l0, e0) | rows(l1, e1)
         lane = 8 + 8 + 8 * two.long() + 12 * (e0 | e1).long() + 16
     else:
@@ -4522,26 +4557,57 @@ def bsdf_bytes(kernel, s, x1):
 
 def bsdf_ops_ms(kernel, desc):
     """The operations side of a BSDF kernel's bound on these lanes: each
-    lane's BSDF_OPS by its (lobe 0, lobe 1), the float32 ones over
+    lane's BSDF_OPS by its (lobe 0, lobe 1) (the sample+eval launch's:
+    X1's and X2's), the float32 ones over
     PEAK_FLOPS and the float64 ones over PEAK_FLOPS64 (separate pipes: the
     larger).  Returns (ms, float32 ops, float64 ops)."""
     import torch
 
     pairs, counts = torch.unique(desc.lobe, dim=0, return_counts=True)
+    parts = (("bsdf_sample", "bsdf_eval") if kernel == "bsdf_sample_eval"
+             else (kernel,))  # the sample+eval launch: X1's and X2's
     f32 = f64 = 0.0
     for (l0, l1), c in zip(pairs.tolist(), counts.tolist()):
-        a, b = BSDF_OPS[(l0, l1)][kernel]
-        f32, f64 = f32 + a * c, f64 + b * c
+        for part in parts:
+            a, b = BSDF_OPS[(l0, l1)][part]
+            f32, f64 = f32 + a * c, f64 + b * c
     return 1e3 * max(f32 / PEAK_FLOPS, f64 / PEAK_FLOPS64), f32, f64
 
 
+def _bsdf_fused_set(label, s, wi_b):
+    """The sample+eval launch (X2's redesign, nart_bsdf_sample_eval) on a
+    sample call's inputs s and the eval direction wi_b: its nine outputs
+    the bits of X1 (nart_bsdf_sample) followed by X2's first design
+    (nart_bsdf_eval) at wi_b, and its eight float outputs the plain
+    versions' (bsdf_ops.sample_eval_plain), on every lane; returns the
+    largest absolute difference (0)."""
+    from nart_tpu_torch import bsdf_ops
+
+    desc, wo, up, eo = s["desc"], s["wo"], s["use_prime"], s["eta_outer"]
+    args = (s["u1"], s["u2"], up, eo, s["prev_flags"])
+    got = bsdf_ops.sample_eval_cuda(desc, wo, *args, wi_b)
+    names = ("f", "wi", "pdf", "flags", "alpha_i", "eta_sampled", "bits",
+             "f_b", "pdf_b")
+    _bits_equal(f"{label}: sample+eval", names, got,
+                (*bsdf_ops.sample_cuda(desc, wo, *args),
+                 *bsdf_ops.eval_cuda(desc, wo, wi_b, up, eo)),
+                "X1's and X2's first design's (two launches)")
+    return _bits_equal(f"{label}: sample+eval", names[:6] + names[7:],
+                       got[:6] + got[7:],
+                       bsdf_ops.sample_eval_plain(desc, wo, *args, wi_b))
+
+
 def bsdf_checks():
-    """Phase 27: X1-X3 (csrc/bsdf.cu) against their plain versions on the
-    card: 65,536 lanes of each LOBES kind and the three BSDF calls of a
-    mid-trace round of macbeth 1280x720 and simple_glass 512x512
-    (testing.mid_trace_bsdf).  X1's and X2's outputs the plain version's
-    bits on every lane; X3 within BSDF_RTOL / BSDF_ATOL of the float64 VJP
-    of the plain version, wi held fixed (bsdf_ops.sample_at_plain,
+    """Phase 27: X1-X3 and the sample+eval launch (X2's redesign;
+    csrc/bsdf.cu) against their plain versions on the card: 65,536 lanes
+    of each LOBES kind and the two BSDF calls of a mid-trace round of
+    macbeth 1280x720 and simple_glass 512x512 (testing.mid_trace_bsdf:
+    strategy A's sample with strategy B's eval, the scatter's sample).
+    X1's, X2's first design's and the sample+eval launch's outputs the
+    plain version's bits on every lane, the sample+eval launch's also X1's
+    and X2's (at the LOBES sets' eval directions and at the rounds' strategy
+    B directions); X3 within BSDF_RTOL / BSDF_ATOL of the float64 VJP of
+    the plain version, wi held fixed (bsdf_ops.sample_at_plain,
     bxdf.bsdf_f), which must be finite on every lane, on every lane whose
     float64 forward takes the float32 forward's branches (the others
     counted).  X1's outputs are also the bits of its first design
@@ -4550,9 +4616,11 @@ def bsdf_checks():
     distance from the float64 VJP).  Then, at macbeth's mid-trace calls:
     each kernel's and plain version's device ms (the plain VJP's over
     eager calls: stream_ms), ms per call, and the bound (bytes over 3.35
-    TB/s; no PyTorch call computes a BSDF: library none); X1 and X3 against
-    their first designs in turns (reference, new, new, reference), device
-    ms each.  Returns the kernels' records."""
+    TB/s; no PyTorch call computes a BSDF: library none); X1 and X3
+    against their first designs and the sample+eval launch against X1
+    then X2 (the two launches it replaced), in turns (reference, new, new,
+    reference), device ms each, the last also on the round's lanes four
+    times over (262,144).  Returns the kernels' records."""
     import torch
 
     from nart_tpu_torch import (bench, bsdf_ops, cuda_build, render, scene,
@@ -4584,6 +4652,9 @@ def bsdf_checks():
             log(f"    {kind} ({BSDF_LANES} lanes), {mode}: the plain "
                 f"version's bits{also} on every lane; "
                 f"{x3_log(r, share, r_ref)}")
+        _bsdf_fused_set(kind, s, s["wi"])
+        log(f"    {kind} ({BSDF_LANES} lanes), sample+eval: X1's and X2's "
+            "bits and the plain version's on every lane")
     _, glass = bench.bench_scene()
     macbeth = scene.load_scene(MACBETH, asset_root=MACBETH_DIR)
     p_mac = render.load_sessions(MACBETH, {"spp": 1})[0]
@@ -4595,8 +4666,11 @@ def bsdf_checks():
                          ("simple_glass 512x512", glass, p_glass)):
         r, deep, calls = testing.mid_trace_bsdf(
             lambda: render.RenderSession(sc, p, DEVICE, per_round=True))
-        mid[label] = calls
-        for name, s in calls.items():
+        fused = calls["sample A + eval B"]
+        sample_a, eval_b = testing.split_sample_eval(fused)
+        mid[label] = (fused, sample_a, eval_b)
+        for name, s in (("sample A", sample_a), ("eval B", eval_b),
+                        ("scatter", calls["scatter"])):
             at = f"{label}, round {r}, {name}"
             _, x3r, share, r_ref = (_bsdf_eval_set if name == "eval B"
                                     else _bsdf_sample_set)(at, s, rng)
@@ -4607,17 +4681,20 @@ def bsdf_checks():
                 f"their first bounce, lobe 0 codes -1..4: "
                 f"{codes.tolist()}): the plain version's bits{also} on "
                 f"every lane; {x3_log(x3r, share, r_ref)}")
+        _bsdf_fused_set(f"{label}, round {r}", sample_a, fused["wi_b"])
+        log(f"    {label}, round {r}, sample A + eval B in one launch: X1's "
+            "and X2's bits and the plain version's on every lane")
     if any(cuda_build.launch_counts[k] <= 0 for k in BSDF + BSDF_REF):
         raise AssertionError(f"phase 27 launches {cuda_build.launch_counts}")
 
     # times and bounds at macbeth's mid-trace calls (65,536 lanes)
-    calls = mid["macbeth 1280x720"]
-    sa, eb = calls["sample A"], calls["eval B"]
+    fused, sa, eb = mid["macbeth 1280x720"]
     n = sa["wo"].shape[0]
     s_args = (sa["desc"], sa["wo"], sa["u1"], sa["u2"], sa["use_prime"],
               sa["eta_outer"], sa["prev_flags"])
     e_args = (eb["desc"], eb["wo"], eb["wi"], eb["use_prime"],
               eb["eta_outer"])
+    se_args = (*s_args, fused["wi_b"])
     x1 = bsdf_ops.sample_cuda(*s_args)
     cots = [torch.ones(n, 3, device=DEVICE), torch.ones(n, device=DEVICE),
             torch.ones(n, device=DEVICE)]
@@ -4625,31 +4702,33 @@ def bsdf_checks():
     fns = {
         "bsdf_sample": (lambda: bsdf_ops.sample_cuda(*s_args),
                         lambda: bsdf_ops.sample_plain(*s_args), device_ms),
-        "bsdf_eval": (lambda: bsdf_ops.eval_cuda(*e_args),
-                      lambda: bsdf_ops.eval_plain(*e_args), device_ms),
+        "bsdf_sample_eval": (
+            lambda: bsdf_ops.sample_eval_cuda(*se_args),
+            lambda: bsdf_ops.sample_eval_plain(*se_args), device_ms),
         "bsdf_f_bwd": (
             lambda: bsdf_ops.f_bwd_cuda(
                 "sample", sa["desc"], sa["wo"], x1[1], sa["use_prime"],
                 sa["eta_outer"], *cots, **bwd_kw),
             lambda: bsdf_ops.sample_bwd_plain(*s_args, *cots), stream_ms),
     }
+    sets = {"bsdf_sample": sa, "bsdf_sample_eval": fused, "bsdf_f_bwd": sa}
     records = {}
     for k, (kern, plain, plain_timer) in fns.items():
         t = kernel_ms(kern, 20)
         tp = plain_timer(plain, launches=3)
-        nbytes = bsdf_bytes(k, eb if k == "bsdf_eval" else sa, x1)
+        nbytes = bsdf_bytes(k, sets[k], x1)
         dense = bsdf_bytes_dense(k, n)
         bytes_ms = 1e3 * nbytes / PEAK_BYTES
-        ops_ms, f32, f64 = bsdf_ops_ms(
-            k, (eb if k == "bsdf_eval" else sa)["desc"])
+        ops_ms, f32, f64 = bsdf_ops_ms(k, sets[k]["desc"])
         bound = max(bytes_ms, ops_ms)
         side = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"    {k} at macbeth's mid-trace call ({n} lanes): {fmt(t)}; "
             f"plain version {fmt(tp)} ({tp['method']}); library none (no "
             f"PyTorch call computes a BSDF); bound {bound:.6f} ms ({side}; "
             f"bytes {nbytes}: {bytes_ms:.6f} ms (every input tensor once: "
-            f"{dense} B, {1e3 * dense / PEAK_BYTES:.6f} ms), operations "
-            f"{f32:.0f} "
+            f"{dense} B, {1e3 * dense / PEAK_BYTES:.6f} ms, "
+            f"{100e3 * dense / PEAK_BYTES / t['ms']:.2f}% reached), "
+            f"operations {f32:.0f} "
             f"float32 and {f64:.0f} float64: {ops_ms:.6f} ms), "
             f"{100 * bound / t['ms']:.2f}% reached")
         records[k] = dict(
@@ -4660,28 +4739,62 @@ def bsdf_checks():
             ops_f64=f64, lanes=n,
             max_abs_err=errs if k == "bsdf_f_bwd" else 0.0,
             x3_tolerance_ratio=worst if k == "bsdf_f_bwd" else None,
-            shape="macbeth 1280x720, mid-trace, "
-            f"{'strategy B' if k == 'bsdf_eval' else 'strategy A'}")
+            shape="macbeth 1280x720, mid-trace, " + (
+                "strategy A's sample and strategy B's eval"
+                if k == "bsdf_sample_eval" else "strategy A"))
+    # X2's first design alone at strategy B's inputs (eval_f_pdf's kernel)
+    t2 = kernel_ms(lambda: bsdf_ops.eval_cuda(*e_args), 20)
+    log(f"    bsdf_eval (X2's first design) at macbeth's mid-trace call "
+        f"({n} lanes): {fmt(t2)}")
+    records["bsdf_sample_eval"]["first_design_ms"] = t2["ms"]
 
-    # X1 and X3 against their first designs, in turns
+    # X1 and X3 against their first designs, the sample+eval launch against
+    # X1 then X2 (65,536 lanes, and the same lanes four times over), in
+    # turns
     x3_args = ("sample", sa["desc"], sa["wo"], x1[1], sa["use_prime"],
                sa["eta_outer"], *cots)
+    big = testing.tiled(fused, 4)
+    big_s = (big["desc"], big["wo"], big["u1"], big["u2"], big["use_prime"],
+             big["eta_outer"], big["prev_flags"])
+
+    def two_launches(a, wi_b):
+        return (*bsdf_ops.sample_cuda(*a),
+                *bsdf_ops.eval_cuda(a[0], a[1], wi_b, a[4], a[5]))
+
     pairs = {"bsdf_sample": (lambda: bsdf_ops.sample_ref_cuda(*s_args),
-                             lambda: bsdf_ops.sample_cuda(*s_args)),
+                             lambda: bsdf_ops.sample_cuda(*s_args), n),
              "bsdf_f_bwd": (lambda: bsdf_ops.f_bwd_ref_cuda(*x3_args,
                                                             **bwd_kw),
-                            lambda: bsdf_ops.f_bwd_cuda(*x3_args, **bwd_kw))}
-    for k, (ref_fn, new_fn) in pairs.items():
+                            lambda: bsdf_ops.f_bwd_cuda(*x3_args, **bwd_kw),
+                            n),
+             "bsdf_sample_eval": (
+                 lambda: two_launches(s_args, fused["wi_b"]),
+                 lambda: bsdf_ops.sample_eval_cuda(*se_args), n),
+             "bsdf_sample_eval x4": (
+                 lambda: two_launches(big_s, big["wi_b"]),
+                 lambda: bsdf_ops.sample_eval_cuda(*big_s, big["wi_b"]),
+                 4 * n)}
+    for k, (ref_fn, new_fn, lanes) in pairs.items():
         per_call = call_ms(ref_fn, 5)
         ms = {"reference": [], "new": []}
         for turn in ("reference", "new", "new", "reference"):
             fn = ref_fn if turn == "reference" else new_fn
             ms[turn].append(device_ms(fn, launches_for(per_call))["ms"])
         ref_ms = statistics.mean(ms["reference"])
-        log(f"    turns {k}, macbeth's mid-trace call ({n} lanes): "
-            f"reference {ms['reference'][0]:.4f}, new {ms['new'][0]:.4f}, "
-            f"new {ms['new'][1]:.4f}, reference {ms['reference'][1]:.4f} ms; "
-            f"reference / new {ref_ms / statistics.mean(ms['new']):.3f}x")
+        what = (" (reference: X1 then X2's first design, two launches; "
+                "new: the sample+eval launch)" if "eval" in k else "")
+        log(f"    turns {k}, macbeth's mid-trace call ({lanes} lanes)"
+            f"{what}: reference {ms['reference'][0]:.4f}, new "
+            f"{ms['new'][0]:.4f}, new {ms['new'][1]:.4f}, reference "
+            f"{ms['reference'][1]:.4f} ms; reference / new "
+            f"{ref_ms / statistics.mean(ms['new']):.3f}x")
+        if k == "bsdf_sample_eval x4":
+            dense = bsdf_bytes_dense("bsdf_sample_eval", lanes)
+            records["bsdf_sample_eval"].update(
+                lanes_x4=lanes, reference_ms_x4=ref_ms, turns_ms_x4=ms,
+                bytes_dense_x4=dense,  # the same lanes: 4 times the bound
+                bound_ms_x4=4 * records["bsdf_sample_eval"]["bound_ms"])
+            continue
         records[k].update(reference_ms=ref_ms, turns_ms=ms,
                           reference_bound_share=records[k]["bound_ms"]
                           / ref_ms)
@@ -4838,7 +4951,8 @@ def main():
     before, after = mac["plain_bsdf"]["kernels_a_round"], mac["kernels_a_round"]
     log(f"forward kernels and copies a graphed macbeth 1280x720 @ 4 spp "
         f"round (phase 21): {before:.1f} with the BSDF calls' plain "
-        f"versions, {after:.1f} with X1 and X2 ({before / after:.2f}x fewer)")
+        f"versions, {after:.1f} with X1 and the sample+eval launch "
+        f"({before / after:.2f}x fewer)")
     for k in BSDF:
         records[k]["forward_kernels_a_round"] = {"before": before,
                                                  "after": after}

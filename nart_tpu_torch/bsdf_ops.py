@@ -6,29 +6,38 @@ Counterpart of ``nart_tpu/bxdf.py``'s ``bsdf_sample_f``, ``bsdf_f`` and
 masked evaluation of every lobe kind on every lane.  The port's plain
 versions (``bxdf.py``) run that evaluation op by op, ~2,500 small kernels
 a ``bsdf_sample_f``.  On CUDA tensors ``sample_f`` goes through
-``_BsdfSample`` and ``eval_f_pdf`` through ``_BsdfEval``, autograd
-Functions whose forwards are one launch each of csrc/bsdf.cu's
-``nart_bsdf_sample`` (X1) and ``nart_bsdf_eval`` (X2), one thread a lane
-computing only the lane's own lobes, with the plain versions' bits; their
-backwards one launch of
+``_BsdfSample``, ``sample_eval_f`` through ``_BsdfSampleEval`` and
+``eval_f_pdf`` through ``_BsdfEval``, autograd Functions whose forwards
+are one launch each of csrc/bsdf.cu's ``nart_bsdf_sample`` (X1),
+``nart_bsdf_sample_eval`` (X2's redesign: X1's sample and bsdf_f with
+bsdf_pdf at a second direction wi_b of the same lanes, a path round's
+strategy A and B, half of its threads running each) and
+``nart_bsdf_eval`` (X2's first design), a thread computing only its
+lane's own lobes, with the plain versions' bits; their backwards launch
 ``nart_bsdf_f_bwd`` (X3), the vector-Jacobian product of the
-gradient-carrying outputs (f, and for the sample alpha_i and eta_sampled)
-with wi held fixed: per-lane rows of the gradients of rho_d, rho_s, tau,
-eta, alpha0, alpha_prime, wo and eta_outer.  wi, pdf and flags carry no
-gradient (every call site detaches them, as the JAX package's
-stop_gradient sites do), and ``eval_f_pdf`` refuses a wi that requires
+gradient-carrying outputs (f, and for the sample alpha_i and
+eta_sampled) with wi held fixed: per-lane rows of the gradients of
+rho_d, rho_s, tau, eta, alpha0, alpha_prime, wo and
+eta_outer (``sample_eval_f``'s twice, in "sample" and "eval" modes, the
+two summed).  wi, pdf, flags and pdf_b carry no gradient (every call site
+detaches them, as the JAX package's stop_gradient sites do), and
+``eval_f_pdf`` and ``sample_eval_f`` refuse a wi (wi_b) that requires
 grad.  Launches count in ``cuda_build.launch_counts`` as "bsdf_sample",
-"bsdf_eval" and "bsdf_f_bwd" (inside a CUDA graph capture, at every
-replay).  X1's and X3's first designs stay as ``nart_bsdf_sample_ref`` and
+"bsdf_sample_eval", "bsdf_eval" and "bsdf_f_bwd" (inside a CUDA graph
+capture, at every replay).  A path round calls ``sample_eval_f`` and
+``sample_f`` (the scatter); ``eval_f_pdf`` is for other callers and the
+reference the sample+eval launch's eval outputs are held to.  X1's and
+X3's first designs stay as ``nart_bsdf_sample_ref`` and
 ``nart_bsdf_f_bwd_ref`` (``sample_ref_cuda``, ``f_bwd_ref_cuda``, counted
 as "bsdf_sample_reference" and "bsdf_f_bwd_reference"): the references
 the card's checks hold the redesign to; no path launches them.
 
-On CPU tensors ``sample_f`` and ``eval_f_pdf`` call the plain versions
-(``bxdf``'s functions, wi and pdf detached) and autograd differentiates
-them as it does any torch code, so CPU films, losses and gradients are the
-plain functions'.  The Functions are the CUDA route only: there is no
-fallback between the two, a CUDA tensor launches the kernels or raises.
+On CPU tensors ``sample_f``, ``sample_eval_f`` and ``eval_f_pdf`` call the
+plain versions (``bxdf``'s functions, wi and pdf detached) and autograd
+differentiates them as it does any torch code, so CPU films, losses and
+gradients are the plain functions'.  The Functions are the CUDA route
+only: there is no fallback between the two, a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -67,6 +76,27 @@ def eval_f_pdf(desc: bxdf.BsdfDesc, wo, wi, use_prime, eta_outer):
     if not wo.is_cuda:
         return eval_plain(desc, wo, wi, use_prime, eta_outer)
     return _BsdfEval.apply(*desc, wo, wi, use_prime, eta_outer)
+
+
+def sample_eval_f(desc: bxdf.BsdfDesc, wo, u1, u2, use_prime, eta_outer,
+                  prev_flags, wi_b):
+    """sample_f and eval_f_pdf at wi_b of the same lanes in one call: (f,
+    wi, pdf, flags, alpha_i, eta_sampled, f_b, pdf_b), wi, pdf and pdf_b
+    without a gradient.  A wi_b that requires grad, or is not wo's device
+    and shape, is refused.  CUDA tensors go through _BsdfSampleEval (one
+    launch of X2's redesign), CPU tensors through the plain versions."""
+    if wi_b.requires_grad and torch.is_grad_enabled():
+        raise ValueError("sample_eval_f: wi_b must not require grad (the "
+                         "call site detaches it; X3 holds it fixed)")
+    if wi_b.device != wo.device or wi_b.shape != wo.shape:
+        raise ValueError(f"sample_eval_f: wi_b must be a {tuple(wo.shape)} "
+                         f"tensor on {wo.device} (got {tuple(wi_b.shape)} on "
+                         f"{wi_b.device})")
+    if not wo.is_cuda:
+        return sample_eval_plain(desc, wo, u1, u2, use_prime, eta_outer,
+                                 prev_flags, wi_b)
+    return _BsdfSampleEval.apply(*desc, wo, u1, u2, use_prime, eta_outer,
+                                 prev_flags, wi_b)
 
 
 def _diff(desc, wo, eta_outer):
@@ -141,6 +171,50 @@ class _BsdfEval(torch.autograd.Function):
         return (None, None, *g[:7], None, None, g[7])
 
 
+class _BsdfSampleEval(torch.autograd.Function):
+    """sample_f and eval_f_pdf at wi_b on the card: X2's redesign forward
+    (X1's and X2's outputs in one launch), X3 backward twice ("sample" at
+    X1's wi, "eval" at wi_b, as _BsdfSample and _BsdfEval launch it), the
+    two summed input by input."""
+
+    @staticmethod
+    def forward(ctx, n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                alpha_prime, wo, u1, u2, use_prime, eta_outer, prev_flags,
+                wi_b):
+        desc = bxdf.BsdfDesc(n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                             alpha_prime)
+        ctx.set_materialize_grads(False)
+        desc, wo, u1, u2, use_prime, eta_outer, prev_flags, wi_b = (
+            _contiguous(desc, wo, u1, u2, use_prime, eta_outer, prev_flags,
+                        wi_b))
+        f, wi, pdf, flags, alpha_i, eta_s, bits, f_b, pdf_b = (
+            sample_eval_cuda(desc, wo, u1, u2, use_prime, eta_outer,
+                             prev_flags, wi_b))
+        ctx.save_for_backward(*desc, wo, wi, u2, use_prime, eta_outer,
+                              prev_flags, bits, wi_b)
+        ctx.mark_non_differentiable(wi, pdf, flags, pdf_b)
+        return f, wi, pdf, flags, alpha_i, eta_s, f_b, pdf_b
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_f, _g_wi, _g_pdf, _g_flags, g_alpha_i, g_eta_s,
+                 g_f_b, _g_pdf_b):
+        (n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0, alpha_prime, wo, wi,
+         u2, use_prime, eta_outer, prev_flags, bits,
+         wi_b) = ctx.saved_tensors
+        desc = bxdf.BsdfDesc(n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
+                             alpha_prime)
+        g_s = f_bwd_cuda("sample", desc, wo, wi, use_prime, eta_outer,
+                         *_contiguous(g_f, g_alpha_i, g_eta_s), u2=u2,
+                         prev_flags=prev_flags, bits=bits)
+        g_e = f_bwd_cuda("eval", desc, wo, wi_b, use_prime, eta_outer,
+                         *_contiguous(g_f_b))
+        for a, b in zip(g_s, g_e):  # g_s is this call's own: add in place
+            a.add_(b)
+        g = _needed(ctx, 8, 12, g_s)
+        return (None, None, *g[:7], None, None, None, g[7], None, None)
+
+
 def _needed(ctx, wo_at, eta_outer_at, grads):
     """grads with None where the input needs no gradient: the desc's six
     DIFF fields at arguments 2-7 of the Function's apply, wo and eta_outer
@@ -173,6 +247,22 @@ def eval_plain(desc, wo, wi, use_prime, eta_outer):
     """X2's plain version: (bxdf.bsdf_f, bxdf.bsdf_pdf), pdf detached."""
     return (bxdf.bsdf_f(desc, wo, wi, use_prime, eta_outer),
             bxdf.bsdf_pdf(desc, wo, wi, use_prime, eta_outer).detach())
+
+
+def sample_then_eval(sample, evaluate):
+    """A function of sample_eval_f's arguments that makes the two calls it
+    stands for, sample(desc, wo, u1, u2, use_prime, eta_outer, prev_flags)
+    and evaluate(desc, wo, wi_b, use_prime, eta_outer) (sample_f and
+    eval_f_pdf, or their plain versions), and returns their outputs
+    together."""
+    def call(desc, wo, u1, u2, use_prime, eta_outer, prev_flags, wi_b):
+        return (*sample(desc, wo, u1, u2, use_prime, eta_outer, prev_flags),
+                *evaluate(desc, wo, wi_b, use_prime, eta_outer))
+    return call
+
+
+# X2's redesign's plain version: sample_plain, then eval_plain at wi_b
+sample_eval_plain = sample_then_eval(sample_plain, eval_plain)
 
 
 def sample_at_plain(desc, wo, wi, u1, u2, use_prime, eta_outer, prev_flags,
@@ -264,7 +354,7 @@ def _kernel_lib():
     if lib.nart_bsdf_sample.argtypes is None:
         p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in (lib.nart_bsdf_sample, lib.nart_bsdf_sample_ref,
-                   lib.nart_bsdf_eval):
+                   lib.nart_bsdf_eval, lib.nart_bsdf_sample_eval):
             fn.argtypes = [p, p, i64, p]
             fn.restype = ctypes.c_int
         for fn in (lib.nart_bsdf_f_bwd, lib.nart_bsdf_f_bwd_ref):
@@ -286,7 +376,8 @@ def _check(n, **tensors):
             "use_prime": (torch.bool, ()), "eta_outer": (torch.float32, ()),
             "prev_flags": (torch.int64, ()), "bits": (torch.int32, ()),
             "g_f": (torch.float32, (3,)), "g_alpha_i": (torch.float32, ()),
-            "g_eta_sampled": (torch.float32, ())}
+            "g_eta_sampled": (torch.float32, ()),
+            "wi_b": (torch.float32, (3,))}
     device = None
     for name, x in tensors.items():
         if x is None:
@@ -307,7 +398,7 @@ def _check(n, **tensors):
 
 _IN = ("n_lobes", "lobe", "rho_d", "rho_s", "tau", "eta", "alpha0",
        "alpha_prime", "wo", "wi", "u1", "u2", "use_prime", "eta_outer",
-       "prev_flags", "bits", "g_f", "g_alpha_i", "g_eta_sampled")
+       "prev_flags", "bits", "g_f", "g_alpha_i", "g_eta_sampled", "wi_b")
 
 
 def _launch(entry, n, inputs, outs, *extra):
@@ -344,8 +435,16 @@ def sample_ref_cuda(desc, wo, u1, u2, use_prime, eta_outer, prev_flags):
                           desc, wo, u1, u2, use_prime, eta_outer, prev_flags)
 
 
+def sample_eval_cuda(desc, wo, u1, u2, use_prime, eta_outer, prev_flags,
+                     wi_b):
+    """Launch nart_bsdf_sample_eval (X2's redesign): sample_cuda's seven
+    outputs, then bsdf_f and bsdf_pdf at wi_b (f_b (N, 3), pdf_b (N,))."""
+    return _sample_launch("nart_bsdf_sample_eval", "bsdf_sample_eval", desc,
+                          wo, u1, u2, use_prime, eta_outer, prev_flags, wi_b)
+
+
 def _sample_launch(entry, count, desc, wo, u1, u2, use_prime, eta_outer,
-                   prev_flags):
+                   prev_flags, wi_b=None):
     n = wo.shape[0]
     dev = wo.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -354,17 +453,19 @@ def _sample_launch(entry, count, desc, wo, u1, u2, use_prime, eta_outer,
             torch.empty(n, dtype=torch.int64, device=dev),
             torch.empty(n, **f32), torch.empty(n, **f32),
             torch.empty(n, dtype=torch.int32, device=dev))
+    if wi_b is not None:  # the eval outputs at wi_b
+        outs += (torch.empty((n, 3), **f32), torch.empty(n, **f32))
     if n:
         _launch(entry, n,
                 dict(_desc_inputs(desc, wo, use_prime, eta_outer), u1=u1,
-                     u2=u2, prev_flags=prev_flags), outs)
+                     u2=u2, prev_flags=prev_flags, wi_b=wi_b), outs)
         cuda_build.count_launch(count)
     return outs
 
 
 def eval_cuda(desc, wo, wi, use_prime, eta_outer):
-    """Launch nart_bsdf_eval (X2): (f (N, 3), pdf (N,)), bsdf_f and
-    bsdf_pdf of one (wo, wi)."""
+    """Launch nart_bsdf_eval (X2's first design): (f (N, 3), pdf (N,)),
+    bsdf_f and bsdf_pdf of one (wo, wi)."""
     n = wo.shape[0]
     f32 = dict(dtype=torch.float32, device=wo.device)
     outs = (torch.empty((n, 3), **f32), torch.empty(n, **f32))

@@ -6,8 +6,16 @@
 //                       lobe's sample, its eta, the other lobe's f and pdf
 //                       mixed in off the specular path, pdf / n_lobes there;
 //                       also one int32 of lobe bits a lane for X3
-//   * nart_bsdf_eval    (X2) bsdf_f and bsdf_pdf of the same (wo, wi) in one
-//                       launch
+//   * nart_bsdf_sample_eval  (X2, redesigned) X1's sample and bsdf_f with
+//                       bsdf_pdf at a second direction wi_b of the same
+//                       lanes in one launch: a path round's strategy-A
+//                       sample and strategy-B eval (bxdf.py :618, :594,
+//                       :602), X1's and X2's bits
+//   * nart_bsdf_eval    (X2's first design) bsdf_f and bsdf_pdf of one (wo,
+//                       wi) in a launch of its own: the kernel of
+//                       eval_f_pdf, and the reference the sample+eval
+//                       launch's eval outputs are held to; no path launches
+//                       it
 //   * nart_bsdf_f_bwd   (X3) the vector-Jacobian product of X1's f, alpha_i
 //                       and eta_sampled (mode 0) or of X2's f (mode 1) with
 //                       wi held fixed, as every call site detaches wi and
@@ -53,9 +61,11 @@
 // version's bits).
 //
 // What bounds it on an H100: the bytes.  X1 moves 157 bytes a lane (each
-// input read once, each output written once), X2 117, X3 205: at 65,536
-// lanes 2.3-4.0 us at 3.35 TB/s.  A lane's operations take less: at most
-// ~400 float32 ones in X1 and X2, ~1,300-1,600 float64 ones in X3's
+// input read once, each output written once), X2's first design 117, the
+// sample+eval launch 185 (X1's 157, wi_b's 12 in, f_b's and pdf_b's 16
+// out; X1 then X2 in two launches move 274), X3 205: at 65,536 lanes
+// 2.3-4.0 us at 3.35 TB/s.  A lane's operations take less: at most ~400
+// float32 ones in X1 and X2, ~1,300-1,600 float64 ones in X3's
 // duals (counted by a host build with counting scalars:
 // chip_smoke.py's BSDF_OPS).  The first design (Design with both steps
 // off below, the _ref entries) read a lane's table row by a runtime index
@@ -75,6 +85,22 @@
 //      selected member by member on values (pick): a select of two duals'
 //      addresses kept the lane's inputs in local memory.  Stack frame 0 B
 //      in X1, X2 and X3.
+// X2's redesign is a launch, not a step of Design.  X2 alone was a short
+// launch of its own (65,536 lanes are one wave of 512 blocks, ~15 warps an
+// SM, too few to hide a lane's chain of loads, branches, divisions and
+// square roots) right after X1's strategy-A launch on the same lanes.
+// Strategy B's direction depends on no BSDF output, so
+// nart_bsdf_sample_eval takes both in one launch of twice X1's blocks:
+// the first half runs X1's body (sample_lane), the second X2's (eval_lane)
+// at wi_b, the same functions and so the same bits; one launch a round
+// fewer, and twice the warps of a one-wave launch.  A lane's rows are read
+// by two threads (the second read may meet the first in L2).  Measured
+// and not taken (`kernel_variants --kernel bsdf`, the "SE" variants): one
+// thread a lane running X1's body, then X2's on the same loaded lane (each
+// row read once, but a thread's chain twice as long at the same warps an
+// SM: 1.18x X1 then X2 at 65,536 lanes, slower than them at 262,144), and
+// the two bodies in warps of one block (its early warps wait for its
+// late ones).  No shared memory, no atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -852,6 +878,7 @@ struct Args {
   const float* g_f;     // X3: cotangents (null: zero)
   const float* g_alpha_i;
   const float* g_eta_sampled;
+  const float* wi_b;  // (N, 3): the sample+eval launch's eval direction
   // outputs
   float* f;  // (N, 3)
   float* wi_out;
@@ -860,6 +887,8 @@ struct Args {
   float* alpha_i;
   float* eta_sampled;
   int32_t* bits_out;
+  float* f_b;  // (N, 3): the sample+eval launch's eval outputs
+  float* pdf_b;
   float* g_rho[3];  // X3: (N, 3) each
   float* g_eta;
   float* g_alpha0;
@@ -885,35 +914,41 @@ __device__ __forceinline__ Lane<T> load_lane(const Args& a, int64_t i) {
   return L;
 }
 
-// BSDF::Sample_f's lobe pick: the lane's u1 * n_lobes chooses lobe 0 or 1
-__device__ __forceinline__ void pick_lobes(const Args& a, int64_t i,
-                                           int64_t& code, int64_t& other) {
-  float n_f = static_cast<float>(a.n_lobes[i]);
-  int64_t idx = static_cast<int64_t>(a.u1[i] * n_f);
-  idx = idx < 0 ? 0 : idx > 1 ? 1 : idx;
-  int64_t l0 = a.lobe[2 * i], l1 = a.lobe[2 * i + 1];
-  code = idx == 0 ? l0 : l1;
-  other = idx == 1 ? l0 : l1;
+// a lane's lobe count and its two lobe codes
+struct Lobes {
+  int64_t n, l0, l1;
+};
+__device__ __forceinline__ Lobes load_lobes(const Args& a, int64_t i) {
+  return Lobes{a.n_lobes[i], a.lobe[2 * i], a.lobe[2 * i + 1]};
 }
 
+// BSDF::Sample_f's lobe pick: the lane's u1 * n_lobes chooses lobe 0 or 1
+__device__ __forceinline__ void pick_lobes(const Lobes& lb, float u1,
+                                           int64_t& code, int64_t& other) {
+  float n_f = static_cast<float>(lb.n);
+  int64_t idx = static_cast<int64_t>(u1 * n_f);
+  idx = idx < 0 ? 0 : idx > 1 ? 1 : idx;
+  code = idx == 0 ? lb.l0 : lb.l1;
+  other = idx == 1 ? lb.l0 : lb.l1;
+}
+
+// X1's body on a loaded lane: BSDF::Sample_f at (u1, u2, prev_flags), its
+// seven outputs written
 template <class D>
-__global__ void __launch_bounds__(kThreads)
-    bsdf_sample_kernel(const Args a) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (i >= a.n) return;
-  Lane<float> L = load_lane<float>(a, i);
-  int64_t n_lobes = a.n_lobes[i];
-  float n_f = static_cast<float>(n_lobes);
-  float u1 = a.u1[i];
+__device__ __forceinline__ void sample_lane(const Args& a, int64_t i,
+                                            const Lane<float>& L,
+                                            const Lobes& lb, float u1,
+                                            float u2x, float u2y,
+                                            int64_t prev_flags) {
+  float n_f = static_cast<float>(lb.n);
   float u1r = u1 * n_f - floorf(u1 * n_f);  // glm::fract
   int64_t code, other;
-  pick_lobes(a, i, code, other);
+  pick_lobes(lb, u1, code, other);
 
-  Sample s = lobe_sample(L, code, u1r, a.u2[2 * i], a.u2[2 * i + 1],
-                         a.prev_flags[i]);
+  Sample s = lobe_sample(L, code, u1r, u2x, u2y, prev_flags);
   // mix in the other lobe when the sampled flags are not SPECULAR
   bool non_spec = (s.flags & SPECULAR) == 0;
-  bool mix = non_spec && n_lobes >= 2 && other != L_SPECULAR && other != 4;
+  bool mix = non_spec && lb.n >= 2 && other != L_SPECULAR && other != 4;
   float p_other = mix ? lobe_pdf(L, other, s.wi) : 0.0f;
   bool add = mix && p_other > 0.0f;
   LobeF<float> fo = add ? lobe_f(L, other, s.wi) : lf_zero<float>();
@@ -934,24 +969,64 @@ __global__ void __launch_bounds__(kThreads)
   a.bits_out[i] = pack_bits(code, other, add);
 }
 
+// X2's body on a loaded lane: bsdf_f and bsdf_pdf at wi, written to f (3
+// values) and pdf
+template <class D>
+__device__ __forceinline__ void eval_lane(const Lane<float>& L,
+                                          const Lobes& lb,
+                                          const V3<float>& wi, float* f,
+                                          float* pdf) {
+  bool two = lb.n >= 2;
+  LobeF<float> f0 = lobe_f(L, lb.l0, wi);
+  LobeF<float> f1 = two ? lobe_f(L, lb.l1, wi) : lf_zero<float>();
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    f[c] = f_value<D>(L, f0, c) + (two ? f_value<D>(L, f1, c) : 0.0f);
+  float p = lobe_pdf(L, lb.l0, wi);
+  p = p + (two ? lobe_pdf(L, lb.l1, wi) : 0.0f);
+  *pdf = p / static_cast<float>(lb.n);
+}
+
+template <class D>
+__global__ void __launch_bounds__(kThreads)
+    bsdf_sample_kernel(const Args a) {
+  int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (i >= a.n) return;
+  Lane<float> L = load_lane<float>(a, i);
+  sample_lane<D>(a, i, L, load_lobes(a, i), a.u1[i], a.u2[2 * i],
+                 a.u2[2 * i + 1], a.prev_flags[i]);
+}
+
 template <class D>
 __global__ void __launch_bounds__(kThreads) bsdf_eval_kernel(const Args a) {
   int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (i >= a.n) return;
   Lane<float> L = load_lane<float>(a, i);
-  int64_t n_lobes = a.n_lobes[i];
-  int64_t l0 = a.lobe[2 * i], l1 = a.lobe[2 * i + 1];
   V3<float> wi{a.wi[3 * i], a.wi[3 * i + 1], a.wi[3 * i + 2]};
-  bool two = n_lobes >= 2;
-  LobeF<float> f0 = lobe_f(L, l0, wi);
-  LobeF<float> f1 = two ? lobe_f(L, l1, wi) : lf_zero<float>();
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    a.f[3 * i + c] =
-        f_value<D>(L, f0, c) + (two ? f_value<D>(L, f1, c) : 0.0f);
-  float p = lobe_pdf(L, l0, wi);
-  p = p + (two ? lobe_pdf(L, l1, wi) : 0.0f);
-  a.pdf[i] = p / static_cast<float>(n_lobes);
+  eval_lane<D>(L, load_lobes(a, i), wi, a.f + 3 * i, a.pdf + i);
+}
+
+// X2's redesign: one launch of twice X1's blocks.  The first half of the
+// blocks runs X1's body on lanes 0..n-1, the second half X2's body at wi_b
+// on the same lanes (a block runs one body, so the two never diverge in a
+// warp).  A thread loads its lane's inputs before its first store.
+template <class D>
+__global__ void __launch_bounds__(kThreads)
+    bsdf_sample_eval_kernel(const Args a) {
+  const int64_t half = (a.n + kThreads - 1) / kThreads * kThreads;
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  const bool eval = t >= half;  // the same in a block
+  const int64_t i = eval ? t - half : t;
+  if (i >= a.n) return;
+  const Lane<float> L = load_lane<float>(a, i);
+  const Lobes lb = load_lobes(a, i);
+  if (eval) {
+    const V3<float> wi_b{a.wi_b[3 * i], a.wi_b[3 * i + 1], a.wi_b[3 * i + 2]};
+    eval_lane<D>(L, lb, wi_b, a.f_b + 3 * i, a.pdf_b + i);
+  } else {
+    sample_lane<D>(a, i, L, lb, a.u1[i], a.u2[2 * i], a.u2[2 * i + 1],
+                   a.prev_flags[i]);
+  }
 }
 
 // The rows' gradients: the first design adds g[c] * s to g_rho[table][c]
@@ -1092,7 +1167,7 @@ __global__ void __launch_bounds__(kThreads) bsdf_f_bwd_kernel(const Args a) {
 
 // in[] order of every entry: n_lobes, lobe, rho_d, rho_s, tau, eta, alpha0,
 // alpha_prime, wo, wi, u1, u2, use_prime, eta_outer, prev_flags, bits, g_f,
-// g_alpha_i, g_eta_sampled (an entry's unused inputs may be null)
+// g_alpha_i, g_eta_sampled, wi_b (an entry's unused inputs may be null)
 Args args_in(const void* const* in, int64_t n) {
   Args a = {};
   a.n_lobes = static_cast<const int64_t*>(in[0]);
@@ -1114,6 +1189,7 @@ Args args_in(const void* const* in, int64_t n) {
   a.g_f = static_cast<const float*>(in[16]);
   a.g_alpha_i = static_cast<const float*>(in[17]);
   a.g_eta_sampled = static_cast<const float*>(in[18]);
+  a.wi_b = static_cast<const float*>(in[19]);
   a.n = n;
   return a;
 }
@@ -1122,9 +1198,8 @@ unsigned blocks(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-template <class D>
-int launch_sample(const void* const* in, void* const* out, int64_t n,
-                  void* stream) {
+// X1's seven outputs, out[0..6]
+Args sample_args(const void* const* in, void* const* out, int64_t n) {
   Args a = args_in(in, n);
   a.f = static_cast<float*>(out[0]);
   a.wi_out = static_cast<float*>(out[1]);
@@ -1133,8 +1208,15 @@ int launch_sample(const void* const* in, void* const* out, int64_t n,
   a.alpha_i = static_cast<float*>(out[4]);
   a.eta_sampled = static_cast<float*>(out[5]);
   a.bits_out = static_cast<int32_t*>(out[6]);
+  return a;
+}
+
+template <class D>
+int launch_sample(const void* const* in, void* const* out, int64_t n,
+                  void* stream) {
   bsdf_sample_kernel<D><<<blocks(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+                          static_cast<cudaStream_t>(stream)>>>(
+      sample_args(in, out, n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1172,7 +1254,8 @@ int nart_bsdf_sample_ref(const void* const* in, void* const* out, int64_t n,
   return launch_sample<FirstDesign>(in, out, n, stream);
 }
 
-// X2. out: f, pdf
+// X2's first design, the kernel of eval_f_pdf (no path launches it).
+// out: f, pdf
 int nart_bsdf_eval(const void* const* in, void* const* out, int64_t n,
                    void* stream) {
   Args a = args_in(in, n);
@@ -1180,6 +1263,18 @@ int nart_bsdf_eval(const void* const* in, void* const* out, int64_t n,
   a.pdf = static_cast<float*>(out[1]);
   bsdf_eval_kernel<Redesign><<<blocks(n), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X2's redesign: X1 and X2 (at wi_b) in one launch.  out: X1's seven
+// (f, wi, pdf, flags, alpha_i, eta_sampled, bits), then X2's f_b, pdf_b
+int nart_bsdf_sample_eval(const void* const* in, void* const* out, int64_t n,
+                          void* stream) {
+  Args a = sample_args(in, out, n);
+  a.f_b = static_cast<float*>(out[7]);
+  a.pdf_b = static_cast<float*>(out[8]);
+  bsdf_sample_eval_kernel<Redesign><<<2 * blocks(n), kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

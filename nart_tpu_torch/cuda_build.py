@@ -16,9 +16,9 @@ the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py), the LBVH
 walk of csrc/bvh_walk.cu (bvh.py: "bvh_hit", its closest-hit and any-hit
 entries alike), the look-up kernels of csrc/small_lut.cu and
 csrc/large_lut.cu (select.py) and the BSDF kernels of csrc/bsdf.cu
-(bsdf_ops.py: "bsdf_sample", "bsdf_eval", "bsdf_f_bwd"; X1's and X3's first
-designs, the references, "bsdf_sample_reference" and
-"bsdf_f_bwd_reference").
+(bsdf_ops.py: "bsdf_sample", "bsdf_sample_eval", "bsdf_eval",
+"bsdf_f_bwd"; X1's and X3's first designs, the references,
+"bsdf_sample_reference" and "bsdf_f_bwd_reference").
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
                  "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
                  "bvh_hit": 0, "bvh_hit_reference": 0, "bsdf_sample": 0,
-                 "bsdf_eval": 0, "bsdf_f_bwd": 0, "bsdf_sample_reference": 0,
-                 "bsdf_f_bwd_reference": 0}
+                 "bsdf_sample_eval": 0, "bsdf_eval": 0, "bsdf_f_bwd": 0,
+                 "bsdf_sample_reference": 0, "bsdf_f_bwd_reference": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

@@ -466,14 +466,6 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None,
         ua_x, st8 = rng.masked_next_float(st8, m_valid)
         ua_y, st8 = rng.masked_next_float(st8, m_valid)
         ua_l, st8 = rng.masked_next_float(st8, m_valid)
-        fA, wiA, pdfA, dflags, _, _ = bsdf_ops.sample_f(
-            desc, wo, ua_l, torch.stack([ua_x, ua_y], -1), ones_b, eta_outer,
-            torch.zeros(n, dtype=torch.int64, device=dev))
-        wiA, pdfA = det(wiA), det(pdfA)
-        wiA_world = det(bxdf.to_world(frame, wiA))
-        liA, light_pdf_A, tA = _select_light_eval(
-            lights, light_part, light_idx, surf.p, wiA_world)
-        light_pdf_A = det(light_pdf_A)
         # draw sites 5-6: strategy B light sample
         ub_x, st8 = rng.masked_next_float(st8, m_valid)
         ub_y, st8 = rng.masked_next_float(st8, m_valid)
@@ -482,10 +474,18 @@ def make_bounce(scene, accel, params, differentiable=False, queries=None,
             torch.stack([ub_x, ub_y], -1))
         wiB_world, light_pdf_B = det(wiB_world), det(light_pdf_B)
         wiB = det(bxdf.to_local(frame, wiB_world))
-        # strategy B's bsdf terms do not depend on occlusion: evaluated
-        # before the shadow query so provably-zero lanes never trace
-        fB, pdfB = bsdf_ops.eval_f_pdf(desc, wo, wiB, ones_b, eta_outer)
-        pdfB = det(pdfB)
+        # strategy A's bsdf sample and strategy B's bsdf eval in one call
+        # (one launch on the card): wiB depends on no bsdf output.  B's
+        # terms do not depend on occlusion: evaluated before the shadow
+        # query so provably-zero lanes never trace
+        fA, wiA, pdfA, dflags, _, _, fB, pdfB = bsdf_ops.sample_eval_f(
+            desc, wo, ua_l, torch.stack([ua_x, ua_y], -1), ones_b, eta_outer,
+            torch.zeros(n, dtype=torch.int64, device=dev), wiB)
+        wiA, pdfA, pdfB = det(wiA), det(pdfA), det(pdfB)
+        wiA_world = det(bxdf.to_world(frame, wiA))
+        liA, light_pdf_A, tA = _select_light_eval(
+            lights, light_part, light_idx, surf.p, wiA_world)
+        light_pdf_A = det(light_pdf_A)
 
         # one batched shadow query for both strategies; lanes that cannot
         # contribute are parked with t_max = 0

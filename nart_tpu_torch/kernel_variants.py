@@ -1,5 +1,5 @@
 """Development tool: what each design choice of csrc/cluster_hit.cu (K1,
-K2), csrc/bvh_walk.cu (B1) or csrc/bsdf.cu (X1, X3) buys.
+K2), csrc/bvh_walk.cu (B1) or csrc/bsdf.cu (X1-X3) buys.
 
     python -m nart_tpu_torch.kernel_variants [--rounds 3] [--reps 20]
     python -m nart_tpu_torch.kernel_variants --kernel bvh [--rounds 3]
@@ -57,16 +57,24 @@ steps 1 and 2) and two steps that were measured and not taken (3, lanes
 regrouped by lobe in a block; 4, X3's directions in two passes or its
 blocks an SM), each by text substitution: every step off (the first
 design), each step alone, steps 1-2 (as built) with each form of step 4,
-steps 1-3, and steps 1-4 together.  Its rows time X1, X2
-and X3 (both modes) on two lane sets, phase 27's macbeth mid-trace round
-(``testing.mid_trace_bsdf``, 1280x720 @ 1: strategy A's sample and
-strategy B's eval) and 65,536 lanes of one kind (``testing.bsdf_lane_set``,
-"glossy": one lobe, so regrouping has nothing to regroup), on the device
-(calls captured into one CUDA graph) beside the reference entries
-(nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref) in every round; X1's and X2's
-outputs must be the reference's bits, X3's within rtol 1e-5 / atol 1e-6 of
-the reference's (their share of equal bits printed).  Needs a CUDA device
-and nvcc.
+steps 1-3, and steps 1-4 together; and the sample+eval launch in the
+shapes measured and not taken (``SE_VARIANTS``: one thread a lane running
+X1's body then X2's on the same loaded lane, that with the bodies the
+other way round or capped at nine blocks an SM, and the two bodies in
+the warps of one block).  Its rows time X1, X2's first design
+(nart_bsdf_eval), X3 (both modes) and the sample+eval launch (X2's
+redesign, nart_bsdf_sample_eval: "SE") on two lane sets, phase 27's
+macbeth mid-trace round (``testing.mid_trace_bsdf``, 1280x720 @ 1:
+strategy A's sample and strategy B's eval), 65,536 lanes of one kind
+(``testing.bsdf_lane_set``, "glossy": one lobe, so regrouping has nothing
+to regroup) and macbeth's round four times over (262,144 lanes), on the
+device (calls captured into one CUDA graph) beside the
+reference entries (nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref; for "SE", X1
+then X2 as built, the two launches it replaces: the "X1 + X2" against
+"sample+eval" reading, in turns round by round) in every round; X1's, X2's
+and SE's outputs must be the reference's bits, X3's within rtol 1e-5 /
+atol 1e-6 of the reference's (their share of equal bits printed).  Needs
+a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -407,7 +415,7 @@ _BSDF_REGROUP_X1 = """  {
     int key = kKeys - 1;
     if (i < a.n) {
       int64_t code, other;
-      pick_lobes(a, i, code, other);
+      pick_lobes(load_lobes(a, i), a.u1[i], code, other);
       key = lobe_key(code, other);
     }
     i = regroup(s, i - threadIdx.x, key);
@@ -458,6 +466,70 @@ _BSDF_TWO_PASSES = """  RowGrads<D> rg;
 _BSDF_BWD_BOUNDS = ("__global__ void __launch_bounds__(kThreads) "
                     "bsdf_f_bwd_kernel(const Args a) {")
 
+# the sample+eval launch (X2's redesign) in other shapes, measured and not
+# taken: its kernel's head and its two-threads-a-lane body as built, and
+# its launch
+_SE_HEAD = ("__global__ void __launch_bounds__(kThreads)\n"
+            "    bsdf_sample_eval_kernel(const Args a) {\n")
+_SE_TWO_THREADS = """  const int64_t half = (a.n + kThreads - 1) / kThreads * kThreads;
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  const bool eval = t >= half;  // the same in a block
+  const int64_t i = eval ? t - half : t;
+  if (i >= a.n) return;
+  const Lane<float> L = load_lane<float>(a, i);
+  const Lobes lb = load_lobes(a, i);
+  if (eval) {
+    const V3<float> wi_b{a.wi_b[3 * i], a.wi_b[3 * i + 1], a.wi_b[3 * i + 2]};
+    eval_lane<D>(L, lb, wi_b, a.f_b + 3 * i, a.pdf_b + i);
+  } else {
+    sample_lane<D>(a, i, L, lb, a.u1[i], a.u2[2 * i], a.u2[2 * i + 1],
+                   a.prev_flags[i]);
+  }
+}
+"""
+_SE_LAUNCH = "bsdf_sample_eval_kernel<Redesign><<<2 * blocks(n), kThreads, 0,"
+# one thread a lane: X1's body, then X2's at wi_b on the same loaded lane
+# (each row read once, a thread's chain twice as long)
+_SE_ONE_THREAD = """  int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (i >= a.n) return;
+  const Lane<float> L = load_lane<float>(a, i);
+  const Lobes lb = load_lobes(a, i);
+  const float u1 = a.u1[i], u2x = a.u2[2 * i], u2y = a.u2[2 * i + 1];
+  const int64_t prev_flags = a.prev_flags[i];
+  const V3<float> wi_b{a.wi_b[3 * i], a.wi_b[3 * i + 1], a.wi_b[3 * i + 2]};
+"""
+_SE_BODIES = ["  sample_lane<D>(a, i, L, lb, u1, u2x, u2y, prev_flags);\n",
+              "  eval_lane<D>(L, lb, wi_b, a.f_b + 3 * i, a.pdf_b + i);\n"]
+
+
+def _se_one_thread(eval_first=False, blocks=None):
+    """The one-thread-a-lane kernel's substitutions: its bodies in either
+    order, its blocks an SM for __launch_bounds__."""
+    head = (_SE_HEAD if blocks is None else
+            _SE_HEAD.replace("(kThreads)", f"(kThreads, {blocks})"))
+    bodies = _SE_BODIES[::-1] if eval_first else _SE_BODIES
+    return [(_SE_HEAD + _SE_TWO_THREADS,
+             head + _SE_ONE_THREAD + "".join(bodies) + "}\n"),
+            (_SE_LAUNCH, _SE_LAUNCH.replace("2 * blocks(n)", "blocks(n)"))]
+
+
+# two threads a lane in one block: its first two warps sample its 64
+# lanes, its last two evaluate them
+_SE_SAME_BLOCK_HEAD = """  constexpr int kLanes = kThreads / 2;
+  const bool eval = threadIdx.x >= kLanes;  // the same in a warp
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kLanes) +
+                    (eval ? threadIdx.x - kLanes : threadIdx.x);
+"""
+SE_VARIANTS = {
+    "SE one thread a lane": _se_one_thread(),
+    "SE one thread, eval first": _se_one_thread(eval_first=True),
+    "SE one thread, nine blocks": _se_one_thread(blocks=9),
+    "SE two warps a role": [
+        ("".join(_SE_TWO_THREADS.splitlines(keepends=True)[:4]),
+         _SE_SAME_BLOCK_HEAD),
+        (_SE_LAUNCH, _SE_LAUNCH.replace("2 * blocks(n)", "blocks(2 * n)"))],
+}
+
 
 def _bsdf_steps(rcp=True, rows=True, regroup=(), split=False, blocks=1):
     """The substitutions of one variant of csrc/bsdf.cu: steps 1 (rcp) and
@@ -498,6 +570,7 @@ BSDF_VARIANTS = {
     "1-3": _bsdf_steps(regroup=("X1", "X3")),
     "1-4 (split, three blocks)": _bsdf_steps(regroup=("X1", "X3"),
                                              split=True, blocks=3),
+    **SE_VARIANTS,
 }
 KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS),
            "bsdf": (BSDF_SOURCE, BSDF_VARIANTS)}
@@ -505,7 +578,7 @@ KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS),
 
 def variant_sources(kernel="cluster") -> dict:
     """{variant: its source text} of a kernel's source ("cluster" or
-    "bvh"), each substitution applied exactly once."""
+    "bvh" or "bsdf"), each substitution applied exactly once."""
     source, variants = KERNELS[kernel]
     with open(source) as f:
         base = f.read()
@@ -707,10 +780,12 @@ def _run_bvh(built, args):
 
 def bsdf_sets(dev, seed=0):
     """X1-X3's lane sets: {"macbeth": phase 27's mid-trace round of macbeth
-    1280x720 @ 1 (its strategy A sample call and strategy B eval call),
+    1280x720 @ 1 (its strategy A sample and strategy B eval, one
+    sample_eval_f call, as the two calls they stand for),
     "glossy": 65,536 lanes of testing.bsdf_lane_set's "glossy" (the sample
-    call's inputs, and the eval call's on the same lanes)}: each (sample
-    inputs, eval inputs), dicts of tensors on dev."""
+    call's inputs, and the eval call's on the same lanes), "macbeth x4":
+    macbeth's lanes four times over (262,144: four waves of X1)}: each
+    (sample inputs, eval inputs), dicts of tensors on dev."""
     from . import render
 
     sc = load_scene(DEFAULT_SCENE)
@@ -718,16 +793,22 @@ def bsdf_sets(dev, seed=0):
     _, _, calls = testing.mid_trace_bsdf(
         lambda: render.RenderSession(sc, params, dev, per_round=True))
     glossy = testing.bsdf_lane_set("glossy", 65536, seed, dev)
-    return {"macbeth": (calls["sample A"], calls["eval B"]),
-            "glossy": (glossy, glossy)}
+    fused = calls["sample A + eval B"]
+    return {"macbeth": testing.split_sample_eval(fused),
+            "glossy": (glossy, glossy),
+            "macbeth x4": testing.split_sample_eval(testing.tiled(fused, 4))}
 
 
 def bsdf_cases(sets, seed=0):
-    """{"kernel set": a call of X1, X2 or X3 ("sample" or "eval" mode)
-    through its bsdf_ops wrapper on a set of bsdf_sets} (reference=True:
-    X1's and X3's first designs; X2 has none and runs as built): each
-    returns a tuple of output tensors.  X3's "sample" mode takes the
-    reference X1's wi and bits, its cotangents are normals from seed."""
+    """{"kernel set": a call of X1, X2 (its first design, nart_bsdf_eval),
+    X3 ("sample" or "eval" mode) or the sample+eval launch (X2's redesign,
+    "SE") through its bsdf_ops wrapper on a set of bsdf_sets}
+    (reference=True: X1's and X3's first designs; X2's first design has no
+    other and runs as built; for "SE", X1 then X2 as built, the two
+    launches it replaces): each returns a tuple of output tensors.  X3's
+    "sample" mode takes the reference X1's wi and bits, its cotangents are
+    normals from seed.  "SE" evaluates at the set's eval direction (the
+    same lanes' wi_b on macbeth)."""
     rng = np.random.default_rng(seed)
     cases = {}
     for label, (s, e) in sets.items():
@@ -762,16 +843,24 @@ def bsdf_cases(sets, seed=0):
             return (bsdf_ops.f_bwd_ref_cuda if reference
                     else bsdf_ops.f_bwd_cuda)("eval", *a, g)
 
+        def se_call(reference=False, a=args, w=e["wi"]):
+            if reference:
+                return (*bsdf_ops.sample_cuda(*a),
+                        *bsdf_ops.eval_cuda(a[0], a[1], w, a[4], a[5]))
+            return bsdf_ops.sample_eval_cuda(*a, w)
+
         cases[f"X1 {label}"] = x1_call
         cases[f"X2 {label}"] = x2_call
         cases[f"X3s {label}"] = x3s_call
         cases[f"X3e {label}"] = x3e_call
+        cases[f"SE {label}"] = se_call
     return cases
 
 
 def bsdf_same(key, got, want):
-    """(outputs within the rule, share of equal bits): X1 and X2 the
-    reference's bits, X3 within rtol 1e-5 / atol 1e-6 of the reference's."""
+    """(outputs within the rule, share of equal bits): X1, X2 and the
+    sample+eval launch the reference's bits, X3 within rtol 1e-5 / atol
+    1e-6 of the reference's."""
     if key.startswith("X3"):
         return all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
                    for a, b in zip(got, want)), testing.bit_share(got, want)

@@ -15,8 +15,9 @@ counted against the call that the round function made: its line in
 integrators/path.py or integrators/volume.py and the function called
 there (or the operation, where the round function dispatched it itself).
 On the card the BSDF calls dispatch only their wrappers' few operations
-and one launch of X1 or X2 each (csrc/bsdf.cu; the launches of the port's
-kernels are printed from cuda_build.launch_counts); on the CPU they run
+and one launch each (csrc/bsdf.cu: the sample+eval launch and X1; the
+launches of the port's kernels are printed from
+cuda_build.launch_counts); on the CPU they run
 the plain versions, the parent's ~2,500 operations a sample.  A count is
 of dispatched operations (views and allocations included), not of device
 kernels: chip_smoke.py's phase 21 counts those.

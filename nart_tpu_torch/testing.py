@@ -220,20 +220,23 @@ def bit_share(got, want):
 
 
 def mid_trace_bsdf(make_session, rounds=8):
-    """The inputs of a path round's three BSDF calls (strategy A's sample,
-    strategy B's eval, the scatter's sample) mid-trace: of the first
+    """The inputs of a path round's two BSDF calls (strategy A's sample
+    with strategy B's eval, the scatter's sample) mid-trace: of the first
     `rounds` rounds of a per-round render (make_session() -> a
     RenderSession with per_round=True, stopped there by
     round_ops.stop_after if it runs longer), the one with the most live
     lanes in their second or later bounce (the first rounds of a chunk
     trace its first rows' camera rays: macbeth's are sky).
-    Returns (that round, those lanes, {"sample A": {...}, "eval B": {...},
-    "scatter": {...}}: each call's tensors, copied)."""
+    Returns (that round, those lanes, {"sample A + eval B": {...},
+    "scatter": {...}}: each call's tensors, copied; split_sample_eval
+    gives the first's sample and eval calls)."""
     from . import bsdf_ops, round_ops
     from .integrators import path
 
     per_round = []  # (lanes past their first bounce, [calls])
-    real = (bsdf_ops.sample_f, bsdf_ops.eval_f_pdf)
+    real = (bsdf_ops.sample_f, bsdf_ops.sample_eval_f)
+    sample = ("desc", "wo", "u1", "u2", "use_prime", "eta_outer",
+              "prev_flags")
 
     def copy(t):
         return t.detach().clone(memory_format=torch.contiguous_format)
@@ -247,10 +250,8 @@ def mid_trace_bsdf(make_session, rounds=8):
     def new_round(bounce, p, *tables):
         per_round.append((int((p.alive & (bounce >= 1)).sum()), []))
 
-    bsdf_ops.sample_f = lambda *a: keep(real[0], (
-        "desc", "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags"), a)
-    bsdf_ops.eval_f_pdf = lambda *a: keep(real[1], (
-        "desc", "wo", "wi", "use_prime", "eta_outer"), a)
+    bsdf_ops.sample_f = lambda *a: keep(real[0], sample, a)
+    bsdf_ops.sample_eval_f = lambda *a: keep(real[1], sample + ("wi_b",), a)
     make_bounce = round_ops.stop_after(path, "make_bounce", rounds,
                                        {"rounds": 0}, new_round)
     try:
@@ -258,9 +259,28 @@ def mid_trace_bsdf(make_session, rounds=8):
     except round_ops.Done:
         pass
     finally:
-        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf = real
+        bsdf_ops.sample_f, bsdf_ops.sample_eval_f = real
         path.make_bounce = make_bounce
     best = max(range(len(per_round)), key=lambda r: per_round[r][0])
     lanes, calls = per_round[best]
-    return best + 1, lanes, dict(zip(("sample A", "eval B", "scatter"),
+    return best + 1, lanes, dict(zip(("sample A + eval B", "scatter"),
                                      calls))
+
+
+def split_sample_eval(s):
+    """A sample_eval_f call's inputs s (mid_trace_bsdf's "sample A + eval
+    B") as its sample call's and its eval call's: (sample_f's inputs,
+    eval_f_pdf's, wi the eval direction wi_b), dicts sharing s's tensors."""
+    sample = {k: v for k, v in s.items() if k != "wi_b"}
+    evaluate = {k: s[k] for k in ("desc", "wo", "use_prime", "eta_outer")}
+    evaluate["wi"] = s["wi_b"]
+    return sample, evaluate
+
+
+def tiled(s, times):
+    """A lane set's tensors (a BsdfDesc's too) repeated `times` times
+    along the lanes, contiguous."""
+    def tile(t):
+        return torch.cat([t] * times).contiguous()
+    return {k: bxdf.BsdfDesc(*map(tile, v)) if k == "desc" else tile(v)
+            for k, v in s.items()}

@@ -3,7 +3,8 @@ and BSDF::f with BSDF::Pdf) vs nart_tpu.bxdf on the CPU.
 
 The same numpy inputs (test_torch_shading's LOBES: all five lobe codes,
 plastic's two-lobe mixes, mirror) through the JAX functions and the port's
-sample_f and eval_f_pdf, which on CPU tensors call the plain versions
+sample_f, eval_f_pdf and sample_eval_f (the two in one call, a path
+round's strategy A and B), which on CPU tensors call the plain versions
 (bxdf.py), differentiated by autograd.  Tolerance, test_torch_shading's _close: continuous
 outputs and gradients to rtol 1e-5 / atol 1e-6 on >= 99.5% of the lanes
 and to rtol 1e-3 / atol 1e-5 on all (near-grazing microfacet terms amplify
@@ -17,9 +18,12 @@ finite: on index-matched lanes (eta_outer == eta) of the lobe kinds that
 carry a dielectric or a specular lobe, the JAX package's VJP of
 bsdf_sample_f is NaN in eta, wo and eta_outer (its unselected dielectric
 branches), the port's finite.  wi, pdf and flags carry no
-gradient, and eval_f_pdf refuses a wi that requires grad.  One path
-round of macbeth calls sample_f twice and eval_f_pdf once, and bxdf's
-bsdf_sample_f, bsdf_f and bsdf_pdf run only inside them.  The reference for X3 in "sample" mode (bsdf_ops.sample_at_plain:
+gradient, and eval_f_pdf refuses a wi that requires grad (sample_eval_f
+a wi_b that does, or that is not wo's device and shape).  sample_eval_f
+is sample_f then eval_f_pdf bit for bit, outputs and leaf gradients, and
+matches the JAX functions to the same tolerance.  One path round of
+macbeth calls sample_eval_f once and sample_f once (the scatter), and
+bxdf's bsdf_sample_f, bsdf_f and bsdf_pdf run only inside them.  The reference for X3 in "sample" mode (bsdf_ops.sample_at_plain:
 f, alpha_i and eta_sampled at a given sample) has bsdf_sample_f's bits.
 The plain VJP's repaired fault (NaN from lobes a lane does not have,
 which the JAX package's VJP keeps) is pinned here; the kernels (csrc/bsdf.cu) against the plain versions on the card
@@ -276,7 +280,112 @@ def test_eval_refuses_a_wi_that_requires_grad():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("entry", ["sample", "eval", "f_bwd"])
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _sample_eval_both(kind, fused):
+    """sample_eval_f, or sample_f then eval_f_pdf at wi, on one LOBES
+    kind's lanes with leaves that require grad: (the eight outputs, the
+    leaves' gradients of random cotangents on f, alpha_i, eta_sampled and
+    f_b)."""
+    d, x = _inputs(kind)
+    _, dt = _both_desc(d)
+    leaves, desc, wo, eta_outer = _leaves(dt, x)
+    up, wi = _t(x["use_prime"]), _t(x["wi"])
+    args = (desc, wo, _t(x["u1"]), _t(x["u2"]), up, eta_outer,
+            _t(x["prev_flags"]))
+    if fused:
+        out = bsdf_ops.sample_eval_f(*args, wi)
+    else:
+        out = (*bsdf_ops.sample_f(*args),
+               *bsdf_ops.eval_f_pdf(desc, wo, wi, up, eta_outer))
+    g_f_b = np.random.default_rng(len(kind) + 1).normal(
+        size=(N, 3)).astype(np.float32)
+    cots = (_t(x["g_f"]), _t(x["g_alpha_i"]), _t(x["g_eta"]), _t(g_f_b))
+    grads = torch.autograd.grad((out[0], out[4], out[5], out[6]), leaves,
+                                cots, allow_unused=True)
+    return out, grads
+
+
+@pytest.mark.parametrize("kind", sorted(LOBES))
+def test_sample_eval_is_sample_then_eval(kind):
+    """sample_eval_f on CPU tensors (the plain versions) gives sample_f's
+    and eval_f_pdf's outputs bit for bit, and the same gradient of every
+    leaf."""
+    out, grads = _sample_eval_both(kind, True)
+    want, want_grads = _sample_eval_both(kind, False)
+    assert len(out) == 8
+    for a, b in zip(out, want):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    for name, a, b in zip(bsdf_ops.DIFF, grads, want_grads):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.parametrize("kind", sorted(LOBES))
+def test_sample_eval_forward_matches_jax(kind):
+    """sample_eval_f's eight outputs against bxdf.bsdf_sample_f, bsdf_f
+    and bsdf_pdf of the JAX package, to test_torch_shading's _close
+    tolerance (rtol 1e-5 / atol 1e-6 on >= 99.5% of the lanes, rtol 1e-3 /
+    atol 1e-5 on all; flags exactly)."""
+    d, x = _inputs(kind)
+    dj, dt = _both_desc(d)
+    out = bsdf_ops.sample_eval_f(
+        dt, *[_t(x[k]) for k in ("wo", "u1", "u2", "use_prime", "eta_outer",
+                                 "prev_flags", "wi")])
+    out_j = jb.bsdf_sample_f(dj, *[jnp.asarray(x[k]) for k in (
+        "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags")])
+    J = [jnp.asarray(x[k]) for k in ("wo", "wi", "use_prime", "eta_outer")]
+    out_j = (*out_j, jb.bsdf_f(dj, *J), jb.bsdf_pdf(dj, *J))
+    for name, a, b in zip(("f", "wi", "pdf", "flags", "alpha_i", "eta",
+                           "f_b", "pdf_b"), out, out_j):
+        _close(a.detach(), b, name)
+
+
+def test_sample_eval_pdf_b_carries_no_gradient():
+    """sample_eval_f's wi, pdf, flags and pdf_b have no grad_fn; f,
+    alpha_i, eta_sampled and f_b do."""
+    d, x = _inputs("plastic")
+    _, dt = _both_desc(d)
+    _, desc, wo, eta_outer = _leaves(dt, x)
+    out = bsdf_ops.sample_eval_f(
+        desc, wo, _t(x["u1"]), _t(x["u2"]), _t(x["use_prime"]), eta_outer,
+        _t(x["prev_flags"]), _t(x["wi"]))
+    assert all(out[k].grad_fn is None and not out[k].requires_grad
+               for k in (1, 2, 3, 7))
+    assert all(out[k].grad_fn is not None for k in (0, 4, 5, 6))
+
+
+@pytest.mark.parametrize("bad", ["requires grad", "shape", "lanes",
+                                 "device"])
+def test_sample_eval_refuses_a_bad_wi_b(bad):
+    """X3 holds wi_b fixed and the kernel reads it lane by lane: a wi_b
+    that requires grad (under no_grad there is none to refuse), of another
+    shape or lane count than wo, or on another device, is refused before
+    anything runs."""
+    d, x = _inputs("glossy")
+    _, dt = _both_desc(d)
+    wi_b = _t(x["wi"])
+    wi_b = {"requires grad": wi_b.clone().requires_grad_(),
+            "shape": wi_b[:, :2], "lanes": wi_b[1:],
+            "device": wi_b.to("meta")}[bad]
+    args = (dt, *[_t(x[k]) for k in ("wo", "u1", "u2", "use_prime",
+                                     "eta_outer", "prev_flags")], wi_b)
+    cuda_build.reset_launch_counts()
+    with pytest.raises(ValueError, match="wi_b must"):
+        bsdf_ops.sample_eval_f(*args)
+    assert not any(cuda_build.launch_counts.values())
+    if bad == "requires grad":
+        with torch.no_grad():
+            out = bsdf_ops.sample_eval_f(*args)
+        assert torch.equal(out[6], bsdf_ops.eval_plain(
+            dt, args[1], wi_b, args[4], args[5])[0])
+
+
+@pytest.mark.parametrize("entry", ["sample", "eval", "f_bwd",
+                                   "sample_eval"])
 def test_cuda_wrappers_refuse_cpu_tensors(entry):
     """The kernels' wrappers take CUDA tensors only: CPU tensors are
     refused before the library is built or anything launched."""
@@ -290,6 +399,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(entry):
                                  _t(x["prev_flags"]))
         elif entry == "eval":
             bsdf_ops.eval_cuda(dt, wo, _t(x["wi"]), up, eo)
+        elif entry == "sample_eval":
+            bsdf_ops.sample_eval_cuda(dt, wo, _t(x["u1"]), _t(x["u2"]), up,
+                                      eo, _t(x["prev_flags"]), _t(x["wi"]))
         else:
             bsdf_ops.f_bwd_cuda("eval", dt, wo, _t(x["wi"]), up, eo,
                                 _t(x["g_f"]))
@@ -379,8 +491,8 @@ def test_plain_vjp_nan_from_lobes_a_lane_lacks():
 
 
 def _counting(monkeypatch):
-    """Count the sample_f and eval_f_pdf calls in each round of
-    make_bounce (round_ops.stop_after's hook opens a round), and every
+    """Count the sample_f, eval_f_pdf and sample_eval_f calls in each round
+    of make_bounce (round_ops.stop_after's hook opens a round), and every
     call of bxdf's three BSDF functions made outside them."""
     from nart_tpu_torch import round_ops
 
@@ -411,16 +523,19 @@ def _counting(monkeypatch):
     monkeypatch.setattr(bsdf_ops, "sample_f", counted(0, bsdf_ops.sample_f))
     monkeypatch.setattr(bsdf_ops, "eval_f_pdf",
                         counted(1, bsdf_ops.eval_f_pdf))
+    monkeypatch.setattr(bsdf_ops, "sample_eval_f",
+                        counted(2, bsdf_ops.sample_eval_f))
     monkeypatch.setattr(tpath, "make_bounce", tpath.make_bounce)  # restored
     round_ops.stop_after(tpath, "make_bounce", None, {"rounds": 0},
-                         lambda *a: rounds.append([0, 0]))
+                         lambda *a: rounds.append([0, 0, 0]))
     return seen, rounds
 
 
 def test_a_path_round_calls_the_functions(monkeypatch):
     """macbeth at 16x9 @ 1 spp on the per-round loop: every path round
-    calls sample_f twice (strategy A, the scatter) and eval_f_pdf once
-    (strategy B), and bxdf's BSDF functions run only inside them; so do
+    calls sample_eval_f once (strategy A's sample with strategy B's eval)
+    and sample_f once (the scatter), eval_f_pdf never, and bxdf's BSDF
+    functions run only inside them; so do
     a per-round fwd+bwd's rounds, whose backward (autograd over the plain
     versions on the CPU) reaches the material's leaves."""
     from nart_tpu_torch import bench
@@ -433,7 +548,8 @@ def test_a_path_round_calls_the_functions(monkeypatch):
     sess = trender.RenderSession(sc, params, "cpu", per_round=True)
     img = sess.image()
     assert bool(torch.isfinite(img).all())
-    assert len(rounds) >= 2 and {tuple(r) for r in rounds} == {(2, 1)}, rounds
+    assert len(rounds) >= 2 and {tuple(r) for r in rounds} == {(1, 0, 1)}, (
+        rounds)
     assert seen["stray"] == 0
 
     rounds.clear()
@@ -443,7 +559,7 @@ def test_a_path_round_calls_the_functions(monkeypatch):
         sc, tgrad.get_params(sc), tca.build_clusters(sc.tri_v.numpy()),
         samples, bench.rgb_cot(1, 16 * 9, "cpu"), params, 16, 9,
         device="cpu", per_round=True)
-    assert n_rounds > 0 and {tuple(r) for r in rounds} == {(2, 1)}, rounds
+    assert n_rounds > 0 and {tuple(r) for r in rounds} == {(1, 0, 1)}, rounds
     assert seen["stray"] == 0
     g = grads["rho_d_const"]
     assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0
@@ -451,8 +567,9 @@ def test_a_path_round_calls_the_functions(monkeypatch):
 
 def test_round_ops_finds_the_bsdf_calls():
     """nart_tpu_torch.round_ops on the CPU (the plain route), macbeth 16x9
-    @ 1, 2 rounds: the two sample calls and the eval call are the three
-    largest call sites of a path round, 80% of its operations, and the
+    @ 1, 2 rounds: the sample+eval call and the scatter's sample call are
+    the two largest call sites of a path round, 80% of its operations,
+    and the
     volume's flight step reads the medium's cells."""
     from nart_tpu_torch import round_ops
     from nart_tpu_torch.bench_configs import load_scene_doc
@@ -462,9 +579,9 @@ def test_round_ops_finds_the_bsdf_calls():
         "image_width": 16, "image_height": 9, "spp": 1})[0]
     sites, n, launches = round_ops.round_ops("path", sc, params, "cpu", 2)
     assert n == 2 and launches == {}
-    top = sorted(sites.items(), key=lambda kv: -kv[1])[:3]
+    top = sorted(sites.items(), key=lambda kv: -kv[1])[:2]
     assert sorted(callee for (_, callee), _ in top) == [
-        "eval_f_pdf", "sample_f", "sample_f"]
+        "sample_eval_f", "sample_f"]
     assert sum(ops for _, ops in top) > 0.8 * sum(sites.values())
     vol = load_scene_doc(round_ops.VOLUME, os.path.dirname(round_ops.VOLUME))
     params = trender.load_sessions(round_ops.VOLUME, {
@@ -472,3 +589,34 @@ def test_round_ops_finds_the_bsdf_calls():
     sites, n, _ = round_ops.round_ops("volume", vol, params, "cpu", 2)
     assert n == 2
     assert any(callee == "medium_properties_cells" for _, callee in sites)
+
+
+def test_mid_trace_bsdf_captures_the_sample_eval_call():
+    """testing.mid_trace_bsdf (phase 27's and kernel_variants' lane sets)
+    on macbeth 16x9 @ 1: a round's two BSDF calls, strategy A's sample
+    with strategy B's eval ("sample A + eval B", with its wi_b) and the
+    scatter's sample, copied; split_sample_eval gives the sample call's and
+    the eval call's inputs, whose plain outputs are sample_eval_plain's."""
+    from nart_tpu_torch import testing
+
+    sc = tscene.load_scene(os.path.join(FIX, "macbeth.json"), asset_root=FIX)
+    params = trender.RenderParams(image_width=16, image_height=9, spp=1)
+    r, deep, calls = testing.mid_trace_bsdf(
+        lambda: trender.RenderSession(sc, params, "cpu", per_round=True),
+        rounds=3)
+    assert 1 <= r <= 3 and deep >= 0
+    assert list(calls) == ["sample A + eval B", "scatter"]
+    fused = calls["sample A + eval B"]
+    assert set(fused) == {"desc", "wo", "u1", "u2", "use_prime", "eta_outer",
+                          "prev_flags", "wi_b"}
+    assert "wi_b" not in calls["scatter"]
+    s, e = testing.split_sample_eval(fused)
+    assert e["wi"] is fused["wi_b"] and "wi_b" not in s
+    keys = ("desc", "wo", "u1", "u2", "use_prime", "eta_outer", "prev_flags")
+    out = bsdf_ops.sample_eval_plain(*[fused[k] for k in keys],
+                                     fused["wi_b"])
+    want = (*bsdf_ops.sample_plain(*[s[k] for k in keys]),
+            *bsdf_ops.eval_plain(e["desc"], e["wo"], e["wi"], e["use_prime"],
+                                 e["eta_outer"]))
+    for a, b in zip(out, want):
+        assert torch.equal(_bits(a), _bits(b))

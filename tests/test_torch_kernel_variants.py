@@ -105,3 +105,55 @@ def test_main_needs_a_card():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kv.main([])
+
+
+def test_bsdf_sample_eval_row_builds_from_the_shipped_source():
+    """The "X1 + X2" against "sample+eval" row (the "SE" cases): the
+    shipped source and every variant of it carry the sample+eval launch's
+    entry and kernel beside X1's and X2's, so every variant's library
+    times it."""
+    for name, text in kv.variant_sources("bsdf").items():
+        for entry in ("int nart_bsdf_sample_eval(", "int nart_bsdf_sample(",
+                      "int nart_bsdf_eval(", "bsdf_sample_eval_kernel<"):
+            assert text.count(entry) == 1, (name, entry)
+
+
+def test_bsdf_sample_eval_cases_are_wired(monkeypatch):
+    """bsdf_cases' "SE" case on CPU tensors, the wrappers standing in by
+    their plain versions (the kernels run on the card only): its
+    reference (X1 then X2, two calls) and its new call (the sample+eval
+    wrapper) take the same lanes and the same eval direction, nine
+    outputs each, the same bits; the X1 and X2 cases still there."""
+    from nart_tpu_torch import bsdf_ops, testing
+
+    def bits_of(out):
+        return torch.zeros(out[0].shape[0], dtype=torch.int32)
+
+    def sample(*a):
+        out = bsdf_ops.sample_plain(*a)
+        return (*out, bits_of(out))
+
+    def sample_eval(*a):
+        out = bsdf_ops.sample_eval_plain(*a)
+        return (*out[:6], bits_of(out), *out[6:])
+
+    for name, fn in (("sample_cuda", sample), ("sample_ref_cuda", sample),
+                     ("eval_cuda", bsdf_ops.eval_plain),
+                     ("sample_eval_cuda", sample_eval),
+                     ("f_bwd_cuda", lambda *a, **k: ()),
+                     ("f_bwd_ref_cuda", lambda *a, **k: ())):
+        monkeypatch.setattr(bsdf_ops, name, fn)
+    s = testing.bsdf_lane_set("plastic", 256, 0, "cpu")
+    sample_s, eval_s = testing.split_sample_eval(
+        dict(s, wi_b=torch.flip(s["wi"], (0,))))
+    cases = kv.bsdf_cases({"glossy": (s, s), "macbeth": (sample_s, eval_s)})
+    for label in ("glossy", "macbeth"):
+        assert {f"{k} {label}" for k in ("X1", "X2", "X3s", "X3e", "SE")} <= (
+            set(cases))
+        ref = cases[f"SE {label}"](reference=True)
+        new = cases[f"SE {label}"](reference=False)
+        assert len(ref) == len(new) == 9
+        assert kv.bsdf_same(f"SE {label}", new, ref) == (True, 1.0)
+    e = eval_s
+    assert torch.equal(cases["SE macbeth"]()[7], bsdf_ops.eval_plain(
+        e["desc"], e["wo"], e["wi"], e["use_prime"], e["eta_outer"])[0])

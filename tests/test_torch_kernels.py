@@ -33,7 +33,9 @@ X2 the plain version's bits on every lane, also from a CUDA graph's
 replay, X1 also its first design's (nart_bsdf_sample_ref), X3 within rtol
 1e-5 / atol 1e-6 of the float64 VJP of the plain version (wi held fixed)
 on every lane of the float32 branches, beside its first design
-(nart_bsdf_f_bwd_ref), and zero on grazing mirror lanes; X1's and X3's
+(nart_bsdf_f_bwd_ref), and zero on grazing mirror lanes; the
+sample+eval launch (X2's redesign) X1's and X2's bits on every lane and
+its Function's gradients X3's two rows summed; X1's and X3's
 outputs follow their lanes through a permutation bit for bit, as built
 and with kernel_variants' regrouping of a block's lanes by lobe; the
 Functions of bsdf_ops launch them once a call.
@@ -858,8 +860,10 @@ def test_bsdf_kernels_match_plain(cuda, kind):
     x3e = bsdf_ops.f_bwd_cuda("eval", desc, x["wo"], x["wi"],
                               x["use_prime"], x["eta_outer"], x["g_f"])
     grew = {k: cuda_build.launch_counts[k] - before[k]
-            for k in ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")}
-    assert grew == {"bsdf_sample": 1, "bsdf_eval": 1, "bsdf_f_bwd": 2}
+            for k in ("bsdf_sample", "bsdf_sample_eval", "bsdf_eval",
+                      "bsdf_f_bwd")}
+    assert grew == {"bsdf_sample": 1, "bsdf_sample_eval": 0, "bsdf_eval": 1,
+                    "bsdf_f_bwd": 2}
     at = (_f64(desc), _f64(x["wo"]), _f64(got[1]), _f64(x["u1"]),
           _f64(x["u2"]), x["use_prime"], _f64(x["eta_outer"]),
           x["prev_flags"], got[3])
@@ -903,8 +907,10 @@ def test_bsdf_functions_launch_the_kernels(cuda):
     f2, pdf2 = bsdf_ops.eval_f_pdf(d, wo, wi, x["use_prime"], eo)
     torch.autograd.grad(f2.sum(), leaves)
     grew = {k: cuda_build.launch_counts[k] - before[k]
-            for k in ("bsdf_sample", "bsdf_eval", "bsdf_f_bwd")}
-    assert grew == {"bsdf_sample": 2, "bsdf_eval": 1, "bsdf_f_bwd": 3}
+            for k in ("bsdf_sample", "bsdf_sample_eval", "bsdf_eval",
+                      "bsdf_f_bwd")}
+    assert grew == {"bsdf_sample": 2, "bsdf_sample_eval": 0, "bsdf_eval": 1,
+                    "bsdf_f_bwd": 3}
     with pytest.raises(ValueError, match="wi must not require grad"):
         bsdf_ops.eval_f_pdf(d, wo, wi.clone().requires_grad_(),
                             x["use_prime"], eo)
@@ -922,6 +928,71 @@ def test_bsdf_functions_launch_the_kernels(cuda):
     graph.replay()
     torch.cuda.synchronize()
     _same_bits(out, eager)
+
+
+@pytest.mark.parametrize("kind", sorted(BSDF_LOBES))
+def test_bsdf_sample_eval_against_x1_and_x2(cuda, kind):
+    """The sample+eval launch (X2's redesign, nart_bsdf_sample_eval) gives
+    X1's seven outputs and X2's first design's two at wi_b bit for bit on
+    every lane, and the plain versions' (sample_eval_plain), one launch a
+    call, also from a CUDA graph's replay.  Through sample_eval_f its
+    gradients are X3's "sample" and "eval" rows summed, one
+    bsdf_sample_eval and two bsdf_f_bwd launches, none of X1 or X2; a
+    wi_b that requires grad is refused."""
+    from nart_tpu_torch import bsdf_ops
+
+    n = 8192
+    desc, x = _bsdf_set(kind, n, 31 + len(kind), cuda)
+    up, eo = x["use_prime"], x["eta_outer"]
+    args = (desc, x["wo"], x["u1"], x["u2"], up, eo, x["prev_flags"])
+    before = dict(cuda_build.launch_counts)
+    got = bsdf_ops.sample_eval_cuda(*args, x["wi"])
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["bsdf_sample_eval"] == (
+        before["bsdf_sample_eval"] + 1)
+    _same_bits(got, (*bsdf_ops.sample_cuda(*args),
+                     *bsdf_ops.eval_cuda(desc, x["wo"], x["wi"], up, eo)))
+    _same_bits(got[:6] + got[7:],
+               bsdf_ops.sample_eval_plain(*args, x["wi"]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bsdf_ops.sample_eval_cuda(*args, x["wi"])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = bsdf_ops.sample_eval_cuda(*args, x["wi"])
+    graph.replay()
+    torch.cuda.synchronize()
+    _same_bits(replayed, got)
+
+    leaves = [t.clone().requires_grad_() for t in
+              bsdf_ops._diff(desc, x["wo"], eo)]
+    d, wo, eo_l = bsdf_ops._with_diff(desc, leaves)
+    g_f_b = x["g_f"].flip(0).contiguous()
+    before = dict(cuda_build.launch_counts)
+    out = bsdf_ops.sample_eval_f(d, wo, x["u1"], x["u2"], up, eo_l,
+                                 x["prev_flags"], x["wi"])
+    _same_bits(out, got[:6] + got[7:])
+    grads = torch.autograd.grad(
+        (out[0], out[4], out[5], out[6]), leaves,
+        (x["g_f"], x["g_alpha_i"], x["g_eta_sampled"], g_f_b))
+    grew = {k: cuda_build.launch_counts[k] - before[k]
+            for k in ("bsdf_sample", "bsdf_sample_eval", "bsdf_eval",
+                      "bsdf_f_bwd")}
+    assert grew == {"bsdf_sample": 0, "bsdf_sample_eval": 1, "bsdf_eval": 0,
+                    "bsdf_f_bwd": 2}
+    g_s = bsdf_ops.f_bwd_cuda("sample", desc, x["wo"], got[1], up, eo,
+                              x["g_f"], x["g_alpha_i"], x["g_eta_sampled"],
+                              u2=x["u2"], prev_flags=x["prev_flags"],
+                              bits=got[6])
+    g_e = bsdf_ops.f_bwd_cuda("eval", desc, x["wo"], x["wi"], up, eo, g_f_b)
+    for a, b, c in zip(grads, g_s, g_e):
+        assert torch.equal(a, b + c)
+    with pytest.raises(ValueError, match="wi_b must not require grad"):
+        bsdf_ops.sample_eval_f(d, wo, x["u1"], x["u2"], up, eo_l,
+                               x["prev_flags"],
+                               x["wi"].clone().requires_grad_())
 
 
 def test_bsdf_x3_finite_where_the_plain_vjp_is_not(cuda):

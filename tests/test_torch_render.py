@@ -82,6 +82,44 @@ def test_trace_balanced_per_item_matches(make, mis):
     assert rays_t == rays_j and rounds_t == rounds_j
 
 
+def test_sample_eval_route_matches_two_calls(monkeypatch):
+    """A path round's strategy A sample and strategy B eval go through one
+    bsdf_ops.sample_eval_f call (one launch on the card): macbeth (the
+    fixture) at 16x9 @ 1 spp, a per-round render and a per-round fwd+bwd,
+    against the same with sample_eval_f patched to call sample_f and
+    eval_f_pdf one after the other: the film, the stats, the loss and
+    every leaf gradient bit for bit."""
+    from nart_tpu_torch import bench, bsdf_ops
+    from nart_tpu_torch import grad as tgrad
+
+    sc = tscene.load_scene(MACBETH, asset_root=FIX)
+    params = trender.RenderParams(image_width=16, image_height=9, spp=1)
+    samples = trender.image_samples(16, 9, 16 + 2 * int(np.ceil(
+        params.filter_width)), 1, "cpu")
+    acc = tca.build_clusters(sc.tri_v.numpy())
+
+    def run():
+        sess = trender.RenderSession(sc, params, "cpu", per_round=True)
+        film = sess.image()
+        loss, grads, rays, rounds = tgrad.radiance_weighted_loss_and_grad(
+            sc, tgrad.get_params(sc), acc, samples,
+            bench.rgb_cot(1, 16 * 9, "cpu"), params, 16, 9, device="cpu",
+            per_round=True)
+        return film, dict(sess.stats), loss, grads, rays, rounds
+
+    fused = run()
+    monkeypatch.setattr(bsdf_ops, "sample_eval_f", bsdf_ops.sample_then_eval(
+        bsdf_ops.sample_f, bsdf_ops.eval_f_pdf))
+    two = run()
+    assert torch.equal(fused[0].view(torch.int32), two[0].view(torch.int32))
+    assert fused[1] == two[1] and fused[4:] == two[4:]
+    assert float(fused[2]) == float(two[2])
+    a, b = (tgrad.flatten_leaves(r[3]) for r in (fused, two))
+    assert a.numel() > 0 and torch.equal(a.view(torch.int32),
+                                         b.view(torch.int32))
+    assert float(fused[2]) > 0.0 and bool(torch.isfinite(fused[0]).all())
+
+
 def test_mis_strategies_converge():
     """BSDF-only and light-only sampling (the MIS toggles) estimate the same
     integral as both strategies (test_integrator's Veach check, on the
