@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT_TREE   # phase 22's cells, in turns
     python3 chip_smoke.py --witness   # macbeth's leaves: X3, plain, float64
+    python3 chip_smoke.py --vol-witness   # volume_blob's: V2, plain, float64
 
 Kernel times are device times: device_ms captures many calls of a
 function into one CUDA graph and divides the replay's CUDA-event time by
@@ -18,11 +19,12 @@ Phases (any failure raises and exits non-zero):
      "name, power.limit" line;
   2. build: compile the CUDA kernels from nart_tpu_torch/csrc into
      build/nart_tpu_torch, one nvcc a source, all started together (timed):
-     cluster_hit.cu, small_lut.cu, large_lut.cu, bvh_walk.cu and bsdf.cu;
-     beside them bvh_walk.cu and bsdf.cu once more with -Xptxas -v, whose
-     registers, stack frames and spills are logged (bsdf.cu's with each
-     kernel's design: the redesign's and the first design's), and the
-     host core
+     cluster_hit.cu, small_lut.cu, large_lut.cu, bvh_walk.cu, bsdf.cu and
+     vol_step.cu; beside them bvh_walk.cu, bsdf.cu and vol_step.cu once
+     more with -Xptxas -v, whose registers, stack frames and spills are
+     logged (bsdf.cu's with each kernel's design: the redesign's and the
+     first design's; vol_step.cu's V1 and V2's eight instantiations, one a
+     step count), and the host core
      core.cpp with g++
      (the .geo/.vol parsers and the LBVH build of native.py, which the
      card's entry points take);
@@ -88,30 +90,34 @@ Phases (any failure raises and exits non-zero):
      captures) and on the per-round loop (per_round=True): the films, the
      per-pixel RNG states and the stats the same bits, one capture a
      machine, K1 and K2 launched once and X1 and the sample+eval launch
-     once each in every round the card ran (none in the volume); logged
-     for both routes:
+     once each in every round the card ran (none in the volume; there V1
+     once in every round, V2 never); logged for both routes:
      wall s, device ms (busy share) under torch.profiler, rounds run,
      peak MiB, capture s.  The "regen"
      film equals the "spp" film bit for bit, and both image means are
      within 3% of the "balanced" image's;
   9. volume golden: tests/golden/volume_blob.json at its own 96x96, 32 spp
      against volume_blob_96x96_32spp.exr with test_volume_golden's
-     criteria (mean rel < 0.02, >= 95% of 16x16 blocks within 0.05).  The
+     criteria (mean rel < 0.02, >= 95% of 16x16 blocks within 0.05), V1
+     launched, V2 not.  The
      scene file names blob.vol by an absolute path and a missing volume
      only warns, so the phases render a copy that names this checkout's
      and assert that the medium was loaded;
  10. volume forward at full width: volume_blob at 1280x720 with spp cut
      from 32 to 8: one warm run, one timed run (rounds, segment starts,
      Mrays/s, peak memory; the static machine graphed), EXR finite with a
-     nonzero mean, no traversal kernel launched; the card's busy share
+     nonzero mean, no traversal kernel launched, V1 once in every round
+     the card ran and V2 never; the card's busy share
      under torch.profiler over a window of the static machine's rounds on
      the per-round loop;
  11. volume fwd+bwd at full width: radiance_weighted_loss_and_grad on
      volume_blob 1280x720, one chunk of 4 spp, cot = 1 on RGB, timed after
      a warm call on the same kept machine: the loss equals the forward's
      sum(la[..., :3]) (rtol 1e-4), the medium's gradients are finite and
-     nonzero, no traversal kernel launched; the busy share over a window
-     of the per-round replay's backward rounds;
+     nonzero, no traversal kernel launched, V1 once a round in the
+     forward's graph and V1 and V2 once each in the backward's round
+     graph; the busy share over a window of the per-round replay's
+     backward rounds;
  12. volume gradients on the card against the CPU: medium_scene at 32x32,
      2 spp: every leaf to rtol 1e-3 / atol 1e-5;
  13. (a) sharding in one process: macbeth at 1280x720, 2 spp, the virtual
@@ -122,7 +128,7 @@ Phases (any failure raises and exits non-zero):
      one row count replaying one kept machine of the session (one capture
      a shape), and a second run of its shards bit-equal to the first, with
      no capture; volume_blob at 1280x720,
-     2 spp, Layout(4, 1), the same check;
+     2 spp, Layout(4, 1), the same check (V1 launched);
  14. (b) two ranks sharing the card under gloo (NCCL refuses two ranks on
      one GPU), spawned as `chip_smoke.py --rank R PORT DIR`:
      render_sharded of macbeth at 2 spp against phase 13's one-process film
@@ -201,12 +207,16 @@ Phases (any failure raises and exits non-zero):
      route's wall s, rounds run and ms a round, peak MiB, capture +
      instantiate s, the card's busy share of the graphed forward under
      torch.profiler (which traces the kernels of a replayed graph one by
-     one) and its kernels and copies a round; macbeth's graphed render
+     one) and its kernels and copies a round; V1 once a round run in the
+     volume cell; macbeth's graphed render
      again with the BSDF calls on their plain versions (bsdf_ops'
      sample_plain and sample_eval_plain, bxdf.py op by op): the same film
      bits,
      its kernels and copies a round, the "before" beside the kernels'
-     "after"; volume_blob 96x96 @ 32 spp in
+     "after"; volume_blob's graphed render again with the flight steps on
+     their plain version (vol_ops.flight_steps_plain): the same film bits,
+     its kernels and copies a round and device ms beside V1's;
+     volume_blob 96x96 @ 32 spp in
      8 chunks of 4: one capture for all, the per-round loop's film; k = 4,
      8 and 16 on macbeth: one session each, their renders in turns, the
      median of 3 each after a warm one.
@@ -218,7 +228,9 @@ Phases (any failure raises and exits non-zero):
      per-round replay (per_round=True) in the same process: the loss to
      rtol 1e-6, every gradient leaf to rtol 1e-5 / atol 1e-7, equal rays
      and rounds, K1/K2 launched once a forward round run on the graphed
-     route and once a round on the per-round one (none on the volume);
+     route and once a round on the per-round one (none on the volume;
+     there V1 once a forward round and V1 and V2 once each in the
+     backward's round graph, V2 once a round on the per-round replay);
      the large-table look-ups (S2) launched on both routes of macbeth and
      volume_blob and not on simple_glass, indexing_backward_kernel*
      launched 0 times in the graphed call's profile; logged: each route's
@@ -341,6 +353,22 @@ Phases (any failure raises and exits non-zero):
      sample+eval launch against X1 then X2 (at 65,536 lanes and at the
      same lanes four times over, 262,144), in turns (reference, new, new,
      reference), device ms each.
+ 28. the volume's flight-step kernels (csrc/vol_step.cu: V1 nart_vol_steps,
+     a round's k flight steps, and V2 nart_vol_steps_bwd, their backward)
+     against their plain versions on the card: volume_blob 1280x720 @ 4's
+     static-machine states (32,768 lanes) at its first round and at round
+     VOL_MID_ROUND of a per-round render, and testing.vol_lane_set's edge
+     set at 32,768 lanes (every branch of a step, the null event at p_null
+     = 0, null events near the majorant).  For k = 1 and 4: V1's every
+     output (the state, died, esc, the segment starts) the plain steps'
+     bits on every lane; V2 within rtol 1e-5 / atol 1e-6 of the float64
+     VJP of the plain steps (vol_ops.flight_steps_vjp_reference) on every
+     lane whose float64 forward chose the float32 events (the others
+     counted), finite everywhere; the plain float32 VJP's distance from
+     it logged.  At the mid-render round, k = 4: V1's, V2's, the plain
+     steps' and V2's torch twin's (vol_ops.flight_steps_vjp_plain) device
+     ms, the bound (bytes: each per-lane input and output once and a
+     32-byte cell row a sampling lane-step; library none).
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -351,7 +379,9 @@ turn's (the films, loss, rays and rounds bit for bit, the leaves to rtol
 With --witness: macbeth's fwd+bwd of phase 22 with the BSDF backward by X3,
 by the plain float32 VJP and by the float64 VJP (leaf_witness): on each
 leaf value where X3 and the plain VJP differ past that tolerance, which
-lies nearer the float64 one.
+lies nearer the float64 one.  With --vol-witness: the same for
+volume_blob's fwd+bwd and the flight steps' backward (V2, float32
+autograd of the plain steps, the float64 VJP; vol_leaf_witness).
 The line before the last is the kernels' JSON record (`launches`: a
 traversal kernel's and X1's and the sample+eval launch's in phase 5's
 forward, a look-up kernel's and X3's in phase 6's fwd+bwd, B1's in phase
@@ -364,7 +394,10 @@ first_design_ms: X2's first design alone;
 launches_modes: phase 8's graphed "regen" and "spp" renders,
 launches_sharded: phases 13-15, launches_bench: phase 18,
 launches_large_mesh: phase 25's counted renders, every kernel's the
-cluster one's but B1's, the bvh one's); the
+cluster one's but B1's, the bvh one's; V1's `launches` phase 10's
+volume forward, V2's phase 11's volume fwd+bwd, launches_volume both,
+their forward_kernels_a_round phase 21's volume_blob count with the
+flight steps' plain version and with V1); the
 last line is {"ok": true, "device": {...}}.  Needs the repository
 checkout (it imports nart_tpu_torch from beside this file); imports nothing
 of JAX.
@@ -395,6 +428,7 @@ LUT_SOURCE = "nart_tpu_torch/csrc/small_lut.cu"
 LARGE_SOURCE = "nart_tpu_torch/csrc/large_lut.cu"
 BVH_SOURCE = "nart_tpu_torch/csrc/bvh_walk.cu"
 BSDF_SOURCE = "nart_tpu_torch/csrc/bsdf.cu"
+VOL_SOURCE = "nart_tpu_torch/csrc/vol_step.cu"
 CORE_SOURCE = "nart_tpu_torch/csrc/core.cpp"  # host code: no kernel
 DEVICE = "cuda"  # every phase runs on the card
 LARGE_SITES = ("nart_tpu/materials.py:60", "nart_tpu/lights.py:73",
@@ -425,7 +459,12 @@ REPLACES = {"closest_hit": "nart_tpu/pallas_accel.py:605",  # _kernel
             # first design, nart_bsdf_eval, is now a reference) in one launch
             "bsdf_sample_eval": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594, "
                                 "nart_tpu/bxdf.py:602",
-            "bsdf_f_bwd": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594"}
+            "bsdf_f_bwd": "nart_tpu/bxdf.py:618, nart_tpu/bxdf.py:594",
+            # no Pallas kernel: the volume's flight step, _make_vol_step's
+            # step (:59-163), which XLA fuses with the NART_VOL_FUSE steps
+            # of a round, and XLA's autodiff of it
+            "vol_steps": "nart_tpu/integrators/volume.py:59",
+            "vol_steps_bwd": "nart_tpu/integrators/volume.py:59"}
 KERNELS = tuple(REPLACES)
 TRAVERSAL = KERNELS[:4]  # the kernels of cluster_hit.cu
 LARGE = ("lut_gather_large_bwd",)  # the kernel of large_lut.cu
@@ -434,9 +473,12 @@ BSDF = ("bsdf_sample", "bsdf_sample_eval", "bsdf_f_bwd")
 # X1's, X2's and X3's first designs (no path launches them; X2's,
 # nart_bsdf_eval, is eval_f_pdf's kernel for other callers)
 BSDF_REF = ("bsdf_sample_reference", "bsdf_eval", "bsdf_f_bwd_reference")
+# the kernels of vol_step.cu: V1 (a round's flight steps), V2 (their
+# backward)
+VOL = ("vol_steps", "vol_steps_bwd")
 SOURCES = {k: SOURCE if k in TRAVERSAL else LARGE_SOURCE if k in LARGE
            else BVH_SOURCE if k == "bvh_hit" else BSDF_SOURCE if k in BSDF
-           else LUT_SOURCE for k in KERNELS}
+           else VOL_SOURCE if k in VOL else LUT_SOURCE for k in KERNELS}
 # the profiler's names of the look-up kernels, and of PyTorch's backward of
 # a gather (the plain version's)
 LUT_NAMES = ("lut_gather_many_kernel", "lut_bwd_many_kernel",
@@ -1365,6 +1407,8 @@ def _mode_cell(label, make, calls, traversal):
                                 r["rounds_run"])
         else:
             _no_traversal(f"{label}, {name}", r["launches"])
+            check_vol_launches(f"{label}, {name}", r["launches"],
+                               r["rounds_run"])
     return g["film"], g["launches"]
 
 
@@ -1416,9 +1460,12 @@ def modes_path(spp, spp_volume):
                                  f"{means['balanced']}: {rel:.4f} apart")
     overrides = {"image_width": 1280, "image_height": 720,
                  "spp": spp_volume, "wavefront": "spp"}
-    _mode_cell(f"volume_blob 1280x720 spp @ {spp_volume} spp",
-               lambda per_round: volume_session(overrides, per_round)[1],
-               spp_volume, False)
+    _, launches = _mode_cell(
+        f"volume_blob 1280x720 spp @ {spp_volume} spp",
+        lambda per_round: volume_session(overrides, per_round)[1],
+        spp_volume, False)
+    for k in VOL:
+        counts[k] += launches[k]
     return counts
 
 
@@ -1442,6 +1489,33 @@ def _no_traversal(label, counts):
                              f"{counts}")
 
 
+def check_vol_launches(label, counts, forward, backward=0):
+    """A volume path's flight-step kernels: V1 once in each of the
+    `forward` rounds the card ran (None: at least once) and once more in
+    each of the `backward` rounds a replay's backward re-ran, V2 once in
+    each of those."""
+    v1, v2 = counts["vol_steps"], counts["vol_steps_bwd"]
+    ok = (v1 > 0 if forward is None else v1 == forward + backward)
+    if not (ok and v2 == backward):
+        raise AssertionError(f"{label}: V1 launched {v1}, V2 {v2} times for "
+                             f"{forward} forward and {backward} backward "
+                             "rounds")
+
+
+def check_vol_replay(label, counts, runner):
+    """A graphed volume fwd+bwd's flight-step kernels: V1 once a round in
+    the forward's k-round graph, V1 and V2 once each in the backward's
+    round graph, both launched in the call."""
+    fwd, back = runner.launches, runner.back_launches
+    if not (fwd.get("vol_steps", 0) == runner.k
+            and not fwd.get("vol_steps_bwd", 0)
+            and back.get("vol_steps", 0) == 1
+            and back.get("vol_steps_bwd", 0) == 1
+            and counts["vol_steps"] > 0 and counts["vol_steps_bwd"] > 0):
+        raise AssertionError(f"{label}: V1/V2 launches {counts}, per forward "
+                             f"replay {fwd}, per backward round {back}")
+
+
 def check_bsdf_launches(label, counts, rounds_run):
     """A path forward's BSDF kernels: X1 (the scatter) and the sample+eval
     launch (strategy A's sample, strategy B's eval) once each in every
@@ -1462,6 +1536,7 @@ def volume_golden():
     cuda_build.reset_launch_counts()
     ours = sess.image().cpu().numpy()
     _no_traversal("the volume golden", cuda_build.launch_counts)
+    check_vol_launches("the volume golden", cuda_build.launch_counts, None)
     log(f"volume golden render {params.image_width}x{params.image_height} "
         f"{params.spp} spp: {sess.stats}")
     ref = exr.read(VOLUME_GOLDEN)
@@ -1504,12 +1579,14 @@ def volume_forward(spp, window):
     torch.cuda.synchronize()
     log(f"warm run {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
+    ran = machine_totals(sess.machines)["rounds_run"]
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     buf = sess.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(cuda_build.launch_counts)
+    ran = machine_totals(sess.machines)["rounds_run"] - ran
     rays, rounds = sess.stats["rays"], sess.stats["rounds"]
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"timed run {dt:.4f} s, {rounds} rounds "
@@ -1517,6 +1594,9 @@ def volume_forward(spp, window):
         f"{rays / dt / 1e6:.4f} Mrays/s, peak device memory {peak:.1f} MiB, "
         f"launches {counts}; the session's machine {machine_totals(sess.machines)}")
     _no_traversal("the volume forward", counts)
+    check_vol_launches("the volume forward", counts, ran)
+    log(f"V1 launched once in each of the {ran} rounds the card ran, V2 "
+        "never")
     img = film.finalize(buf, params.image_width, params.image_height,
                         sess.filter_bounds)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1595,6 +1675,7 @@ def volume_training(spp, window):
     _no_traversal("the volume fwd+bwd", counts)
     check_large_launches("the volume fwd+bwd", counts,
                          replay_runner(machines), True)
+    check_vol_replay("the volume fwd+bwd", counts, replay_runner(machines))
     if not (np.isfinite(float(loss))
             and abs(float(loss) - want) <= 1e-4 * abs(want)):
         raise AssertionError(f"loss {float(loss)} != forward sum {want}")
@@ -1781,6 +1862,9 @@ def sharded_virtual(spp):
     cuda_build.reset_launch_counts()
     film_v, _ = _virtual_ranks(sess_v, layout, f"volume_blob {layout}")
     _no_traversal("the sharded volume", cuda_build.launch_counts)
+    check_vol_launches("the sharded volume", cuda_build.launch_counts, None)
+    for k in VOL:
+        counts[k] += cuda_build.launch_counts[k]
     _close_films(f"volume_blob {layout}", film_v, single_v)
     if min(counts["closest_hit"], counts["any_hit"]) <= 0:
         raise AssertionError(f"the sharded renders launched {counts}")
@@ -2587,7 +2671,8 @@ def _graphed_against_per_round(label, make, traversal):
         after = machine_totals(sess.machines)
         return film, {"wall_s": wall, "stats": dict(sess.stats),
                       "launches": {k: cuda_build.launch_counts[k]
-                                   for k in KERNELS[:2] + BSDF + BSDF_REF},
+                                   for k in KERNELS[:2] + BSDF + BSDF_REF
+                                   + VOL},
                       "rounds_run": after["rounds_run"] - before["rounds_run"],
                       "replays": after["replays"] - before["replays"],
                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
@@ -2642,6 +2727,8 @@ def _graphed_against_per_round(label, make, traversal):
             raise AssertionError(f"{label}: launches {r['launches']}, want "
                                  f"{n} each")
         check_bsdf_launches(label, r["launches"], n)
+        if not traversal:
+            check_vol_launches(label, r["launches"], r["rounds_run"])
     g["kernels_a_round"] = g["kernels"] / g["rounds_run"]
     g["film"] = film_g
     log(f"    {label}: {g['kernels']} kernels and copies over "
@@ -2704,6 +2791,8 @@ def graphed_rounds():
                              "the per-round loop's")
     mac = records["macbeth 1280x720 @ 4 spp"]["graphed"]
     mac["plain_bsdf"] = plain_bsdf_round(macbeth, p_mac, mac["film"])
+    vol = records["volume_blob 1280x720 @ 4 spp"]["graphed"]
+    vol["plain_steps"] = plain_vol_round(vol["film"])
     for r in records.values():
         del r["graphed"]["film"]
     k_sweep(macbeth, p_mac)
@@ -2745,6 +2834,42 @@ def plain_bsdf_round(scene, params, film_kernels):
     log(f"    {label}: {kernels} kernels and copies over {rounds_run} rounds"
         f" run: {out['kernels_a_round']:.1f} a round (graphed forward, "
         "profiled); the film the BSDF kernels' bits")
+    return out
+
+
+def plain_vol_round(film_kernels):
+    """Phase 21's volume_blob cell with the flight steps on their plain
+    version (vol_ops.flight_steps replaced by flight_steps_plain: the
+    step op by op, the route before V1/V2): a graphed render that
+    captures, then one under torch.profiler (device_busy).  Its film must
+    be V1's film_kernels bit for bit.  Returns {"kernels", "rounds_run",
+    "kernels_a_round", "device_ms"} of the profiled render."""
+    import torch
+
+    from nart_tpu_torch import vol_ops
+
+    label = "volume_blob 1280x720 @ 4 spp, plain flight steps"
+    real = vol_ops.flight_steps
+    vol_ops.flight_steps = vol_ops.flight_steps_plain
+    try:
+        sess = volume_session({"image_width": 1280, "image_height": 720,
+                               "spp": 4})[1]
+        sess.render()
+        before = machine_totals(sess.machines)["rounds_run"]
+        films = []
+        kernels, _, _, dev_ms = device_busy(
+            f"{label}, graphed forward",
+            lambda: films.append(sess.render()), None)
+        rounds_run = machine_totals(sess.machines)["rounds_run"] - before
+    finally:
+        vol_ops.flight_steps = real
+    if not torch.equal(films[0], film_kernels):
+        raise AssertionError(f"{label}: the film differs from V1's film")
+    out = {"kernels": kernels, "rounds_run": rounds_run,
+           "kernels_a_round": kernels / rounds_run, "device_ms": dev_ms}
+    log(f"    {label}: {kernels} kernels and copies over {rounds_run} rounds"
+        f" run: {out['kernels_a_round']:.1f} a round (graphed forward, "
+        "profiled); the film V1's bits")
     return out
 
 
@@ -2838,6 +2963,8 @@ def _replay_cell(label, fn, traversal, large):
         check_replay_launches(label, g["launches"], g["rounds"],
                               g["rounds_run"], runner)
     check_large_launches(label, g["launches"], runner, large)
+    if not traversal:
+        check_vol_replay(label, g["launches"], runner)
     (_, g["busy"], g["indexing_backward"],
      g["device_ms"]) = device_busy(f"{label}, graphed fwd+bwd",
                                    lambda: fn(False, machines), g["wall_s"])
@@ -2893,6 +3020,13 @@ def _replay_cell(label, fn, traversal, large):
                                  f"{e['launches']}")
     else:
         _no_traversal(label, {**g["launches"], **e["launches"]})
+        # V1 once a forward round and V1 and V2 once each a backward round
+        # on the per-round replay (the graphed call's: above)
+        e_l = e["launches"]
+        if not (e_l["vol_steps_bwd"] == e["rounds"]
+                and e_l["vol_steps"] >= 2 * e["rounds"]):
+            raise AssertionError(f"{label}: per-round V1/V2 launches {e_l} "
+                                 f"for {e['rounds']} rounds")
     if (e["launches"]["lut_gather_large_bwd"] > 0) != large:
         raise AssertionError(f"{label}: per-round large-table look-ups "
                              f"{e['launches']}")
@@ -3257,6 +3391,157 @@ def leaf_witness():
         raise AssertionError("witness: the plain float32 VJP is nearer the "
                              "float64 one on some leaf value")
 
+
+
+def _f64_flight_steps(mag):
+    """vol_ops.flight_steps with a float64 backward: V1 forward (the plain
+    steps' bits), and backward the float64 VJP of the plain steps
+    (vol_ops.flight_steps_vjp_reference), its rows summed into the cells
+    by a float64 index_add_ and its partials by float64 sums, each round's
+    sums rounded once to float32: the witness of the flight steps' leaf
+    gradients.  The rows' magnitudes are summed into mag["cells"] (float64,
+    over every backward round)."""
+    import torch
+    from torch.autograd.function import once_differentiable
+
+    from nart_tpu_torch import vol_ops
+
+    nf = len(vol_ops.FIELDS)
+    beta, l_out = vol_ops.FIELDS.index("beta"), vol_ops.FIELDS.index("l_out")
+
+    class F64Steps(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, k, bounces, medium, *args):
+            ctx.set_materialize_grads(False)
+            ctx.k, ctx.bounces, ctx.medium = k, bounces, medium
+            ctx.save_for_backward(*args)
+            outs = vol_ops.steps_cuda(k, bounces, tuple(medium.density.shape),
+                                      *args)
+            ctx.mark_non_differentiable(*[
+                o for j, o in enumerate(outs) if j not in (beta, l_out)])
+            return outs
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, *grads):
+            args = ctx.saved_tensors
+            vs = vol_ops.VolState(*args[:nf])
+            cells, sig_a, sig_s, le = args[nf:nf + 4]
+            g_b = (torch.zeros_like(vs.beta) if grads[beta] is None
+                   else grads[beta])
+            g_l = (torch.zeros_like(vs.l_out) if grads[l_out] is None
+                   else grads[l_out])
+            g_bi, g_li, rows, idx, p_sa, p_ss, p_le, _ = (
+                vol_ops.flight_steps_vjp_reference(
+                    vs, ctx.k, cells, ctx.medium, args[-1], ctx.bounces, g_b,
+                    g_l))
+            g_cells = torch.zeros(cells.shape, dtype=torch.float64,
+                                  device=cells.device).index_add_(
+                0, idx.reshape(-1), rows.reshape(-1, 8))
+            if "cells" not in mag:
+                mag["cells"] = torch.zeros_like(g_cells)
+            mag["cells"].index_add_(0, idx.reshape(-1),
+                                    rows.abs().reshape(-1, 8))
+            out = [None] * (3 + len(args))
+            out[3 + beta], out[3 + l_out] = g_bi.float(), g_li.float()
+            out[3 + nf:3 + nf + 4] = (
+                g_cells.float(), p_sa.sum().float().reshape(sig_a.shape),
+                p_ss.sum().float().reshape(sig_s.shape), p_le.sum(0).float())
+            return tuple(out)
+
+    def flight_steps(vs, k, cells, medium, sigma_maj, bounces):
+        outs = F64Steps.apply(
+            k, bounces, medium,
+            *[getattr(vs, f).contiguous() for f in vol_ops.FIELDS], cells,
+            medium.sigma_a, medium.sigma_s, medium.le, medium.bounds_min,
+            medium.bounds_max, sigma_maj)
+        return (vol_ops.VolState(*outs[:nf]), *outs[nf:])
+
+    return flight_steps
+
+
+def vol_leaf_witness():
+    """--vol-witness: volume_blob's fwd+bwd (1280x720 @ 4, one chunk, cot =
+    1 on RGB, the per-round replay) with the flight steps' backward by V2
+    (vol_ops' Function), by float32 autograd of the plain steps (the route
+    before V2, vol_ops.flight_steps_plain) and by the float64 VJP
+    (_f64_flight_steps); the loss the same bits on the three; on each leaf
+    value where V2 and the plain route differ past rtol 1e-5 / atol 1e-7,
+    which lies nearer the float64 one, and each route's values outside
+    that tolerance of the float64 one; on the density's leaf, each route's
+    distance from the float64 one over the float64 sum of its terms'
+    magnitudes (the rows of every step and round, through the cells'
+    packing)."""
+    import torch
+
+    from nart_tpu_torch import grad, vol_ops
+
+    params, sess = volume_session({"image_width": 1280, "image_height": 720,
+                                   "spp": 4})
+    samples = _image_samples(params, DEVICE)
+    cot = _rgb_cot(samples)
+    theta = grad.get_params(sess.scene)
+    from nart_tpu_torch import media
+
+    real = vol_ops.flight_steps
+    mag = {}
+    routes = {"V2": real, "plain float32": vol_ops.flight_steps_plain,
+              "float64": _f64_flight_steps(mag)}
+    leaves, losses, density = {}, {}, {}
+    for name, fn in routes.items():
+        vol_ops.flight_steps = fn
+        try:
+            t0 = time.perf_counter()
+            loss, grads, _, rounds = grad.radiance_weighted_loss_and_grad(
+                sess.scene, theta, None, samples, cot, params,
+                params.image_width, params.image_height, per_round=True)
+            torch.cuda.synchronize()
+        finally:
+            vol_ops.flight_steps = real
+        leaves[name] = grad.flatten_leaves(grads).double()
+        density[name] = grads["medium"]["density"].double()
+        losses[name] = float(loss)
+        log(f"    {name}: loss {float(loss)!r}, {rounds} rounds, "
+            f"{time.perf_counter() - t0:.1f} s")
+    if len(set(losses.values())) != 1:
+        raise AssertionError(f"the routes' losses differ: {losses}")
+    a, p, w = leaves["V2"], leaves["plain float32"], leaves["float64"]
+
+    def off(x, y):
+        return ~torch.isclose(x, y, rtol=1e-5, atol=1e-7)
+
+    split = off(a, p)
+    nearer = ((a - w).abs() < (p - w).abs()) & split
+    tie = ((a - w).abs() == (p - w).abs()) & split
+    log(f"    {int(split.sum())} of {a.numel()} leaf values where V2 and the "
+        f"plain route differ past rtol 1e-5 / atol 1e-7: V2 nearer the "
+        f"float64 VJP on {int(nearer.sum())}, the plain route on "
+        f"{int((split & ~nearer & ~tie).sum())}, as near on {int(tie.sum())}"
+        f"; outside that tolerance of the float64 one: V2 "
+        f"{int(off(a, w).sum())}, the plain route {int(off(p, w).sum())}; "
+        f"largest |V2 - float64| {float((a - w).abs().max()):.3g}, "
+        f"|plain - float64| {float((p - w).abs().max()):.3g}")
+    for j in split.nonzero()[:8, 0].tolist():
+        log(f"        [{j}] V2 {float(a[j])!r}, plain {float(p[j])!r}, "
+            f"float64 {float(w[j])!r}")
+    dens = sess.scene.medium.density.detach().double().requires_grad_()
+    (size,) = torch.autograd.grad(media.pack_density_cells(dens), dens,
+                                  mag["cells"])
+    ref = density["float64"]
+    split_d = off(density["V2"], density["plain float32"])
+    reached = size > 0
+    for name in ("V2", "plain float32"):
+        rel = (density[name] - ref).abs() / size.clamp(min=1e-30)
+        log(f"    density ({int(reached.sum())} values reached): {name}'s "
+            f"distance from the float64 one over the float64 sum of its "
+            f"terms' magnitudes at most {float(rel.max()):.3g}, on the "
+            f"{int(split_d.sum())} values split above at most "
+            f"{float(rel[split_d].max()) if bool(split_d.any()) else 0:.3g}")
+    share = ref.abs() / size.clamp(min=1e-30)
+    log(f"    density: the leaf's size over that sum, median "
+        f"{float(share[reached].median()):.3g} over the reached values, "
+        f"at most {float(share[split_d].max()) if bool(split_d.any()) else 0:.3g}"
+        " on the split ones")
 
 def _macbeth_mesh_ids(device, lanes):
     """(the mesh ids of `lanes` macbeth camera rays' closest hits through
@@ -4801,6 +5086,220 @@ def bsdf_checks():
     return records
 
 
+
+def _vol_args(s):
+    """steps_cuda's tensor arguments of a lane set (testing.vol_lane_set's
+    dict, or a captured round's): the state, the cells, the medium's six."""
+    from nart_tpu_torch import vol_ops
+
+    m = s["medium"]
+    return [getattr(s["vs"], f).contiguous() for f in vol_ops.FIELDS] + [
+        s["cells"], m.sigma_a, m.sigma_s, m.le, m.bounds_min, m.bounds_max,
+        s["sigma_maj"]]
+
+
+def _vol_sampled(s, k):
+    """The lane-steps of the k steps that sample the medium (read a cell
+    row), from the plain steps' records."""
+    from nart_tpu_torch import vol_ops
+
+    recs = []
+    vol_ops.flight_steps_plain(s["vs"], k, s["cells"], s["medium"],
+                               s["sigma_maj"], s["bounces"], recs=recs)
+    return sum(int((r["absorb"] | r["scatter"] | r["null"]).sum())
+               for r in recs)
+
+
+def vol_bytes(kernel, n, k, sampled):
+    """The bytes V1 or V2 must move for n lanes and k steps: each per-lane
+    input and output once (VOL_LANE_BYTES), k cotangent rows of 8 and
+    indices for V2, and a 32-byte cell row a sampling lane-step."""
+    fixed, per_step = VOL_LANE_BYTES[kernel]
+    return n * (fixed + k * per_step) + 32 * sampled
+
+
+def _vol_set_checks(label, s, rng):
+    """Phase 28 on one lane set, k = 1 and VOL_K: V1 against the plain
+    steps (every output, every lane, the same bits) and V2 against the
+    float64 VJP of the plain steps (rtol VOL_RTOL / atol VOL_ATOL on every
+    lane whose float64 forward chose the float32 events; the others
+    counted and named; finite everywhere), beside the plain float32 VJP's
+    distance from it.  Returns (V2's largest abs error, its largest error
+    over the tolerance)."""
+    import torch
+
+    from nart_tpu_torch import vol_ops
+
+    n = s["vs"].alive.shape[0]
+    shape = tuple(s["medium"].density.shape)
+    args = _vol_args(s)
+    worst = ratio = 0.0
+    for k in (1, VOL_K):
+        got = vol_ops.steps_cuda(k, s["bounces"], shape, *args)
+        out, died, esc, seg = vol_ops.flight_steps_plain(
+            s["vs"], k, s["cells"], s["medium"], s["sigma_maj"],
+            s["bounces"])
+        want = [getattr(out, f) for f in vol_ops.FIELDS] + [died, esc,
+                                                             seg.reshape(1)]
+        names = list(vol_ops.FIELDS) + ["died", "esc", "seg"]
+        off = {}
+        for name, a, b in zip(names, [*got[:-1], got[-1].reshape(1)], want):
+            same = (a.view(torch.int32) == b.view(torch.int32)
+                    if a.dtype == torch.float32 else a == b)
+            lanes = (~same).reshape(a.shape[0], -1).any(-1)
+            if bool(lanes.any()):
+                i = lanes.nonzero()[:3, 0]
+                off[name] = (int(lanes.sum()), i.tolist(), a[i].tolist(),
+                             b[i].tolist())
+        if off:
+            raise AssertionError(f"V1 {label}, k = {k}: outputs off the plain "
+                                 f"steps' bits (lanes, e.g. lanes, V1, "
+                                 f"plain): {off}")
+        g_beta = torch.from_numpy(rng.normal(size=(n, 3)).astype(
+            np.float32)).to(DEVICE)
+        g_l = torch.from_numpy(rng.normal(size=(n, 3)).astype(
+            np.float32)).to(DEVICE)
+        v2 = vol_ops.steps_bwd_cuda(k, s["bounces"], shape, *args, g_beta,
+                                    g_l)
+        vjp = (s["cells"], s["medium"], s["sigma_maj"], s["bounces"], g_beta,
+               g_l)
+        *ref, agree = vol_ops.flight_steps_vjp_reference(s["vs"], k, *vjp)
+        *p32, _ = vol_ops.flight_steps_vjp_reference(
+            s["vs"], k, *vjp, dtype=torch.float32)
+        twin = vol_ops.flight_steps_vjp_plain(s["vs"], k, *vjp)
+        other = int((~agree).sum())
+        lines, outside32 = [], 0
+        for j, name in enumerate(("g_beta", "g_l", "rows", "idx", "p_sa",
+                                  "p_ss", "p_le")):
+            if name == "idx":
+                if not (torch.equal(v2[j], ref[j])
+                        and torch.equal(v2[j], twin[j])):
+                    raise AssertionError(f"V2 {label}, k = {k}: the rows' "
+                                         "cells differ from the plain steps'")
+                continue
+            x, r = v2[j].double(), ref[j]
+            if not bool(torch.isfinite(v2[j]).all()):
+                raise AssertionError(f"V2 {label}, k = {k}: {name} not "
+                                     "finite")
+            lim = VOL_ATOL + VOL_RTOL * r.abs()
+            over = (x - r).abs() / lim
+            lanes = (agree[None, :, None] if name == "rows" else
+                     agree[:, None] if x.dim() == 2 else agree)
+            over_used = torch.where(lanes.expand_as(over), over, 0.0)
+            ratio = max(ratio, float(over_used.max()))
+            worst = max(worst, float(torch.where(
+                lanes.expand_as(x), (x - r).abs(), 0.0).max()))
+            bad = int((over_used > 1.0).sum())
+            o32 = (p32[j].double() - r).abs() > lim
+            outside32 += int(o32.reshape(-1, *o32.shape[-1:]).any(-1).sum()
+                             if name == "rows" else o32.reshape(n, -1)
+                             .any(-1).sum())
+            tw = bool(torch.equal(v2[j], twin[j]))
+            lines.append(f"{name} {float(over_used.max()):.3g} of the "
+                         f"tolerance{'' if not bad else f' ({bad} outside)'}"
+                         f"{', the twin bits' if tw else ''}")
+            if bad:
+                raise AssertionError(
+                    f"V2 {label}, k = {k}: {name} outside rtol {VOL_RTOL} / "
+                    f"atol {VOL_ATOL} of the float64 VJP on {bad} values")
+        log(f"    {label} ({n} lanes), k = {k}: V1 the plain steps' bits on "
+            f"every lane ({int(seg)} segment starts); V2 within the float64 "
+            f"VJP's tolerance on {n - other} lanes, {other} lanes whose "
+            f"float64 forward chose other events (not held); "
+            f"{'; '.join(lines)}; the plain float32 VJP outside the "
+            f"tolerance on {outside32} lane rows")
+    return worst, ratio
+
+
+def vol_checks():
+    """Phase 28: V1 and V2 (csrc/vol_step.cu) against their plain versions
+    on the card.  Sets: volume_blob 1280x720 @ 4's static-machine states
+    (32,768 lanes) at its first round and at round VOL_MID_ROUND of a
+    per-round render (testing.vol_round_states), and testing.vol_lane_set
+    at 32,768 lanes (every branch of a step, the null event at p_null = 0).
+    For k = 1 and VOL_K (the machines' FUSE_STEPS): V1's every output the
+    plain steps' bits on every lane; V2 within rtol 1e-5 / atol 1e-6 of
+    the float64 VJP of the plain steps (vol_ops.flight_steps_vjp_reference)
+    on every lane whose float64 forward chose the float32 events, finite
+    everywhere, the plain float32 VJP's distance logged.  At the mid-render
+    round, k = VOL_K: V1's, V2's and their plain versions' device ms (the
+    plain steps, and V2's torch twin flight_steps_vjp_plain), the bound
+    (bytes: each per-lane input and output once and a 32-byte cell row a
+    sampling lane-step, over 3.35 TB/s; operations VOL_OPS; library none:
+    no PyTorch call computes a flight step).  Returns the kernels'
+    records."""
+    import torch
+
+    from nart_tpu_torch import cuda_build, testing, vol_ops
+
+    rng = np.random.default_rng(28)
+    cuda_build.reset_launch_counts()
+    overrides = {"image_width": 1280, "image_height": 720, "spp": 4}
+    rounds = testing.vol_round_states(
+        lambda: volume_session(overrides, per_round=True)[1],
+        {1, VOL_MID_ROUND})
+    sets = {}
+    for r, (vs, k, cells, medium, sigma_maj, bounces) in sorted(
+            rounds.items()):
+        if k != VOL_K:
+            raise AssertionError(f"round {r}: {k} steps, not {VOL_K}")
+        sets[f"volume_blob round {r}"] = dict(
+            vs=vs, cells=cells, medium=medium, sigma_maj=sigma_maj,
+            bounces=bounces)
+    sets["edge set"] = testing.vol_lane_set(VOL_EDGE_LANES, 28, DEVICE)
+    worst = ratio = 0.0
+    for label, s in sets.items():
+        w, r = _vol_set_checks(label, s, rng)
+        worst, ratio = max(worst, w), max(ratio, r)
+
+    s = sets[f"volume_blob round {VOL_MID_ROUND}"]
+    n = s["vs"].alive.shape[0]
+    shape = tuple(s["medium"].density.shape)
+    args = _vol_args(s)
+    g = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(
+        DEVICE) for _ in range(2)]
+    vjp = (s["cells"], s["medium"], s["sigma_maj"], s["bounces"], *g)
+    sampled = _vol_sampled(s, VOL_K)
+    fns = {
+        "vol_steps": (
+            lambda: vol_ops.steps_cuda(VOL_K, s["bounces"], shape, *args),
+            lambda: vol_ops.flight_steps_plain(
+                s["vs"], VOL_K, s["cells"], s["medium"], s["sigma_maj"],
+                s["bounces"])),
+        "vol_steps_bwd": (
+            lambda: vol_ops.steps_bwd_cuda(VOL_K, s["bounces"], shape, *args,
+                                           *g),
+            lambda: vol_ops.flight_steps_vjp_plain(s["vs"], VOL_K, *vjp)),
+    }
+    records = {}
+    for kname, (kern, plain) in fns.items():
+        t = kernel_ms(kern, 20)
+        tp = device_ms(plain, launches=5)
+        nbytes = vol_bytes(kname, n, VOL_K, sampled)
+        f32, f64 = (x * n * VOL_K for x in VOL_OPS[kname])
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES
+        ops_ms = 1e3 * (f32 / PEAK_FLOPS + f64 / PEAK_FLOPS64)
+        bound = max(bytes_ms, ops_ms)
+        side = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"    {kname} at volume_blob's round {VOL_MID_ROUND} ({n} lanes, "
+            f"k = {VOL_K}, {sampled} sampling lane-steps): {fmt(t)}; plain "
+            f"version {fmt(tp)}; library none (no PyTorch call computes a "
+            f"flight step); bound {bound:.6f} ms ({side}; bytes {nbytes}: "
+            f"{bytes_ms:.6f} ms; operations {f32:.0f} float32 and {f64:.0f} "
+            f"float64: {ops_ms:.6f} ms), {100 * bound / t['ms']:.2f}% "
+            f"reached; plain / kernel {tp['ms'] / t['ms']:.1f}x")
+        records[kname] = dict(
+            ms=t["ms"], ms_min=t["min"], ms_max=t["max"],
+            ms_per_call=t["ms_per_call"], plain_ms=tp["ms"],
+            plain_method=tp["method"], library_ms=None, bound_ms=bound,
+            bound_by=side, bytes=nbytes, ops_f32=f32, ops_f64=f64, lanes=n,
+            steps=VOL_K, sampled_lane_steps=sampled,
+            max_abs_err=worst if kname == "vol_steps_bwd" else 0.0,
+            tolerance_ratio=ratio if kname == "vol_steps_bwd" else None,
+            shape=f"volume_blob 1280x720 @ 4, static machine, round "
+                  f"{VOL_MID_ROUND}")
+    return records
+
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
 # (first round, rounds) of the volume phases' profiled windows
@@ -4860,6 +5359,28 @@ BSDF_OPS = {
     (3, -1): {"bsdf_sample": (54.0, 0), "bsdf_eval": (5.0, 0),
               "bsdf_f_bwd": (44.0, 457.0)}}
 PEAK_FLOPS64 = 34e12  # float64 outside the tensor cores, H100 SXM
+# phase 28: the machines' steps a round, the mid-render round of
+# volume_blob's states, the edge set's lanes, V2's tolerance against the
+# float64 VJP
+VOL_K = 4
+VOL_MID_ROUND = 60
+VOL_EDGE_LANES = 32768
+VOL_RTOL, VOL_ATOL = 1e-5, 1e-6
+# the bytes a lane of V1 / V2 moves besides its cell rows: (fixed, a step).
+# V1: the state in (alive and new_ray 1 each, bounce and state 8, u_mode,
+# t_cur, t_exit 4, o, d, beta, l_out 12: 78) and out, with died and esc
+# (80).  V2: the state and the two cotangents in (78 + 24), the two
+# incoming cotangents and the partials out (12 + 12 + 4 + 4 + 12); a step
+# a row of 8 cotangents and an int64 index out
+VOL_LANE_BYTES = {"vol_steps": (158, 0), "vol_steps_bwd": (146, 40)}
+# the float32 and float64 operations of a lane-step (an add, subtract,
+# multiply, divide, compare, min, max, conversion, log, acos, sin or cos
+# one operation), counted from csrc/vol_step.cu's flight_step (~175: the
+# slab clip 30, six draws' floats 18, the flight 5, the point and its
+# inside test 12, the cell 27, its weights and sum 34, the event 8, the
+# ratios 8, beta and l_out 18, the sphere 10 where it scatters) and
+# step_back (a float64 density 15 and the reverse pass ~80)
+VOL_OPS = {"vol_steps": (175, 0), "vol_steps_bwd": (175, 95)}
 
 
 def main():
@@ -4882,11 +5403,13 @@ def main():
     log(smi)
 
     t0 = time.perf_counter()
-    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE, BSDF_SOURCE)
+    sources = (SOURCE, LUT_SOURCE, LARGE_SOURCE, BVH_SOURCE, BSDF_SOURCE,
+               VOL_SOURCE)
+    reported = (BVH_SOURCE, BSDF_SOURCE, VOL_SOURCE)
     libs = [os.path.splitext(os.path.basename(f))[0] for f in sources]
-    with ThreadPoolExecutor(len(libs) + 3) as pool:  # one nvcc a source
-        reports = [pool.submit(ptxas_report, f)
-                   for f in (BVH_SOURCE, BSDF_SOURCE)]
+    with ThreadPoolExecutor(len(libs) + len(reported) + 1) as pool:
+        # one nvcc a source, all started together
+        reports = [pool.submit(ptxas_report, f) for f in reported]
         host = pool.submit(cuda_build.build_host, "core")  # g++
         list(pool.map(cuda_build.build, libs))
         reports, host = [r.result() for r in reports], host.result()
@@ -4898,7 +5421,7 @@ def main():
         f"({os.path.basename(host)}), together, in "
         f"{time.perf_counter() - t0:.2f} s")
     from nart_tpu_torch.kernel_variants import bsdf_design, ptxas_kernels
-    for source, report in zip((BVH_SOURCE, BSDF_SOURCE), reports):
+    for source, report in zip(reported, reports):
         for kname, regs, frame, st, ld in ptxas_kernels(report):
             design = bsdf_design(kname)
             log(f"ptxas {source}: {kname}{design} {regs} registers, stack "
@@ -4945,6 +5468,7 @@ def main():
     counts_large = phase("large mesh", large_mesh)
     phase("scaling evidence", scaling_phase)
     records.update(phase("BSDF kernels", bsdf_checks))
+    records.update(phase("volume flight-step kernels", vol_checks))
     # the forward kernels a graphed macbeth path round with the BSDF calls
     # on their plain versions and on the kernels (phase 21)
     mac = rounds_records["macbeth 1280x720 @ 4 spp"]["graphed"]
@@ -4956,6 +5480,19 @@ def main():
     for k in BSDF:
         records[k]["forward_kernels_a_round"] = {"before": before,
                                                  "after": after}
+    # the same for a graphed volume_blob round with the flight steps on
+    # their plain version and on V1 (phase 21)
+    vol = rounds_records["volume_blob 1280x720 @ 4 spp"]["graphed"]
+    before, after = (vol["plain_steps"]["kernels_a_round"],
+                     vol["kernels_a_round"])
+    log(f"forward kernels and copies a graphed volume_blob 1280x720 @ 4 spp "
+        f"round (phase 21): {before:.1f} with the flight steps' plain "
+        f"version, {after:.1f} with V1 ({before / after:.2f}x fewer); device "
+        f"ms of the profiled render {vol['plain_steps']['device_ms']:.3f} -> "
+        f"{vol['device_ms']:.3f}")
+    for k in VOL:
+        records[k]["forward_kernels_a_round"] = {"before": before,
+                                                 "after": after}
 
     # `launches`: a traversal kernel's in the forward render (phase 5), a
     # look-up kernel's (small or large tables) in the fwd+bwd (phase 6),
@@ -4963,6 +5500,8 @@ def main():
     # (phase 17), the path of the accel kind it serves
     runs = {k: (counts, "forward") if k in TRAVERSAL + BSDF[:2] else
             (counts_bvh, "bvh render") if k == "bvh_hit" else
+            (counts_vol, "volume forward") if k == "vol_steps" else
+            (counts_vol_train, "volume fwd+bwd") if k == "vol_steps_bwd" else
             (counts_train, "fwd+bwd") for k in KERNELS}
     for k, (run, label) in runs.items():
         if run[k] <= 0:
@@ -4993,6 +5532,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--turn"]:
         sys.path.insert(0, sys.argv[2])
         turn(sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--vol-witness"]:
+        sys.path.insert(0, HERE)
+        log(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+        vol_leaf_witness()
         sys.exit(0)
     if sys.argv[1:2] == ["--witness"]:
         sys.path.insert(0, HERE)

@@ -15,10 +15,12 @@ imported.
 the traversal kernels of csrc/cluster_hit.cu (cluster_accel.py), the LBVH
 walk of csrc/bvh_walk.cu (bvh.py: "bvh_hit", its closest-hit and any-hit
 entries alike), the look-up kernels of csrc/small_lut.cu and
-csrc/large_lut.cu (select.py) and the BSDF kernels of csrc/bsdf.cu
+csrc/large_lut.cu (select.py), the BSDF kernels of csrc/bsdf.cu
 (bsdf_ops.py: "bsdf_sample", "bsdf_sample_eval", "bsdf_eval",
 "bsdf_f_bwd"; X1's and X3's first designs, the references,
-"bsdf_sample_reference" and "bsdf_f_bwd_reference").
+"bsdf_sample_reference" and "bsdf_f_bwd_reference") and the volume's
+flight-step kernels of csrc/vol_step.cu (vol_ops.py: "vol_steps", V1, a
+round's steps forward, and "vol_steps_bwd", V2, their backward).
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
                  "bvh_hit": 0, "bvh_hit_reference": 0, "bsdf_sample": 0,
                  "bsdf_sample_eval": 0, "bsdf_eval": 0, "bsdf_f_bwd": 0,
-                 "bsdf_sample_reference": 0, "bsdf_f_bwd_reference": 0}
+                 "bsdf_sample_reference": 0, "bsdf_f_bwd_reference": 0,
+                 "vol_steps": 0, "vol_steps_bwd": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 

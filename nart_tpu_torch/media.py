@@ -67,22 +67,38 @@ def pack_density_cells(density):
     return torch.stack(rows, dim=-1).reshape(-1, 8)
 
 
-def density_lookup_cells(cells, grid_shape, p_unit):
-    """Trilinear lookup against pack_density_cells' table: the sum of the 8
-    corner-weight products, taken left to right (the nested lerps of
-    density_lookup differ by about an ulp).  grid_shape is the density's
+def cell_coords(grid_shape, p_unit):
+    """(idx, f): the row of pack_density_cells' table that holds p's cell
+    (not clamped) and p's fraction in it, xyz.  grid_shape is the density's
     own (Z, Y, X) shape."""
     rz, ry, rx = grid_shape
     lo, f = _grid_point(grid_shape, p_unit)
-    idx = (lo[:, 2] * (ry - 1) + lo[:, 1]) * (rx - 1) + lo[:, 0]
-    # (N, 8): the one gather, through the look-up kernels on the card
-    row = small_lut(idx, cells.shape[0])(cells)
+    return (lo[:, 2] * (ry - 1) + lo[:, 1]) * (rx - 1) + lo[:, 0], f
+
+
+def cell_weights(f):
+    """The 8 corner weights of fractions f, corner k's (wz * wy) * wx."""
     wx = (1.0 - f[:, 0], f[:, 0])
     wy = (1.0 - f[:, 1], f[:, 1])
     wz = (1.0 - f[:, 2], f[:, 2])
+    return [wz[k >> 2 & 1] * wy[k >> 1 & 1] * wx[k & 1] for k in range(8)]
+
+
+def density_lookup_cells(cells, grid_shape, p_unit, gather=None):
+    """Trilinear lookup against pack_density_cells' table: the sum of the 8
+    corner-weight products, taken left to right (the nested lerps of
+    density_lookup differ by about an ulp).  grid_shape is the density's
+    own (Z, Y, X) shape.  gather(idx, cells) -> (N, 8) rows replaces the
+    look-up (idx clamped to the table): the float64 reference of the flight
+    step's backward reads its rows through one (vol_ops)."""
+    idx, f = cell_coords(grid_shape, p_unit)
+    if gather is None:
+        # (N, 8): the one gather, through the look-up kernels on the card
+        row = small_lut(idx, cells.shape[0])(cells)
+    else:
+        row = gather(idx.clamp(0, cells.shape[0] - 1), cells)
     out = None
-    for k in range(8):
-        w = wz[k >> 2 & 1] * wy[k >> 1 & 1] * wx[k & 1]
+    for k, w in enumerate(cell_weights(f)):
         term = row[:, k] * w
         out = term if out is None else out + term
     return out
@@ -99,10 +115,11 @@ def _unit(medium, p):
     return inside, (p - bmin) / (bmax - bmin)
 
 
-def medium_properties_cells(medium, cells, p):
-    """medium_properties with the packed-cell density table."""
+def medium_properties_cells(medium, cells, p, gather=None):
+    """medium_properties with the packed-cell density table (gather: as
+    for density_lookup_cells)."""
     inside, p_unit = _unit(medium, p)
-    dens = density_lookup_cells(cells, medium.density.shape, p_unit)
+    dens = density_lookup_cells(cells, medium.density.shape, p_unit, gather)
     return _scaled(medium, inside, dens)
 
 

@@ -284,3 +284,174 @@ def tiled(s, times):
         return torch.cat([t] * times).contiguous()
     return {k: bxdf.BsdfDesc(*map(tile, v)) if k == "desc" else tile(v)
             for k, v in s.items()}
+
+
+# vol_lane_set's medium: an 8^3 grid in an asymmetric box, its corner
+# block of 5^3 points at the majorant (p_absorb 0.25 and p_scatter 0.75
+# there, so p_null rounds to 0 or about it), the opposite block of 3^3 at
+# NEAR_MAJORANT of it (p_null 1e-3), the rest in [0.1, 0.9]
+VOL_BOUNDS = ((-1.0, -0.5, -2.0), (1.0, 1.5, 0.5))
+VOL_SIGMA = (2.5, 7.5)
+NEAR_MAJORANT = 0.999
+
+
+def vol_medium(device="cpu", seed=0):
+    """vol_lane_set's medium (MediumData on device) and its density grid
+    (numpy, (Z, Y, X))."""
+    g = np.random.default_rng(seed)
+    dens = g.uniform(0.1, 0.9, (8, 8, 8)).astype(np.float32)
+    dens[:5, :5, :5] = 1.0
+    dens[5:, 5:, 5:] = NEAR_MAJORANT
+    sa, ss = VOL_SIGMA
+    medium = MediumData(
+        bounds_min=_t(np.float32(VOL_BOUNDS[0])).to(device),
+        bounds_max=_t(np.float32(VOL_BOUNDS[1])).to(device),
+        sigma_a=torch.tensor(sa, dtype=torch.float32, device=device),
+        sigma_s=torch.tensor(ss, dtype=torch.float32, device=device),
+        le=torch.tensor([0.4, 0.3, 0.2], device=device),
+        density=_t(dens).to(device),
+        sigma_maj=float(dens.max()) * (sa + ss))
+    return medium, dens
+
+
+def vol_lane_set(n, seed, device="cpu", bounces=2):
+    """n lanes of the volume's walk state from a numpy seed, each of a
+    kind that makes a flight step take one of its branches: dead lanes,
+    segments starting inside the box (some along an axis: d == 0 on one or
+    two axes), from outside it toward it and away from it (a missed box),
+    lanes in flight (t_exit from the box, or just past t_cur: the segment
+    is left, or far past the box: the medium is left), lanes in flight in
+    the block at the majorant (p_null rounds to 0 or about it), lanes
+    standing on the box's lower corner (d = 0, so p is that grid point:
+    the density there is the majorant's exactly) with u_mode 1 (the null
+    event at p_null = 0 in their first step), lanes in flight in the block
+    at NEAR_MAJORANT with u_mode above it (the null event at p_null
+    1e-3, whose float32 value is off by ~1e-4 of itself), bounce counts
+    around the limit `bounces`.
+    Returns a dict: vs (a vol_ops.VolState), medium, cells
+    (media.pack_density_cells), sigma_maj (a () tensor), bounces, g_beta
+    and g_l (random cotangents (n, 3)), kind (n,) int (the lane's kind, an
+    index into VOL_KINDS), all on `device`."""
+    from .media import clip_to_aabb, pack_density_cells
+    from .vol_ops import VolState
+
+    g = np.random.default_rng(seed)
+    medium, _ = vol_medium("cpu", seed)
+    lo, hi = (np.float32(b) for b in VOL_BOUNDS)
+    kind = g.integers(0, len(VOL_KINDS), n)
+
+    def unit(m):
+        w = g.normal(size=(m, 3)).astype(np.float32)
+        return (w / np.linalg.norm(w, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    o = g.uniform(lo + 0.05, hi - 0.05, (n, 3)).astype(np.float32)
+    d = unit(n)
+    k = VOL_KINDS.index
+    axis = kind == k("axis")
+    d[axis] = np.float32([0.0, 0.0, 1.0])
+    two = axis & (g.random(n) < 0.5)
+    d[two] = np.float32([0.6, 0.0, 0.8])
+    # from outside: toward the box's centre, or away from it
+    out = (kind == k("outside")) | (kind == k("missed"))
+    c = (lo + hi) / 2
+    o[out] = c + 3.0 * unit(int(out.sum()))
+    toward = c - o[out]
+    toward /= np.linalg.norm(toward, axis=-1, keepdims=True)
+    d[out] = np.where((kind[out] == k("outside"))[:, None], toward,
+                      -toward).astype(np.float32)
+    # in the majorant block (cells 0 and 1 on each axis)
+    maj = kind == k("majorant")
+    span = (hi - lo) * np.float32(4.0 / 7.0)
+    o[maj] = (lo + g.uniform(0.1, 0.9, (int(maj.sum()), 3)).astype(
+        np.float32) * span).astype(np.float32)
+    d = d.astype(np.float32)
+    o = o.astype(np.float32)
+    _, t0, t1 = clip_to_aabb(_t(o), _t(d), medium.bounds_min,
+                             medium.bounds_max)
+    t_cur = np.zeros(n, np.float32)
+    t_exit = t1.numpy().copy()
+    flight = ~np.isin(kind, [k("segment"), k("axis"), k("outside"),
+                             k("missed"), k("dead")])
+    t_cur[flight] = (g.uniform(0.0, 0.3, n) * np.maximum(t_exit, 0.0))[
+        flight].astype(np.float32)
+    short = kind == k("leave_segment")
+    t_exit[short] = t_cur[short] + np.float32(1e-3)
+    far = kind == k("leave_medium")
+    t_exit[far] = 50.0
+    t_cur[maj] = 0.0
+    near = kind == k("near_majorant")
+    o[near] = (hi - g.uniform(0.1, 0.9, (int(near.sum()), 3)).astype(
+        np.float32) * ((hi - lo) * np.float32(2.0 / 7.0))).astype(np.float32)
+    corner = kind == k("null_at_majorant")
+    o[corner] = lo
+    d[corner] = 0.0
+    t_cur[corner] = 0.0
+    t_exit[corner] = 50.0
+    u_mode = g.random(n, dtype=np.float32)
+    u_mode[corner] = 1.0
+    u_mode[near] = g.uniform(NEAR_MAJORANT + 2e-4, 1.0 - 1e-5,
+                             int(near.sum())).astype(np.float32)
+    alive = kind != k("dead")
+    new_ray = np.isin(kind, [k("segment"), k("axis"), k("outside"),
+                             k("missed")])
+    bounce = g.integers(0, bounces + 2, n).astype(np.int64)
+    state = g.integers(1, 2 ** 32, n).astype(np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    vs = VolState(
+        alive=t(alive), new_ray=t(new_ray), bounce=t(bounce),
+        u_mode=t(u_mode), t_cur=t(t_cur), t_exit=t(t_exit), o=t(o), d=t(d),
+        state=t(state),
+        beta=t(g.uniform(0.5, 1.5, (n, 3)).astype(np.float32)),
+        l_out=t(g.uniform(0.0, 1.0, (n, 3)).astype(np.float32)))
+    medium = medium.to(device)
+    return dict(vs=vs, medium=medium,
+                cells=pack_density_cells(medium.density),
+                sigma_maj=torch.tensor(float(np.float32(medium.sigma_maj)),
+                                       device=device),
+                bounces=bounces, kind=t(kind),
+                g_beta=t(g.normal(size=(n, 3)).astype(np.float32)),
+                g_l=t(g.normal(size=(n, 3)).astype(np.float32)))
+
+
+VOL_KINDS = ("dead", "segment", "axis", "outside", "missed", "flight",
+             "leave_segment", "leave_medium", "majorant", "null_at_majorant",
+             "near_majorant")
+
+
+def vol_round_states(make_session, rounds):
+    """The arguments of the volume machine's flight_steps calls in the
+    rounds `rounds` (1-based) of a render (make_session() -> a
+    RenderSession, per_round=True), copied: {round: (vs, k, cells, medium,
+    sigma_maj, bounces)}.  The render stops after the last."""
+    from . import round_ops, vol_ops
+    from .integrators import volume
+
+    real = vol_ops.flight_steps
+    seen = {"rounds": 0}
+    out = {}
+
+    def copy(t):
+        return t.detach().clone(memory_format=torch.contiguous_format)
+
+    def keep(vs, k, cells, medium, sigma_maj, bounces):
+        if seen["rounds"] in rounds:
+            out[seen["rounds"]] = (
+                vol_ops.VolState(*[copy(getattr(vs, f))
+                                   for f in vol_ops.FIELDS]),
+                k, copy(cells), medium, copy(sigma_maj), bounces)
+        return real(vs, k, cells, medium, sigma_maj, bounces)
+
+    vol_ops.flight_steps = keep
+    maker = round_ops.stop_after(volume, "_make_vol_step", max(rounds), seen)
+    try:
+        make_session().render()
+    except round_ops.Done:
+        pass
+    finally:
+        vol_ops.flight_steps = real
+        volume._make_vol_step = maker
+    return out
