@@ -361,14 +361,23 @@ Phases (any failure raises and exits non-zero):
      set at 32,768 lanes (every branch of a step, the null event at p_null
      = 0, null events near the majorant).  For k = 1 and 4: V1's every
      output (the state, died, esc, the segment starts) the plain steps'
-     bits on every lane; V2 within rtol 1e-5 / atol 1e-6 of the float64
-     VJP of the plain steps (vol_ops.flight_steps_vjp_reference) on every
-     lane whose float64 forward chose the float32 events (the others
-     counted), finite everywhere; the plain float32 VJP's distance from
-     it logged.  At the mid-render round, k = 4: V1's, V2's, the plain
-     steps' and V2's torch twin's (vol_ops.flight_steps_vjp_plain) device
-     ms, the bound (bytes: each per-lane input and output once and a
-     32-byte cell row a sampling lane-step; library none).
+     bits and its first design's (nart_vol_steps_ref) on every lane, the
+     starts also added into an accumulator; V2's every output its first
+     design's (nart_vol_steps_bwd_ref) bits on every lane, and within
+     rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain steps
+     (vol_ops.flight_steps_vjp_reference) on every lane whose float64
+     forward chose the float32 events (the others counted), finite
+     everywhere; the plain float32 VJP's distance from it logged.  At the
+     mid-render round, k = 4: V1's (with the rays' accumulator, one graph
+     node a call), V2's, the plain steps' and V2's torch twin's
+     (vol_ops.flight_steps_vjp_plain) device ms, the bound (bytes: each
+     per-lane input and output once and a 32-byte cell row a sampling
+     lane-step; library none); V1 and V2 against their first designs in
+     turns (reference, new, new, reference), the node floor (an empty
+     kernel of V1's grid, a one-element fill) by the same timer, the
+     graph nodes of a call; the redesign's sine and cosine against sinf
+     and cosf on every float in [-2 pi, 2 pi].  Phase 2 fails where the
+     shipped V1 or V2 has a stack frame or spills.
 With --turns PARENT_TREE (a checkout of the parent commit, e.g. unpacked
 with git archive into the git-ignored out/): phase 22's three cells, each
 tree in a fresh process (`--turn TREE OUT`, which imports TREE's
@@ -397,7 +406,9 @@ launches_large_mesh: phase 25's counted renders, every kernel's the
 cluster one's but B1's, the bvh one's; V1's `launches` phase 10's
 volume forward, V2's phase 11's volume fwd+bwd, launches_volume both,
 their forward_kernels_a_round phase 21's volume_blob count with the
-flight steps' plain version and with V1); the
+flight steps' plain version and with V1, their reference_ms, turns_ms,
+graph_nodes, node_floor_ms, fill_ms and ptxas phase 28's and phase 2's,
+V1's trig_mismatches phase 28's); the
 last line is {"ok": true, "device": {...}}.  Needs the repository
 checkout (it imports nart_tpu_torch from beside this file); imports nothing
 of JAX.
@@ -3411,12 +3422,12 @@ def _f64_flight_steps(mag):
 
     class F64Steps(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, k, bounces, medium, *args):
+        def forward(ctx, k, bounces, medium, acc, *args):
             ctx.set_materialize_grads(False)
             ctx.k, ctx.bounces, ctx.medium = k, bounces, medium
             ctx.save_for_backward(*args)
             outs = vol_ops.steps_cuda(k, bounces, tuple(medium.density.shape),
-                                      *args)
+                                      *args, seg=acc[0])[:-1]
             ctx.mark_non_differentiable(*[
                 o for j, o in enumerate(outs) if j not in (beta, l_out)])
             return outs
@@ -3442,20 +3453,22 @@ def _f64_flight_steps(mag):
                 mag["cells"] = torch.zeros_like(g_cells)
             mag["cells"].index_add_(0, idx.reshape(-1),
                                     rows.abs().reshape(-1, 8))
-            out = [None] * (3 + len(args))
-            out[3 + beta], out[3 + l_out] = g_bi.float(), g_li.float()
-            out[3 + nf:3 + nf + 4] = (
+            out = [None] * (4 + len(args))  # k, bounces, medium, acc
+            out[4 + beta], out[4 + l_out] = g_bi.float(), g_li.float()
+            out[4 + nf:4 + nf + 4] = (
                 g_cells.float(), p_sa.sum().float().reshape(sig_a.shape),
                 p_ss.sum().float().reshape(sig_s.shape), p_le.sum(0).float())
             return tuple(out)
 
-    def flight_steps(vs, k, cells, medium, sigma_maj, bounces):
+    def flight_steps(vs, k, cells, medium, sigma_maj, bounces, seg=None):
+        if seg is None:
+            seg = torch.zeros((), dtype=torch.int64, device=vs.o.device)
         outs = F64Steps.apply(
-            k, bounces, medium,
+            k, bounces, medium, (seg,),
             *[getattr(vs, f).contiguous() for f in vol_ops.FIELDS], cells,
             medium.sigma_a, medium.sigma_s, medium.le, medium.bounds_min,
             medium.bounds_max, sigma_maj)
-        return (vol_ops.VolState(*outs[:nf]), *outs[nf:])
+        return (vol_ops.VolState(*outs[:nf]), *outs[nf:], seg)
 
     return flight_steps
 
@@ -5118,14 +5131,38 @@ def vol_bytes(kernel, n, k, sampled):
     return n * (fixed + k * per_step) + 32 * sampled
 
 
+def _vol_off(label, names, got, want, whose):
+    """Every output of got the same bits as want's on every lane, else an
+    AssertionError naming the outputs off (lanes, some of them, values)."""
+    import torch
+
+    off = {}
+    for name, a, b in zip(names, got, want):
+        a, b = a.reshape(a.shape[0] if a.dim() else 1, -1), b.reshape(
+            b.shape[0] if b.dim() else 1, -1)
+        same = (a.view(torch.int32) == b.view(torch.int32)
+                if a.dtype == torch.float32 else a == b)
+        lanes = (~same).any(-1)
+        if bool(lanes.any()):
+            i = lanes.nonzero()[:3, 0]
+            off[name] = (int(lanes.sum()), i.tolist(), a[i].tolist(),
+                         b[i].tolist())
+    if off:
+        raise AssertionError(f"{label}: outputs off {whose} bits (lanes, "
+                             f"e.g. lanes, got, want): {off}")
+
+
 def _vol_set_checks(label, s, rng):
     """Phase 28 on one lane set, k = 1 and VOL_K: V1 against the plain
-    steps (every output, every lane, the same bits) and V2 against the
-    float64 VJP of the plain steps (rtol VOL_RTOL / atol VOL_ATOL on every
-    lane whose float64 forward chose the float32 events; the others
-    counted and named; finite everywhere), beside the plain float32 VJP's
-    distance from it.  Returns (V2's largest abs error, its largest error
-    over the tolerance)."""
+    steps and against its first design (nart_vol_steps_ref), V2 against
+    its first design (nart_vol_steps_bwd_ref): every output, every lane,
+    the same bits; V1's segment starts added into an accumulator that
+    held a count already; and V2 against the float64 VJP of the plain
+    steps (rtol VOL_RTOL / atol VOL_ATOL on every lane whose float64
+    forward chose the float32 events; the others counted and named;
+    finite everywhere), beside the plain float32 VJP's distance from it.
+    Returns (V2's largest abs error, its largest error over the
+    tolerance)."""
     import torch
 
     from nart_tpu_torch import vol_ops
@@ -5133,34 +5170,35 @@ def _vol_set_checks(label, s, rng):
     n = s["vs"].alive.shape[0]
     shape = tuple(s["medium"].density.shape)
     args = _vol_args(s)
+    names = list(vol_ops.FIELDS) + ["died", "esc", "seg"]
     worst = ratio = 0.0
     for k in (1, VOL_K):
         got = vol_ops.steps_cuda(k, s["bounces"], shape, *args)
         out, died, esc, seg = vol_ops.flight_steps_plain(
             s["vs"], k, s["cells"], s["medium"], s["sigma_maj"],
             s["bounces"])
-        want = [getattr(out, f) for f in vol_ops.FIELDS] + [died, esc,
-                                                             seg.reshape(1)]
-        names = list(vol_ops.FIELDS) + ["died", "esc", "seg"]
-        off = {}
-        for name, a, b in zip(names, [*got[:-1], got[-1].reshape(1)], want):
-            same = (a.view(torch.int32) == b.view(torch.int32)
-                    if a.dtype == torch.float32 else a == b)
-            lanes = (~same).reshape(a.shape[0], -1).any(-1)
-            if bool(lanes.any()):
-                i = lanes.nonzero()[:3, 0]
-                off[name] = (int(lanes.sum()), i.tolist(), a[i].tolist(),
-                             b[i].tolist())
-        if off:
-            raise AssertionError(f"V1 {label}, k = {k}: outputs off the plain "
-                                 f"steps' bits (lanes, e.g. lanes, V1, "
-                                 f"plain): {off}")
+        want = [getattr(out, f) for f in vol_ops.FIELDS] + [died, esc, seg]
+        _vol_off(f"V1 {label}, k = {k}", names, got, want,
+                 "the plain steps'")
+        _vol_off(f"V1 {label}, k = {k}", names, got,
+                 vol_ops.steps_ref_cuda(k, s["bounces"], shape, *args),
+                 "its first design's (nart_vol_steps_ref)")
+        acc = torch.full((), 1000003, dtype=torch.int64, device=DEVICE)
+        vol_ops.steps_cuda(k, s["bounces"], shape, *args, seg=acc)
+        if int(acc) != 1000003 + int(seg):
+            raise AssertionError(f"V1 {label}, k = {k}: the accumulator "
+                                 f"holds {int(acc)}, not 1000003 + "
+                                 f"{int(seg)}")
         g_beta = torch.from_numpy(rng.normal(size=(n, 3)).astype(
             np.float32)).to(DEVICE)
         g_l = torch.from_numpy(rng.normal(size=(n, 3)).astype(
             np.float32)).to(DEVICE)
         v2 = vol_ops.steps_bwd_cuda(k, s["bounces"], shape, *args, g_beta,
                                     g_l)
+        _vol_off(f"V2 {label}, k = {k}", VOL_GRADS, v2,
+                 vol_ops.steps_bwd_ref_cuda(k, s["bounces"], shape, *args,
+                                            g_beta, g_l),
+                 "its first design's (nart_vol_steps_bwd_ref)")
         vjp = (s["cells"], s["medium"], s["sigma_maj"], s["bounces"], g_beta,
                g_l)
         *ref, agree = vol_ops.flight_steps_vjp_reference(s["vs"], k, *vjp)
@@ -5169,8 +5207,7 @@ def _vol_set_checks(label, s, rng):
         twin = vol_ops.flight_steps_vjp_plain(s["vs"], k, *vjp)
         other = int((~agree).sum())
         lines, outside32 = [], 0
-        for j, name in enumerate(("g_beta", "g_l", "rows", "idx", "p_sa",
-                                  "p_ss", "p_le")):
+        for j, name in enumerate(VOL_GRADS):
             if name == "idx":
                 if not (torch.equal(v2[j], ref[j])
                         and torch.equal(v2[j], twin[j])):
@@ -5202,8 +5239,10 @@ def _vol_set_checks(label, s, rng):
                 raise AssertionError(
                     f"V2 {label}, k = {k}: {name} outside rtol {VOL_RTOL} / "
                     f"atol {VOL_ATOL} of the float64 VJP on {bad} values")
-        log(f"    {label} ({n} lanes), k = {k}: V1 the plain steps' bits on "
-            f"every lane ({int(seg)} segment starts); V2 within the float64 "
+        log(f"    {label} ({n} lanes), k = {k}: V1 the plain steps' and its "
+            f"first design's bits on every lane ({int(seg)} segment starts, "
+            f"also added into an accumulator); V2 its first design's bits on "
+            f"every lane, within the float64 "
             f"VJP's tolerance on {n - other} lanes, {other} lanes whose "
             f"float64 forward chose other events (not held); "
             f"{'; '.join(lines)}; the plain float32 VJP outside the "
@@ -5260,9 +5299,11 @@ def vol_checks():
         DEVICE) for _ in range(2)]
     vjp = (s["cells"], s["medium"], s["sigma_maj"], s["bounces"], *g)
     sampled = _vol_sampled(s, VOL_K)
+    acc = torch.zeros((), dtype=torch.int64, device=DEVICE)  # the rays'
     fns = {
         "vol_steps": (
-            lambda: vol_ops.steps_cuda(VOL_K, s["bounces"], shape, *args),
+            lambda: vol_ops.steps_cuda(VOL_K, s["bounces"], shape, *args,
+                                       seg=acc),
             lambda: vol_ops.flight_steps_plain(
                 s["vs"], VOL_K, s["cells"], s["medium"], s["sigma_maj"],
                 s["bounces"])),
@@ -5298,7 +5339,78 @@ def vol_checks():
             tolerance_ratio=ratio if kname == "vol_steps_bwd" else None,
             shape=f"volume_blob 1280x720 @ 4, static machine, round "
                   f"{VOL_MID_ROUND}")
+    for k, fields in _vol_turns(s, args, g, acc).items():
+        records[k].update(fields)
     return records
+
+
+def _vol_turns(s, args, g, acc):
+    """Phase 28 at the mid-render round, k = VOL_K: V1 (with the rays'
+    accumulator, as the machines call it) and V2 against their first
+    designs (V1's with its zero-filled count, as the first design's
+    machines called it) in turns (reference, new, new, reference), device
+    ms each; the node floor (an empty kernel of V1's grid, a one-element
+    fill) by the same timer; the graph nodes of a call; and the
+    redesign's sine and cosine against sinf / cosf on every float in
+    [-2 pi, 2 pi] (none may differ).  Returns {kernel: fields for its
+    record}."""
+    import torch
+
+    from nart_tpu_torch import vol_ops
+
+    n = s["vs"].alive.shape[0]
+    shape = tuple(s["medium"].density.shape)
+    b = s["bounces"]
+    pairs = {
+        "vol_steps": (
+            lambda: vol_ops.steps_ref_cuda(VOL_K, b, shape, *args),
+            lambda: vol_ops.steps_cuda(VOL_K, b, shape, *args, seg=acc)),
+        "vol_steps_bwd": (
+            lambda: vol_ops.steps_bwd_ref_cuda(VOL_K, b, shape, *args, *g),
+            lambda: vol_ops.steps_bwd_cuda(VOL_K, b, shape, *args, *g))}
+    one = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    floor = {"empty": lambda: vol_ops.node_floor_cuda(n, one.device),
+             "fill": one.zero_}
+    per_call = call_ms(pairs["vol_steps"][0], 5)
+    floor_ms = {key: device_ms(fn, launches_for(per_call))
+                for key, fn in floor.items()}
+    log(f"    node floor ({n} lanes): an empty kernel of V1's grid "
+        f"{fmt(floor_ms['empty'])}, a one-element fill "
+        f"{fmt(floor_ms['fill'])}")
+    out = {}
+    for k, (ref_fn, new_fn) in pairs.items():
+        per_call = call_ms(ref_fn, 5)
+        ms = {"reference": [], "new": []}
+        for turn in ("reference", "new", "new", "reference"):
+            fn = ref_fn if turn == "reference" else new_fn
+            ms[turn].append(device_ms(fn, launches_for(per_call))["ms"])
+        nodes, nodes_ref = graph_nodes(new_fn), graph_nodes(ref_fn)
+        ref_ms = statistics.mean(ms["reference"])
+        log(f"    turns {k} at volume_blob's round {VOL_MID_ROUND} ({n} "
+            f"lanes, k = {VOL_K}): reference {ms['reference'][0]:.4f}, new "
+            f"{ms['new'][0]:.4f}, new {ms['new'][1]:.4f}, reference "
+            f"{ms['reference'][1]:.4f} ms; reference / new "
+            f"{ref_ms / statistics.mean(ms['new']):.3f}x; graph nodes a "
+            f"call: new {nodes}, reference {nodes_ref}")
+        if k == "vol_steps" and nodes != 1:
+            raise AssertionError(f"V1 with an accumulator is {nodes} graph "
+                                 "nodes a call, not 1")
+        out[k] = dict(reference_ms=ref_ms, turns_ms=ms, graph_nodes=nodes,
+                      reference_graph_nodes=nodes_ref,
+                      node_floor_ms=floor_ms["empty"]["ms"],
+                      fill_ms=floor_ms["fill"]["ms"])
+    checked = bad = 0
+    for lo in (0, 0x80000000):  # [0, 2 pi], then [-2 pi, -0]
+        hi = lo | VOL_TWO_PI_BITS
+        bad += int(vol_ops.trig_check_cuda(lo, hi, one.device))
+        checked += hi - lo + 1
+    log(f"    the redesign's sine and cosine against sinf / cosf on every "
+        f"float in [-2 pi, 2 pi] ({checked} values): {bad} differ")
+    if bad:
+        raise AssertionError(f"sincos_small differs from sinf / cosf on {bad}"
+                             " values in [-2 pi, 2 pi]")
+    out["vol_steps"].update(trig_values_checked=checked, trig_mismatches=bad)
+    return out
 
 SIZES = {"camera_rays": 65536, "shadow_rays": 131072, "soup_tris": 40000,
          "soup_rays": 65536, "reps": 20}
@@ -5366,6 +5478,8 @@ VOL_K = 4
 VOL_MID_ROUND = 60
 VOL_EDGE_LANES = 32768
 VOL_RTOL, VOL_ATOL = 1e-5, 1e-6
+VOL_GRADS = ("g_beta", "g_l", "rows", "idx", "p_sa", "p_ss", "p_le")
+VOL_TWO_PI_BITS = 0x40C90FDB  # float32(2 pi)'s bits
 # the bytes a lane of V1 / V2 moves besides its cell rows: (fixed, a step).
 # V1: the state in (alive and new_ray 1 each, bounce and state 8, u_mode,
 # t_cur, t_exit 4, o, d, beta, l_out 12: 78) and out, with died and esc
@@ -5421,11 +5535,23 @@ def main():
         f"({os.path.basename(host)}), together, in "
         f"{time.perf_counter() - t0:.2f} s")
     from nart_tpu_torch.kernel_variants import bsdf_design, ptxas_kernels
+    vol_ptxas = {}  # the shipped V1's and V2's: no stack frame, no spills
     for source, report in zip(reported, reports):
         for kname, regs, frame, st, ld in ptxas_kernels(report):
             design = bsdf_design(kname)
             log(f"ptxas {source}: {kname}{design} {regs} registers, stack "
                 f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
+            for k, tag in (("vol_steps", "vol_steps_kernel"),
+                           ("vol_steps_bwd", "vol_steps_bwd_kernel")):
+                if source == VOL_SOURCE and tag in kname:
+                    vol_ptxas.setdefault(k, []).append(
+                        dict(kernel=kname, registers=regs, frame=frame,
+                             spill_stores=st, spill_loads=ld))
+    bad = [r for rows in vol_ptxas.values() for r in rows
+           if r["frame"] or r["spill_stores"] or r["spill_loads"]]
+    if len(vol_ptxas) != 2 or bad:
+        raise AssertionError(f"V1 / V2 in ptxas: {vol_ptxas}: want each "
+                             "without a stack frame or spills")
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -5469,6 +5595,8 @@ def main():
     phase("scaling evidence", scaling_phase)
     records.update(phase("BSDF kernels", bsdf_checks))
     records.update(phase("volume flight-step kernels", vol_checks))
+    for k, rows in vol_ptxas.items():
+        records[k]["ptxas"] = rows
     # the forward kernels a graphed macbeth path round with the BSDF calls
     # on their plain versions and on the kernels (phase 21)
     mac = rounds_records["macbeth 1280x720 @ 4 spp"]["graphed"]

@@ -20,7 +20,11 @@ csrc/large_lut.cu (select.py), the BSDF kernels of csrc/bsdf.cu
 "bsdf_f_bwd"; X1's and X3's first designs, the references,
 "bsdf_sample_reference" and "bsdf_f_bwd_reference") and the volume's
 flight-step kernels of csrc/vol_step.cu (vol_ops.py: "vol_steps", V1, a
-round's steps forward, and "vol_steps_bwd", V2, their backward).
+round's steps forward, and "vol_steps_bwd", V2, their backward; their
+first designs, the references, "vol_steps_reference" and
+"vol_steps_bwd_reference").  ``load_host_cu(name)`` builds a kernel
+source's lane functions as host C++ (``-x c++``, g++'s flags above): the
+CPU tests walk lanes through csrc/vol_step.cu that way.
 """
 
 from __future__ import annotations
@@ -60,16 +64,18 @@ _loaded: dict = {}
 # the graph (rounds.RoundRunner, rounds.ReplayRunner) adds those counts to
 # launch_counts at every replay
 # (the small-table backward's two-launch route and the first designs of the
-# LBVH walk and of the BSDF sample and backward, the references no path
-# launches, count under names of their own: "lut_gather_bwd_reference",
-# "bvh_hit_reference", "bsdf_sample_reference", "bsdf_f_bwd_reference")
+# LBVH walk, of the BSDF sample and backward and of the flight steps, the
+# references no path launches, count under names of their own:
+# "lut_gather_bwd_reference", "bvh_hit_reference", "bsdf_sample_reference",
+# "bsdf_f_bwd_reference", "vol_steps_reference", "vol_steps_bwd_reference")
 launch_counts = {"closest_hit": 0, "any_hit": 0, "closest_hit_stats": 0,
                  "any_hit_stats": 0, "lut_gather": 0, "lut_gather_bwd": 0,
                  "lut_gather_large_bwd": 0, "lut_gather_bwd_reference": 0,
                  "bvh_hit": 0, "bvh_hit_reference": 0, "bsdf_sample": 0,
                  "bsdf_sample_eval": 0, "bsdf_eval": 0, "bsdf_f_bwd": 0,
                  "bsdf_sample_reference": 0, "bsdf_f_bwd_reference": 0,
-                 "vol_steps": 0, "vol_steps_bwd": 0}
+                 "vol_steps": 0, "vol_steps_bwd": 0,
+                 "vol_steps_reference": 0, "vol_steps_bwd_reference": 0}
 captured_launches = dict.fromkeys(launch_counts, 0)
 
 
@@ -144,6 +150,14 @@ def build_host(name: str) -> str:
                     cxx_path)
 
 
+def build_host_cu(name: str) -> str:
+    """Compile csrc/<name>.cu as host C++ (its lane functions and host
+    entries; the kernels are outside the host build) with the host
+    compiler; returns the .so path."""
+    return _compile(os.path.join(SRC_DIR, name + ".cu"),
+                    ("-x", "c++") + CXX_FLAGS, cxx_path)
+
+
 def _load(key, path_of):
     lib = _loaded.get(key)
     if lib is None:
@@ -160,3 +174,8 @@ def load(name: str) -> ctypes.CDLL:
 def load_host(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cpp, built on first use."""
     return _load(name + ".cpp", lambda: build_host(name))
+
+
+def load_host_cu(name: str) -> ctypes.CDLL:
+    """The loaded host build of csrc/<name>.cu, built on first use."""
+    return _load(name + ".cu host", lambda: build_host_cu(name))

@@ -1255,7 +1255,7 @@ class _PathReplayParts:
         self.shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total)
 
     def make(self, scene, samples, chunk_base, row_map, cot_flat,
-             replaying):
+             replaying, rays=None):
         tape = (_QueryTape() if replaying else
                 _QueryTape(*_make_queries(scene, self.accel, self.params)))
         base = derive_light_tables(scene)

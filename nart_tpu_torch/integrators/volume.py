@@ -77,15 +77,16 @@ FUSE_STEPS = 4
 def _make_vol_step(scene, params, part, defer_light=False, cells=None):
     """The walk's flight steps: (steps, light).
 
-    steps(vs, k, tables=None) -> (vs', died, esc, segment starts): k
-    delta-tracking steps (vol_ops.flight_steps: V1 and V2 on the card, the
-    plain step on the CPU); `died` marks lanes whose walk ended in them
-    (absorbed, out of scatter events, or escaped), `esc` those that
-    escaped.  With defer_light=False (k = 1: the lockstep walk) the escape
-    radiance is added at once; with defer_light=True escaped lanes only
-    set `esc`, and the caller applies light(vs, esc_pending) once after a
-    batch of steps: the light pass draws nothing and (o, d, beta) freeze
-    at escape, so this changes only when the pass is paid.  cells, the
+    steps(vs, k, tables=None, seg=None) -> (vs', died, esc, segment
+    starts): k delta-tracking steps (vol_ops.flight_steps: V1 and V2 on the
+    card, the plain step on the CPU; the starts added into seg, a () int64
+    accumulator, where it is given); `died` marks lanes whose walk ended
+    in them (absorbed, out of scatter events, or escaped), `esc` those
+    that escaped.  With defer_light=False (k = 1: the lockstep walk) the
+    escape radiance is added at once; with defer_light=True escaped lanes
+    only set `esc`, and the caller applies light(vs, esc_pending) once
+    after a batch of steps: the light pass draws nothing and (o, d, beta)
+    freeze at escape, so this changes only when the pass is paid.  cells, the
     density's packed cell table (media.pack_density_cells), replaces its
     derivation here, and steps(vs, k, tables) / light(vs, mask, tables)
     take another (light partition, cells) pair for one call (the replay
@@ -106,10 +107,10 @@ def _make_vol_step(scene, params, part, defer_light=False, cells=None):
         return replace(vs, l_out=vs.l_out + torch.where(
             mask[:, None], le * vs.beta, 0.0))
 
-    def steps(vs: VolState, k, tables=None):
+    def steps(vs: VolState, k, tables=None, seg=None):
         tables = tables or tables0
         out, died, esc, seg = vol_ops.flight_steps(
-            vs, k, tables[1], medium, sigma_maj, params.bounces)
+            vs, k, tables[1], medium, sigma_maj, params.bounces, seg)
         if not defer_light:
             out = light(out, esc, tables)
         return out, died, esc, seg
@@ -149,8 +150,7 @@ def _walk(scene, o, d, state, params, max_steps):
     for _ in range(max_steps):
         if not bool(vs.alive.any()):
             break
-        vs, _, _, seg = steps(vs, 1)
-        rays = rays + seg
+        vs, _, _, _ = steps(vs, 1, seg=rays)
     return vs, int(rays)
 
 
@@ -196,8 +196,7 @@ class _LockstepForward:
             return (_vol_state(*cast(jit), state),)
 
         def round_fn(core):  # no reference to self (path._BalancedForward)
-            vs, _, _, seg = steps(core[0], 1)
-            rays.add_(seg)
+            vs, _, _, _ = steps(core[0], 1, seg=rays)
             return (vs,)
 
         self.init = init
@@ -301,11 +300,11 @@ def _camera_spawn(scene, params, samples, render_w, chunk_base,
     return spawn
 
 
-def _fused_round(steps, finish, vs, tables=None):
+def _fused_round(steps, finish, vs, tables=None, seg=None):
     """FUSE_STEPS flight steps (read when called), then the escape light
-    pass once: (vs', died, segment starts); tables as for _make_vol_step's
-    steps."""
-    vs, died, esc_pending, seg = steps(vs, FUSE_STEPS, tables)
+    pass once: (vs', died, segment starts); tables and seg as for
+    _make_vol_step's steps."""
+    vs, died, esc_pending, seg = steps(vs, FUSE_STEPS, tables, seg)
     return finish(vs, esc_pending, tables), died, seg
 
 
@@ -330,10 +329,12 @@ def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
     """The work queue (volume analogue of path._balanced_parts).
 
     Returns (init, step_round, n): init() -> core0, and step_round(core,
-    tables=None) -> (core', died, l, item, segment starts), where l is the
-    radiance of the lanes whose walk ended this round and item the item
-    each lane carried into it.  Both read samples and chunk_base (an int
-    or a () int64 tensor) as they are when they run.  tables:
+    tables=None, rays=None) -> (core', died, l, item, segment starts),
+    where l is the radiance of the lanes whose walk ended this round and
+    item the item each lane carried into it; the segment starts are added
+    into rays (a () int64 accumulator, returned) where it is given, else
+    counted into a new () tensor.  Both read samples and chunk_base (an
+    int or a () int64 tensor) as they are when they run.  tables:
     derive_tables's (light partition, density cells), derived here if
     None; step_round's tables replace them for one round.  shard:
     pix_offset, n_pix_total, row_map (_camera_spawn)."""
@@ -359,9 +360,9 @@ def _queue_parts(scene, samples, params, render_w, chunk_base, n_lanes,
     steps, finish = _make_vol_step(scene, params, part, defer_light=True,
                                    cells=cells)
 
-    def step_round(core, tables=None):
+    def step_round(core, tables=None, rays=None):
         vs, item, head = core
-        vs, died, seg = _fused_round(steps, finish, vs, tables)
+        vs, died, seg = _fused_round(steps, finish, vs, tables, rays)
         l_done = vs.l_out
         # pull the next queue items (prefix sum over this round's deaths)
         dy = died.to(torch.int64)
@@ -406,9 +407,9 @@ def _static_parts(scene, samples, params, render_w, chunk_base, n_lanes,
     steps, finish = _make_vol_step(scene, params, part, defer_light=True,
                                    cells=cells)
 
-    def step_round(core, tables=None):
+    def step_round(core, tables=None, rays=None):
         vs, local = core
-        vs, died, seg = _fused_round(steps, finish, vs, tables)
+        vs, died, seg = _fused_round(steps, finish, vs, tables, rays)
         l_done = vs.l_out
         # advance to the lane's next item
         nxt = local + 1
@@ -460,10 +461,9 @@ class _VolForward:
         lane = torch.arange(n, device=device)
 
         def round_fn(core):  # no reference to self (path._BalancedForward)
-            core, died, l_done, item, seg = step_round(core)
+            core, died, l_done, item, _ = step_round(core, rays=rays)
             la_out.index_add_(0, torch.where(died, item, rows + lane),
                               torch.where(died[:, None], l_done, 0.0))
-            rays.add_(seg)
             return core
 
         self.runner = RoundRunner(round_fn, k=1 if per_round else None,
@@ -569,9 +569,8 @@ class _VolReplay:
             while (len(self.saved) < MAX_STEPS
                    and bool(core[0].alive.any())):
                 self.saved.append(core)
-                core, died, l_done, item, seg = step_round(core)
+                core, died, l_done, item, _ = step_round(core, rays=rays)
                 loss = loss + self._contribution(died, l_done, item)
-                rays = rays + seg
             self.rays = int(rays)
         return loss
 
@@ -636,16 +635,21 @@ class _VolReplayParts:
         self.shard = dict(pix_offset=pix_offset, n_pix_total=n_pix_total)
 
     def make(self, scene, samples, chunk_base, row_map, cot_flat,
-             replaying):
+             replaying, rays=None):
         base = derive_tables(scene)
         init, step_round, _ = self.parts(
             scene, samples, self.params, self.render_w, chunk_base,
             self.n_lanes, tables=base, row_map=row_map, **self.shard)
+        # V1 adds a round's segment starts into the machine's count (the
+        # backward's re-run rounds into a count no one reads): no node of
+        # their own
+        if rays is None:
+            rays = torch.zeros((), dtype=torch.int64, device=samples.device)
 
         def round_(core):
-            out, died, l_done, item, seg = step_round(
-                core, derive_tables(scene, base))
-            return out, _contribution(cot_flat, died, l_done, item), seg
+            out, died, l_done, item, _ = step_round(
+                core, derive_tables(scene, base), rays)
+            return out, _contribution(cot_flat, died, l_done, item), None
 
         return init, round_, None
 

@@ -1,9 +1,11 @@
 """Development tool: what each design choice of csrc/cluster_hit.cu (K1,
-K2), csrc/bvh_walk.cu (B1) or csrc/bsdf.cu (X1-X3) buys.
+K2), csrc/bvh_walk.cu (B1), csrc/bsdf.cu (X1-X3) or csrc/vol_step.cu
+(V1, V2) buys.
 
     python -m nart_tpu_torch.kernel_variants [--rounds 3] [--reps 20]
     python -m nart_tpu_torch.kernel_variants --kernel bvh [--rounds 3]
     python -m nart_tpu_torch.kernel_variants --kernel bsdf [--rounds 3]
+    python -m nart_tpu_torch.kernel_variants --kernel vol [--rounds 3]
 
 Builds the kernel source as it is and variants of it made by exact text
 substitution (``VARIANTS``; a substitution whose anchor is not found exactly
@@ -73,8 +75,24 @@ reference entries (nart_bsdf_sample_ref, nart_bsdf_f_bwd_ref; for "SE", X1
 then X2 as built, the two launches it replaces: the "X1 + X2" against
 "sample+eval" reading, in turns round by round) in every round; X1's, X2's
 and SE's outputs must be the reference's bits, X3's within rtol 1e-5 /
-atol 1e-6 of the reference's (their share of equal bits printed).  Needs
-a CUDA device and nvcc.
+atol 1e-6 of the reference's (their share of equal bits printed).
+
+``--kernel vol`` does the same for V1 and V2 (``VOL_VARIANTS``): the
+redesign's switches (csrc/vol_step.cu's ``VOL_AS_BUILT``: the select for
+x / x, the slab clip under a branch, the 32-bit cell index, the row as
+two 16-byte loads read once, the later draws off the chain, the small
+sine and cosine, V2's rows as 16-byte stores), every one off ("steps
+off": the first design's lane arithmetic, with the redesign's one-node
+interface), each one off alone, a step measured and not taken ("stage":
+a block's (N, 3) rows staged through shared memory with 16-byte loads
+and stores), and blocks of 32 and 64 threads.  Its rows time V1 (with
+an accumulator, as the machines call it) and V2 at k = 4 on volume_blob
+1280x720 @ 4's static-machine states at round 60 and on
+testing.vol_lane_set's edge set (32,768 lanes each), on the device, beside
+the reference entries (nart_vol_steps_ref, nart_vol_steps_bwd_ref: the
+first designs, V1 with its zero-filled count) and the node floor (an empty
+kernel of V1's grid; a one-element fill) in every round; every output
+must be the reference's bits.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -91,13 +109,18 @@ from unittest import mock
 import numpy as np
 import torch
 
-from . import bsdf_ops, bvh, camera, cluster_accel as ca, cuda_build, testing
+from . import (bsdf_ops, bvh, camera, cluster_accel as ca, cuda_build,
+               testing, vol_ops)
 from .kernel_stats import DEFAULT_SCENE
 from .scene import load_scene
 
 SOURCE = os.path.join(cuda_build.SRC_DIR, "cluster_hit.cu")
 BVH_SOURCE = os.path.join(cuda_build.SRC_DIR, "bvh_walk.cu")
 BSDF_SOURCE = os.path.join(cuda_build.SRC_DIR, "bsdf.cu")
+VOL_SOURCE = os.path.join(cuda_build.SRC_DIR, "vol_step.cu")
+VOL_SCENE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+    "golden", "volume_blob.json")
 
 # a zero that the compiler cannot know, for the repeated passes
 _ZERO = [
@@ -572,13 +595,303 @@ BSDF_VARIANTS = {
                                              split=True, blocks=3),
     **SE_VARIANTS,
 }
+
+# V1/V2's redesign steps (csrc/vol_step.cu's switches, as built), and the
+# variants: every step off, each step off alone, the staged rows, the
+# block size
+VOL_AS_BUILT = {"kSelectOn": "true", "kClipOn": "true", "kIdx32On": "true",
+                "kRowOn": "true", "kDrawsOn": "true", "kTrigOn": "true",
+                "kRowStoreOn": "true"}
+_VOL_THREADS = "constexpr int kThreads = 128;"
+
+
+def _vol_flip(*names):
+    return [(f"constexpr bool {k} = true;", f"constexpr bool {k} = false;")
+            for k in names]
+
+
+# V1/V2's "stage" variant (measured, and not taken): a block's (N, 3) rows
+# staged through shared memory with 16-byte loads and stores; the shipped
+# kernels, whole, and their staged forms
+_VOL_V1 = """// V1.  out: the 11 state fields (VolState's order), died, esc (bool), the
+// caller's int64 accumulator of segment starts (added to)
+__global__ void __launch_bounds__(kThreads) vol_steps_kernel(const Args a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned seg = 0;
+  if (i < a.n) {
+    const Medium m = medium_of(a);
+    Lane L = lane_of(a, i);
+    bool died = false, esc = false;
+    for (int s = 0; s < a.k; ++s) {
+      seg += (L.alive && L.new_ray) ? 1u : 0u;
+      bool died_s, esc_s;
+      flight_step<false>(L, m, died_s, esc_s, nullptr);
+      died = died || died_s;
+      esc = esc || esc_s;
+    }
+    static_cast<bool*>(a.out[0])[i] = L.alive;
+    static_cast<bool*>(a.out[1])[i] = L.new_ray;
+    static_cast<int64_t*>(a.out[2])[i] = L.bounce;
+    static_cast<float*>(a.out[3])[i] = L.u_mode;
+    static_cast<float*>(a.out[4])[i] = L.t_cur;
+    static_cast<float*>(a.out[5])[i] = L.t_exit;
+    for (int c = 0; c < 3; ++c) {
+      static_cast<float*>(a.out[6])[3 * i + c] = L.o[c];
+      static_cast<float*>(a.out[7])[3 * i + c] = L.d[c];
+      static_cast<float*>(a.out[9])[3 * i + c] = L.beta[c];
+      static_cast<float*>(a.out[10])[3 * i + c] = L.l[c];
+    }
+    static_cast<int64_t*>(a.out[8])[i] = static_cast<int64_t>(L.st);
+    static_cast<bool*>(a.out[11])[i] = died;
+    static_cast<bool*>(a.out[12])[i] = esc;
+  }
+  // the segment starts: a warp's sum, one integer atomic into the
+  // caller's accumulator
+  for (int off = 16; off > 0; off >>= 1)
+    seg += __shfl_down_sync(0xffffffffu, seg, off);
+  if ((threadIdx.x & 31) == 0 && seg != 0)
+    atomicAdd(static_cast<unsigned long long*>(a.out[13]),
+              static_cast<unsigned long long>(seg));
+}
+
+"""
+_VOL_V1_STAGED = """// (the "stage" variant) a block's slice of an (N, 3) float tensor (3 *
+// count floats from lane `base` on) into shared memory and back: 16-byte
+// accesses where the tensor is 16-byte aligned (a block's slice starts at
+// a multiple of 16 bytes: kThreads is a multiple of 4), else 4-byte ones
+__device__ __forceinline__ void rows_in(const float* src, float* sh,
+                                        int64_t base, int count) {
+  const float* g = src + 3 * base;
+  const int nf = 3 * count;
+  int j0 = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0) {
+    const int n4 = nf >> 2;
+    for (int j = threadIdx.x; j < n4; j += kThreads)
+      reinterpret_cast<float4*>(sh)[j] =
+          __ldg(reinterpret_cast<const float4*>(g) + j);
+    j0 = 4 * n4;
+  }
+  for (int j = j0 + threadIdx.x; j < nf; j += kThreads) sh[j] = __ldg(g + j);
+}
+
+__device__ __forceinline__ void rows_out(float* dst, const float* sh,
+                                         int64_t base, int count) {
+  float* g = dst + 3 * base;
+  const int nf = 3 * count;
+  int j0 = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0) {
+    const int n4 = nf >> 2;
+    for (int j = threadIdx.x; j < n4; j += kThreads)
+      reinterpret_cast<float4*>(g)[j] =
+          reinterpret_cast<const float4*>(sh)[j];
+    j0 = 4 * n4;
+  }
+  for (int j = j0 + threadIdx.x; j < nf; j += kThreads) g[j] = sh[j];
+}
+
+// a lane's scalars from the tensors, its (N, 3) rows from the block's
+// staged slices
+__device__ __forceinline__ Lane staged_lane(const Args& a, int64_t i,
+                                            float (*sh)[3 * kThreads]) {
+  Lane L;
+  L.alive = a.alive[i];
+  L.new_ray = a.new_ray[i];
+  L.bounce = a.bounce[i];
+  L.u_mode = a.u_mode[i];
+  L.t_cur = a.t_cur[i];
+  L.t_exit = a.t_exit[i];
+  L.st = static_cast<uint32_t>(a.state[i]);
+  const int t = 3 * threadIdx.x;
+  for (int c = 0; c < 3; ++c) {
+    L.o[c] = sh[0][t + c];
+    L.d[c] = sh[1][t + c];
+    L.beta[c] = sh[2][t + c];
+    L.l[c] = sh[3][t + c];
+  }
+  return L;
+}
+
+// V1.  out: the 11 state fields (VolState's order), died, esc (bool), the
+// caller's int64 accumulator of segment starts (added to)
+__global__ void __launch_bounds__(kThreads) vol_steps_kernel(const Args a) {
+  __shared__ __align__(16) float sh[4][3 * kThreads];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t i = base + threadIdx.x;
+  const int count =
+      static_cast<int>(a.n - base < kThreads ? a.n - base : kThreads);
+  const float* in[4] = {a.o, a.d, a.beta, a.l_out};
+  for (int r = 0; r < 4; ++r) rows_in(in[r], sh[r], base, count);
+  __syncthreads();
+  unsigned seg = 0;
+  if (i < a.n) {
+    const Medium m = medium_of(a);
+    Lane L = staged_lane(a, i, sh);
+    bool died = false, esc = false;
+    for (int s = 0; s < a.k; ++s) {
+      seg += (L.alive && L.new_ray) ? 1u : 0u;
+      bool died_s, esc_s;
+      flight_step<false>(L, m, died_s, esc_s, nullptr);
+      died = died || died_s;
+      esc = esc || esc_s;
+    }
+    static_cast<bool*>(a.out[0])[i] = L.alive;
+    static_cast<bool*>(a.out[1])[i] = L.new_ray;
+    static_cast<int64_t*>(a.out[2])[i] = L.bounce;
+    static_cast<float*>(a.out[3])[i] = L.u_mode;
+    static_cast<float*>(a.out[4])[i] = L.t_cur;
+    static_cast<float*>(a.out[5])[i] = L.t_exit;
+    const int t = 3 * threadIdx.x;  // a thread's own slots: no barrier
+    for (int c = 0; c < 3; ++c) {
+      sh[0][t + c] = L.o[c];
+      sh[1][t + c] = L.d[c];
+      sh[2][t + c] = L.beta[c];
+      sh[3][t + c] = L.l[c];
+    }
+    static_cast<int64_t*>(a.out[8])[i] = static_cast<int64_t>(L.st);
+    static_cast<bool*>(a.out[11])[i] = died;
+    static_cast<bool*>(a.out[12])[i] = esc;
+  }
+  __syncthreads();
+  const int outs[4] = {6, 7, 9, 10};
+  for (int r = 0; r < 4; ++r)
+    rows_out(static_cast<float*>(a.out[outs[r]]), sh[r], base, count);
+  // the segment starts: a warp's sum, one integer atomic into the
+  // caller's accumulator
+  for (int off = 16; off > 0; off >>= 1)
+    seg += __shfl_down_sync(0xffffffffu, seg, off);
+  if ((threadIdx.x & 31) == 0 && seg != 0)
+    atomicAdd(static_cast<unsigned long long*>(a.out[13]),
+              static_cast<unsigned long long>(seg));
+}
+
+"""
+_VOL_V2 = """// V2, K steps.  out: g_beta_in, g_l_in (N, 3), rows (K, N, 8), idx (K, N)
+// int64, the partials of sigma_a, sigma_s (N,) and le (N, 3)
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    vol_steps_bwd_kernel(const Args a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  const Medium m = medium_of(a);
+  Lane L = lane_of(a, i);
+  Rec rec[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bool died_s, esc_s;
+    flight_step<true>(L, m, died_s, esc_s, &rec[s]);
+  }
+  double gb[3], gl[3], p_le[3] = {0.0, 0.0, 0.0};
+  for (int c = 0; c < 3; ++c) {
+    gb[c] = a.g_beta[3 * i + c];
+    gl[c] = a.g_l[3 * i + c];
+  }
+  double p_sa = 0.0, p_ss = 0.0;
+  float* rows = static_cast<float*>(a.out[2]);
+  int64_t* idx = static_cast<int64_t*>(a.out[3]);
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    float row[8];
+    step_back(rec[s], m, gb, gl, row, p_sa, p_ss, p_le);
+    float* dst = rows + (s * a.n + i) * 8;
+    if constexpr (kRowStoreOn) {  // a row is 32 bytes, 32-byte aligned
+      reinterpret_cast<float4*>(dst)[0] =
+          make_float4(row[0], row[1], row[2], row[3]);
+      reinterpret_cast<float4*>(dst)[1] =
+          make_float4(row[4], row[5], row[6], row[7]);
+    } else {
+      for (int k = 0; k < 8; ++k) dst[k] = row[k];
+    }
+    idx[s * a.n + i] = rec[s].idx;
+  }
+  for (int c = 0; c < 3; ++c) {
+    static_cast<float*>(a.out[0])[3 * i + c] = static_cast<float>(gb[c]);
+    static_cast<float*>(a.out[1])[3 * i + c] = static_cast<float>(gl[c]);
+    static_cast<float*>(a.out[6])[3 * i + c] = static_cast<float>(p_le[c]);
+  }
+  static_cast<float*>(a.out[4])[i] = static_cast<float>(p_sa);
+  static_cast<float*>(a.out[5])[i] = static_cast<float>(p_ss);
+}
+
+"""
+_VOL_V2_STAGED = """// V2, K steps.  out: g_beta_in, g_l_in (N, 3), rows (K, N, 8), idx (K, N)
+// int64, the partials of sigma_a, sigma_s (N,) and le (N, 3)
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    vol_steps_bwd_kernel(const Args a) {
+  __shared__ __align__(16) float sh[6][3 * kThreads];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t i = base + threadIdx.x;
+  const int count =
+      static_cast<int>(a.n - base < kThreads ? a.n - base : kThreads);
+  const float* in[6] = {a.o, a.d, a.beta, a.l_out, a.g_beta, a.g_l};
+  for (int r = 0; r < 6; ++r) rows_in(in[r], sh[r], base, count);
+  __syncthreads();
+  if (i < a.n) {
+  const Medium m = medium_of(a);
+  Lane L = staged_lane(a, i, sh);
+  Rec rec[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bool died_s, esc_s;
+    flight_step<true>(L, m, died_s, esc_s, &rec[s]);
+  }
+  double gb[3], gl[3], p_le[3] = {0.0, 0.0, 0.0};
+  const int t = 3 * threadIdx.x;
+  for (int c = 0; c < 3; ++c) {
+    gb[c] = sh[4][t + c];
+    gl[c] = sh[5][t + c];
+  }
+  double p_sa = 0.0, p_ss = 0.0;
+  float* rows = static_cast<float*>(a.out[2]);
+  int64_t* idx = static_cast<int64_t*>(a.out[3]);
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    float row[8];
+    step_back(rec[s], m, gb, gl, row, p_sa, p_ss, p_le);
+    float* dst = rows + (s * a.n + i) * 8;
+    if constexpr (kRowStoreOn) {  // a row is 32 bytes, 32-byte aligned
+      reinterpret_cast<float4*>(dst)[0] =
+          make_float4(row[0], row[1], row[2], row[3]);
+      reinterpret_cast<float4*>(dst)[1] =
+          make_float4(row[4], row[5], row[6], row[7]);
+    } else {
+      for (int k = 0; k < 8; ++k) dst[k] = row[k];
+    }
+    idx[s * a.n + i] = rec[s].idx;
+  }
+  for (int c = 0; c < 3; ++c) {  // a thread's own slots: no barrier
+    sh[0][t + c] = static_cast<float>(gb[c]);
+    sh[1][t + c] = static_cast<float>(gl[c]);
+    sh[2][t + c] = static_cast<float>(p_le[c]);
+  }
+  static_cast<float*>(a.out[4])[i] = static_cast<float>(p_sa);
+  static_cast<float*>(a.out[5])[i] = static_cast<float>(p_ss);
+  }
+  __syncthreads();
+  const int outs[3] = {0, 1, 6};
+  for (int r = 0; r < 3; ++r)
+    rows_out(static_cast<float*>(a.out[outs[r]]), sh[r], base, count);
+}
+
+"""
+
+
+VOL_VARIANTS = {
+    "as built": [],
+    "steps off": _vol_flip(*VOL_AS_BUILT),
+    **{f"no {k[1:-2].lower()}": _vol_flip(k) for k in VOL_AS_BUILT},
+    "stage": [(_VOL_V1, _VOL_V1_STAGED), (_VOL_V2, _VOL_V2_STAGED)],
+    "32 threads": [(_VOL_THREADS, _VOL_THREADS.replace("128", "32"))],
+    "64 threads": [(_VOL_THREADS, _VOL_THREADS.replace("128", "64"))],
+}
 KERNELS = {"cluster": (SOURCE, VARIANTS), "bvh": (BVH_SOURCE, BVH_VARIANTS),
-           "bsdf": (BSDF_SOURCE, BSDF_VARIANTS)}
+           "bsdf": (BSDF_SOURCE, BSDF_VARIANTS),
+           "vol": (VOL_SOURCE, VOL_VARIANTS)}
 
 
 def variant_sources(kernel="cluster") -> dict:
-    """{variant: its source text} of a kernel's source ("cluster" or
-    "bvh" or "bsdf"), each substitution applied exactly once."""
+    """{variant: its source text} of a kernel's source ("cluster", "bvh",
+    "bsdf" or "vol"), each substitution applied exactly once."""
     source, variants = KERNELS[kernel]
     with open(source) as f:
         base = f.read()
@@ -905,6 +1218,116 @@ def _run_bsdf(built, args):
                 raise AssertionError(f"variant {row!r} changed a result")
 
 
+VOL_ROUND = 60  # volume_blob's round whose states the vol rows time
+VOL_LANES = 32768  # the edge set's lanes
+
+
+def vol_sets(dev, seed=28):
+    """V1/V2's lane sets: {"round 60": volume_blob 1280x720 @ 4's
+    static-machine states at round VOL_ROUND (testing.vol_round_states),
+    "edge": testing.vol_lane_set's VOL_LANES lanes}: each a dict (vs,
+    cells, medium, sigma_maj, bounces, g_beta, g_l) on dev, the cotangents
+    normals from seed."""
+    from . import render
+    from .bench_configs import load_scene_doc
+
+    scene = load_scene_doc(VOL_SCENE, os.path.dirname(VOL_SCENE))
+    (params,) = render.load_sessions(
+        VOL_SCENE, {"image_width": 1280, "image_height": 720, "spp": 4})
+    (st,) = testing.vol_round_states(
+        lambda: render.RenderSession(scene, params, dev, per_round=True),
+        {VOL_ROUND}).values()
+    vs, _, cells, medium, sigma_maj, bounces = st
+    rng = np.random.default_rng(seed)
+    sets = {"round 60": dict(vs=vs, cells=cells, medium=medium,
+                             sigma_maj=sigma_maj, bounces=bounces),
+            "edge": testing.vol_lane_set(VOL_LANES, seed, dev)}
+    for s in sets.values():
+        n = s["vs"].alive.shape[0]
+        s["g_beta"], s["g_l"] = (torch.from_numpy(rng.normal(size=(
+            n, 3)).astype(np.float32)).to(dev) for _ in range(2))
+    return sets
+
+
+def vol_args(s):
+    """steps_bwd_cuda's tensor arguments of a vol_sets set."""
+    m = s["medium"]
+    return [getattr(s["vs"], f).contiguous() for f in vol_ops.FIELDS] + [
+        s["cells"], m.sigma_a, m.sigma_s, m.le, m.bounds_min, m.bounds_max,
+        s["sigma_maj"], s["g_beta"], s["g_l"]]
+
+
+def vol_cases(sets, k=4):
+    """{"V1 set" / "V2 set": a call of V1 (with an accumulator, as the
+    machines call it) or V2 through its vol_ops wrapper on a vol_sets
+    set} (reference=True: the first designs, V1 with its zero-filled
+    count): each returns a tuple of output tensors (V1's without the
+    count, which the accumulator's calls sum)."""
+    cases = {}
+    for label, s in sets.items():
+        args = vol_args(s)
+        shape = tuple(s["medium"].density.shape)
+        acc = torch.zeros((), dtype=torch.int64, device=args[0].device)
+
+        def v1(reference=False, a=args, sh=shape, b=s["bounces"], acc=acc):
+            if reference:
+                return vol_ops.steps_ref_cuda(k, b, sh, *a[:-2])[:-1]
+            return vol_ops.steps_cuda(k, b, sh, *a[:-2], seg=acc)[:-1]
+
+        def v2(reference=False, a=args, sh=shape, b=s["bounces"]):
+            return (vol_ops.steps_bwd_ref_cuda if reference
+                    else vol_ops.steps_bwd_cuda)(k, b, sh, *a)
+
+        cases[f"V1 {label}"] = v1
+        cases[f"V2 {label}"] = v2
+    return cases
+
+
+def _run_vol(built, args):
+    """V1/V2's rows: every variant (and the reference, from the as-built
+    library) timed on every case, in turns, each output the reference's
+    bits; the node floor beside them in every round."""
+    dev = torch.device("cuda")
+    sets = vol_sets(dev)
+    for label, s in sets.items():
+        print(f"lane set {label}: {s['vs'].alive.shape[0]} lanes, "
+              f"{int(s['vs'].alive.sum())} alive", flush=True)
+    libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
+    with mock.patch.object(cuda_build, "load",
+                           lambda _name: libs["as built"]):
+        cases = vol_cases(sets)
+        want = {key: fn(reference=True) for key, fn in cases.items()}
+    n = sets["round 60"]["vs"].alive.shape[0]
+    one = torch.zeros((), dtype=torch.int64, device=dev)
+    for rnd in range(args.rounds):
+        with mock.patch.object(cuda_build, "load",
+                               lambda _name: libs["as built"]):
+            empty = graph_ms(lambda: vol_ops.node_floor_cuda(n, dev),
+                             args.reps)
+        fill = graph_ms(lambda: one.zero_(), args.reps)
+        print(f"round {rnd + 1} node floor: empty kernel of V1's grid "
+              f"({n} lanes) {empty:.4f}, one-element fill {fill:.4f}",
+              flush=True)
+        rows = [("reference", "as built", True)] + [
+            (name, name, False) for name in built]
+        for row, lib_name, ref in rows:
+            with mock.patch.object(cuda_build, "load",
+                                   lambda _name, n=lib_name: libs[n]):
+                same = True
+                times = []
+                for key, fn in cases.items():
+                    same &= all(
+                        torch.equal(a.contiguous().view(torch.uint8),
+                                    b.contiguous().view(torch.uint8))
+                        for a, b in zip(fn(reference=ref), want[key]))
+                    ms = graph_ms(lambda f=fn: f(reference=ref), args.reps)
+                    times.append(f"{key} {ms:.4f}")
+            print(f"round {rnd + 1} {row:14s} " + "  ".join(times)
+                  + f"  same={same}", flush=True)
+            if not same:
+                raise AssertionError(f"variant {row!r} changed a result")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="cluster")
@@ -933,6 +1356,9 @@ def main(argv=None):
         return
     if args.kernel == "bsdf":
         _run_bsdf(built, args)
+        return
+    if args.kernel == "vol":
+        _run_vol(built, args)
         return
 
     sets = ray_sets(torch.device("cuda"), np.random.default_rng(0))

@@ -89,7 +89,8 @@ def _replay_fns(parts, fwd, bwd, store, loss, rays, g, adjoint, wrt, grads):
         out, contrib, seg = fwd_round(core)
         store.put(slot, (core, fwd_tape.record() if fwd_tape else ()))
         loss.add_(contrib)
-        rays.add_(seg)
+        if seg is not None:
+            rays.add_(seg)
         return out
 
     def back_fn(slot):
@@ -123,9 +124,11 @@ class ReplayMachine:
     module's docstring).
 
     parts is the integrator's side:
-      * ``make(scene, samples, chunk_base, row_map, cot_flat, replaying)``
-        -> ``(init, round_, tape)``: init() -> the first carry, round_(core)
-        -> (core', loss contribution, rays added), tape the round's query
+      * ``make(scene, samples, chunk_base, row_map, cot_flat, replaying,
+        rays)`` -> ``(init, round_, tape)``: init() -> the first carry,
+        round_(core) -> (core', loss contribution, rays added, or None where
+        the round adds them into ``rays`` itself: the machine's () int64
+        count, None for the backward's rounds), tape the round's query
         tape (None where the rounds make no query; replaying answers the
         queries from ``tape.answer``);
       * ``adjoint(state)`` / ``with_adjoint(state, vals)``: the carried
@@ -154,12 +157,12 @@ class ReplayMachine:
         # what the parts build once holds no autograd graph: a graph kept
         # alive would pin the leaves' AccumulateGrad nodes to this stream,
         # and the backward's capture would then have to wait on it
+        self.rays = torch.zeros((), dtype=torch.int64, device=device)
         with torch.no_grad():
-            self.init, *fwd = parts.make(self.scene, *bufs, False)
-            _, *bwd = parts.make(self.scene, *bufs, True)
+            self.init, *fwd = parts.make(self.scene, *bufs, False, self.rays)
+            _, *bwd = parts.make(self.scene, *bufs, True, None)
         self.rounds_fns = (tuple(fwd), tuple(bwd))
         self.loss = torch.zeros((), device=device)
-        self.rays = torch.zeros((), dtype=torch.int64, device=device)
         self.g = torch.zeros((), device=device)
         with torch.no_grad():
             state = self.init()[0]

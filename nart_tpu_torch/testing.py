@@ -437,13 +437,13 @@ def vol_round_states(make_session, rounds):
     def copy(t):
         return t.detach().clone(memory_format=torch.contiguous_format)
 
-    def keep(vs, k, cells, medium, sigma_maj, bounces):
+    def keep(vs, k, cells, medium, sigma_maj, bounces, seg=None):
         if seen["rounds"] in rounds:
             out[seen["rounds"]] = (
                 vol_ops.VolState(*[copy(getattr(vs, f))
                                    for f in vol_ops.FIELDS]),
                 k, copy(cells), medium, copy(sigma_maj), bounces)
-        return real(vs, k, cells, medium, sigma_maj, bounces)
+        return real(vs, k, cells, medium, sigma_maj, bounces, seg)
 
     vol_ops.flight_steps = keep
     maker = round_ops.stop_after(volume, "_make_vol_step", max(rounds), seen)

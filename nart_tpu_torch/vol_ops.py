@@ -9,17 +9,24 @@ them: ``flight_steps_plain``), runs it op by op, ~318 aten operations a
 step.  On CUDA tensors ``flight_steps`` goes through ``_VolSteps``, whose
 forward is one launch of csrc/vol_step.cu's ``nart_vol_steps`` (V1: a
 thread a lane, its state in registers through the k steps, the plain
-version's bits) and whose backward is one launch of
-``nart_vol_steps_bwd`` (V2: the k steps recomputed from the saved
-incoming state, then reversed: per lane the cotangents of the incoming
-beta and l_out, a row of the 8 cell corners' cotangents a step at that
-step's cell, and partials of sigma_a, sigma_s and le), then
+version's bits; the segment starts added into the caller's int64
+accumulator, so that a call is one graph node) and whose backward is one
+launch of ``nart_vol_steps_bwd`` (V2: the k steps recomputed from the
+saved incoming state, then reversed: per lane the cotangents of the
+incoming beta and l_out, a row of the 8 cell corners' cotangents a step
+at that step's cell, and partials of sigma_a, sigma_s and le), then
 ``reduce_rows``: one large-table backward (``select.lut_gather_bwd``, S2
 on the card) for the k * N rows and torch sums of the partials.  Only
 beta and l_out carry a gradient through a step (o, d and t do not: a
 direction or a distance that required grad is refused on the card).
 Launches count in ``cuda_build.launch_counts`` as "vol_steps" and
-"vol_steps_bwd" (inside a CUDA graph capture, at every replay).
+"vol_steps_bwd" (inside a CUDA graph capture, at every replay).  V1's and
+V2's first designs stay as ``steps_ref_cuda`` / ``steps_bwd_ref_cuda``
+(``nart_vol_steps_ref``, ``nart_vol_steps_bwd_ref``, counted as
+"vol_steps_reference" and "vol_steps_bwd_reference"), the bits the
+redesign is held to; no path launches them.  ``host_walk`` runs the same
+source's lane functions, either design's, as host C++ on CPU tensors (the
+CPU tests' hold on the redesign).
 
 On CPU tensors ``flight_steps`` is ``flight_steps_plain`` and autograd
 differentiates it as any torch code, so CPU films, losses and gradients
@@ -160,18 +167,19 @@ def step_plain(vs, cells, medium, sigma_maj, bounces, gather=None,
     return out, vs.alive & ended, esc
 
 
-def flight_steps_plain(vs, k, cells, medium, sigma_maj, bounces,
+def flight_steps_plain(vs, k, cells, medium, sigma_maj, bounces, seg=None,
                        gather=None, recs=None):
     """V1's plain version: k calls of step_plain.  Returns (vs', died, esc,
     segment starts): died and esc OR-ed over the steps, the segment starts
-    (the lanes alive at a step that starts a segment) summed, a () int64
-    tensor.  gather: step_plain's; recs, a list, receives each step's
-    record."""
+    (the lanes alive at a step that starts a segment) summed into seg (a
+    () int64 accumulator, added to in place and returned) or, where seg is
+    None, a new () int64 tensor.  gather: step_plain's; recs, a list,
+    receives each step's record."""
     died = torch.zeros_like(vs.alive)
     esc = torch.zeros_like(vs.alive)
-    seg = torch.zeros((), dtype=torch.int64, device=vs.alive.device)
+    count = torch.zeros((), dtype=torch.int64, device=vs.alive.device)
     for _ in range(k):
-        seg = seg + (vs.alive & vs.new_ray).sum()
+        count = count + (vs.alive & vs.new_ray).sum()
         rec = None if recs is None else {}
         vs, died_k, esc_k = step_plain(vs, cells, medium, sigma_maj, bounces,
                                        gather, rec)
@@ -179,15 +187,21 @@ def flight_steps_plain(vs, k, cells, medium, sigma_maj, bounces,
             recs.append(rec)
         died = died | died_k
         esc = esc | esc_k
-    return vs, died, esc, seg
+    if seg is None:
+        return vs, died, esc, count
+    return vs, died, esc, seg.add_(count)
 
 
-def flight_steps(vs, k, cells, medium, sigma_maj, bounces):
+def flight_steps(vs, k, cells, medium, sigma_maj, bounces, seg=None):
     """k flight steps of the walk: flight_steps_plain's (vs', died, esc,
-    segment starts).  CUDA tensors go through _VolSteps (V1 forward, V2
-    backward), CPU tensors through the plain version."""
+    segment starts), the starts added into seg where it is given (the
+    machines pass their ray count: on the card V1 adds into it, one graph
+    node a call) or else counted into a new () int64 tensor.  CUDA tensors
+    go through _VolSteps (V1 forward, V2 backward), CPU tensors through
+    the plain version."""
     if not vs.o.is_cuda:
-        return flight_steps_plain(vs, k, cells, medium, sigma_maj, bounces)
+        return flight_steps_plain(vs, k, cells, medium, sigma_maj, bounces,
+                                  seg)
     if torch.is_grad_enabled():
         for name, x in (("o", vs.o), ("d", vs.d), ("t_cur", vs.t_cur),
                         ("t_exit", vs.t_exit), ("u_mode", vs.u_mode),
@@ -197,21 +211,25 @@ def flight_steps(vs, k, cells, medium, sigma_maj, bounces):
                 raise ValueError(f"flight_steps: {name} requires grad; only "
                                  "beta, l_out, the cells, sigma_a, sigma_s "
                                  "and le carry a gradient through a step")
-    outs = _VolSteps.apply(k, bounces, tuple(medium.density.shape),
+    if seg is None:
+        seg = torch.zeros((), dtype=torch.int64, device=vs.o.device)
+    outs = _VolSteps.apply(k, bounces, tuple(medium.density.shape), (seg,),
                            *[getattr(vs, f) for f in FIELDS], cells,
                            medium.sigma_a, medium.sigma_s, medium.le,
                            medium.bounds_min, medium.bounds_max, sigma_maj)
-    return (VolState(*outs[:len(FIELDS)]), *outs[len(FIELDS):])
+    return (VolState(*outs[:len(FIELDS)]), *outs[len(FIELDS):], seg)
 
 
 class _VolSteps(torch.autograd.Function):
-    """k flight steps on the card: V1 forward, V2 backward."""
+    """k flight steps on the card: V1 forward, V2 backward.  acc, a 1-tuple
+    (no input of the graph), holds the () int64 accumulator V1 adds the
+    segment starts into."""
 
     @staticmethod
-    def forward(ctx, k, bounces, shape, *args):
+    def forward(ctx, k, bounces, shape, acc, *args):
         ctx.set_materialize_grads(False)
         args = [x.contiguous() for x in args]
-        outs = steps_cuda(k, bounces, shape, *args)
+        outs = steps_cuda(k, bounces, shape, *args, seg=acc[0])[:-1]
         ctx.save_for_backward(*args)
         ctx.k, ctx.bounces, ctx.shape = k, bounces, shape
         ctx.mark_non_differentiable(*[o for j, o in enumerate(outs)
@@ -224,7 +242,8 @@ class _VolSteps(torch.autograd.Function):
         g_beta, g_l = grads[_BETA], grads[_L_OUT]
         args = ctx.saved_tensors
         nf = len(FIELDS)
-        out = [None] * (3 + len(args))  # k, bounces, shape: no gradient
+        lead = 4  # k, bounces, shape, acc: no gradient
+        out = [None] * (lead + len(args))
         if g_beta is None and g_l is None:
             return tuple(out)
         cells, sigma_a, sigma_s, le = args[nf:nf + 4]
@@ -234,10 +253,10 @@ class _VolSteps(torch.autograd.Function):
                else g_l.contiguous())
         g_b, g_lo, rows, idx, p_sa, p_ss, p_le = steps_bwd_cuda(
             ctx.k, ctx.bounces, ctx.shape, *args, g_beta, g_l)
-        out[3 + _BETA], out[3 + _L_OUT] = g_b, g_lo
-        out[3 + nf:3 + nf + 4] = reduce_rows(
+        out[lead + _BETA], out[lead + _L_OUT] = g_b, g_lo
+        out[lead + nf:lead + nf + 4] = reduce_rows(
             rows, idx, p_sa, p_ss, p_le, cells.shape[0], sigma_a, sigma_s,
-            le, ctx.needs_input_grad[3 + nf:3 + nf + 4])
+            le, ctx.needs_input_grad[lead + nf:lead + nf + 4])
         return tuple(out)
 
 
@@ -385,7 +404,7 @@ def flight_steps_vjp_reference(vs, k, cells, medium, sigma_maj, bounces,
 
         out, _, _, _ = flight_steps_plain(
             replace(vs, beta=beta, l_out=l_out), k, cells_x, med, sigma_maj,
-            bounces, gather, recs)
+            bounces, gather=gather, recs=recs)
         leaves = [beta, l_out, *lane] + [row for _, row in taps]
         got = torch.autograd.grad(
             [out.beta, out.l_out], leaves,
@@ -416,16 +435,26 @@ _MEDIUM = {"sigma_a": (), "sigma_s": (), "le": (3,), "bounds_min": (3,),
            "bounds_max": (3,), "sigma_maj": ()}
 
 
+_ENTRIES = ("nart_vol_steps", "nart_vol_steps_bwd", "nart_vol_steps_ref",
+            "nart_vol_steps_bwd_ref")
+# the redesign's cell index is 32 bits: the table's floats must fit
+_MAX_CELL_FLOATS = 2 ** 31 - 1
+
+
 def _kernel_lib():
     lib = cuda_build.load("vol_step")
     if lib.nart_vol_steps.argtypes is None:
-        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn in (lib.nart_vol_steps, lib.nart_vol_steps_bwd):
+        p, i64, i, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_uint32)
+        for name in _ENTRIES:
+            fn = getattr(lib, name)
             fn.argtypes = [p, p, i64, i, i, i, i, i64, i64, p]
             fn.restype = ctypes.c_int
+        lib.nart_vol_node_floor.argtypes = [i64, p]
+        lib.nart_vol_node_floor.restype = ctypes.c_int
+        lib.nart_vol_trig_check.argtypes = [u32, u32, p, p]
+        lib.nart_vol_trig_check.restype = ctypes.c_int
     return lib
-
-
 def _check(shape, named):
     """Each named tensor on one CUDA device, contiguous, float32 (the state
     fields their own dtypes), of its shape."""
@@ -446,7 +475,10 @@ def _check(shape, named):
         raise ValueError(f"density grid {shape}: (Z, Y, X), each at least 2")
 
 
-def _launch(entry, k, bounces, shape, args, outs):
+def _checked(entry, k, shape, args):
+    """(n, n_cells) of a launch's arguments, each checked (_check); the
+    redesign's (every entry but the first designs') also its cell table
+    32-byte aligned (two 16-byte loads a row) and within a 32-bit index."""
     n = args[0].shape[0]
     if not 1 <= k <= MAX_STEPS:
         raise ValueError(f"{entry}: k = {k} steps (one launch takes 1 to "
@@ -458,6 +490,21 @@ def _launch(entry, k, bounces, shape, args, outs):
             + list(_MEDIUM.values()) + [(n, 3), (n, 3)])
     dtypes = [_STATE[f][0] for f in _STATE] + [torch.float32] * 9
     _check(shape, list(zip(names, args, dtypes, want)))
+    if not entry.endswith("_ref"):
+        cells = args[len(_STATE)]
+        if 8 * n_cells > _MAX_CELL_FLOATS:
+            raise ValueError(f"{entry}: {n_cells} cells of 8 floats (the "
+                             "cell index is 32 bits: at most "
+                             f"{_MAX_CELL_FLOATS} floats)")
+        if cells.data_ptr() % 32:
+            raise ValueError(f"{entry}: the cell table must be 32-byte "
+                             "aligned (two 16-byte loads a row)")
+    return n, n_cells
+
+
+def _launch(entry, k, bounces, shape, args, outs):
+    n, n_cells = _checked(entry, k, shape, args)
+    rz, ry, rx = shape
     ptrs = (ctypes.c_void_p * len(args))(*[x.data_ptr() for x in args])
     optrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     stream = torch.cuda.current_stream(args[0].device).cuda_stream
@@ -467,19 +514,65 @@ def _launch(entry, k, bounces, shape, args, outs):
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
-def steps_cuda(k, bounces, shape, *args):
-    """Launch nart_vol_steps (V1): the state's 11 fields (VolState's
-    order), the cells (n_cells, 8) and the medium's sigma_a, sigma_s, le,
-    bounds_min, bounds_max and sigma_maj, contiguous CUDA tensors of N
-    lanes -> the state's 11 fields after k steps, died, esc (N,) bool and
-    the segment starts, a () int64."""
+def _v1_outs(args, seg):
+    """V1's outputs for its arguments: the state's fields, died, esc, and
+    the segment starts' accumulator (seg, or a new zeroed () int64)."""
     x = args[0]
-    outs = tuple(torch.empty_like(a) for a in args[:len(FIELDS)]) + (
-        torch.empty_like(x), torch.empty_like(x),
-        torch.zeros((), dtype=torch.int64, device=x.device))
+    if seg is None:
+        seg = torch.zeros((), dtype=torch.int64, device=x.device)
+    return tuple(torch.empty_like(a) for a in args[:len(FIELDS)]) + (
+        torch.empty_like(x), torch.empty_like(x), seg)
+
+
+def _v2_outs(n, k, device):
+    """V2's seven outputs for n lanes and k steps."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
+            torch.empty((k, n, 8), **f32),
+            torch.empty((k, n), dtype=torch.int64, device=device),
+            torch.empty(n, **f32), torch.empty(n, **f32),
+            torch.empty((n, 3), **f32))
+
+
+def _steps(entry, count, k, bounces, shape, args, seg):
+    x = args[0]
+    if seg is not None and not (seg.dtype == torch.int64 and seg.dim() == 0
+                                and seg.device == x.device):
+        raise ValueError(f"{entry}: seg must be a () int64 tensor on "
+                         f"{x.device} (got {seg.dtype} {tuple(seg.shape)} on "
+                         f"{seg.device})")
+    outs = _v1_outs(args, seg)
     if x.shape[0]:
-        _launch("nart_vol_steps", k, bounces, shape, args, outs)
-        cuda_build.count_launch("vol_steps")
+        _launch(entry, k, bounces, shape, args, outs)
+        cuda_build.count_launch(count)
+    return outs
+
+
+def steps_cuda(k, bounces, shape, *args, seg=None):
+    """Launch nart_vol_steps (V1): the state's 11 fields (VolState's
+    order), the cells (n_cells, 8, 32-byte aligned) and the medium's
+    sigma_a, sigma_s, le, bounds_min, bounds_max and sigma_maj, contiguous
+    CUDA tensors of N lanes -> the state's 11 fields after k steps, died,
+    esc (N,) bool and the segment starts: seg (a () int64 accumulator on
+    the lanes' device) with them added, or a new () int64 count where seg
+    is None."""
+    return _steps("nart_vol_steps", "vol_steps", k, bounces, shape, args,
+                  seg)
+
+
+def steps_ref_cuda(k, bounces, shape, *args):
+    """V1's first design (nart_vol_steps_ref), the reference: steps_cuda's
+    outputs, the segment starts a new () int64 count."""
+    return _steps("nart_vol_steps_ref", "vol_steps_reference", k, bounces,
+                  shape, args, None)
+
+
+def _steps_bwd(entry, count, k, bounces, shape, args):
+    n = args[0].shape[0]
+    outs = _v2_outs(n, k, args[0].device)
+    if n:
+        _launch(entry, k, bounces, shape, args, outs)
+        cuda_build.count_launch(count)
     return outs
 
 
@@ -487,15 +580,68 @@ def steps_bwd_cuda(k, bounces, shape, *args):
     """Launch nart_vol_steps_bwd (V2): steps_cuda's inputs (the state
     before the k steps), then the cotangents of beta and l_out after them
     (N, 3) -> flight_steps_vjp_plain's seven outputs."""
+    return _steps_bwd("nart_vol_steps_bwd", "vol_steps_bwd", k, bounces,
+                      shape, args)
+
+
+def steps_bwd_ref_cuda(k, bounces, shape, *args):
+    """V2's first design (nart_vol_steps_bwd_ref), the reference:
+    steps_bwd_cuda's arguments and outputs."""
+    return _steps_bwd("nart_vol_steps_bwd_ref", "vol_steps_bwd_reference",
+                      k, bounces, shape, args)
+
+
+def node_floor_cuda(n, device):
+    """One launch of an empty kernel on V1's grid for n lanes (a graph
+    node's own cost, for a measurement; no path launches it, not
+    counted)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _kernel_lib().nart_vol_node_floor(n, stream)
+    if rc != 0:
+        raise RuntimeError(f"nart_vol_node_floor launch failed: CUDA error "
+                           f"{rc}")
+
+
+def trig_check_cuda(lo, hi, device):
+    """The redesign's sine and cosine (csrc/vol_step.cu's sincos_small)
+    against the card's sinf and cosf on every float whose bits lie in
+    [lo, hi]: a () int64 tensor, the count of values that differ (a
+    measurement; not counted)."""
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _kernel_lib().nart_vol_trig_check(lo, hi, bad.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"nart_vol_trig_check launch failed: CUDA error "
+                           f"{rc}")
+    return bad
+
+
+def host_walk(design, k, bounces, shape, *args):
+    """csrc/vol_step.cu's lane functions built as host C++ (g++, no
+    contraction: cuda_build.load_host_cu) on CPU tensors: design 0 the first
+    design's (V1's and V2's references), 1 the redesign's.  args:
+    steps_bwd_cuda's, contiguous CPU tensors.  Returns V1's outputs
+    (steps_cuda's, the segment starts a new () int64) and V2's seven
+    (steps_bwd_cuda's) from the same incoming state."""
     n = args[0].shape[0]
-    dev = args[0].device
-    f32 = dict(dtype=torch.float32, device=dev)
-    outs = (torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
-            torch.empty((k, n, 8), **f32),
-            torch.empty((k, n), dtype=torch.int64, device=dev),
-            torch.empty(n, **f32), torch.empty(n, **f32),
-            torch.empty((n, 3), **f32))
-    if n:
-        _launch("nart_vol_steps_bwd", k, bounces, shape, args, outs)
-        cuda_build.count_launch("vol_steps_bwd")
-    return outs
+    if not 1 <= k <= MAX_STEPS:
+        raise ValueError(f"host_walk: k = {k} steps (1 to {MAX_STEPS})")
+    rz, ry, rx = shape
+    n_cells = (rz - 1) * (ry - 1) * (rx - 1)
+    for x in args:
+        if x.is_cuda or not x.is_contiguous():
+            raise ValueError("host_walk takes contiguous CPU tensors")
+    v1, v2 = _v1_outs(args, None), _v2_outs(n, k, args[0].device)
+    lib = cuda_build.load_host_cu("vol_step")
+    fn = lib.nart_vol_host_walk
+    if fn.argtypes is None:
+        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [i, p, p, i64, i, i, i, i, i64, i64]
+        fn.restype = ctypes.c_int
+    outs = v1 + v2
+    ptrs = (ctypes.c_void_p * len(args))(*[x.data_ptr() for x in args])
+    optrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    rc = fn(design, ptrs, optrs, n, k, rx, ry, rz, n_cells, int(bounces))
+    if rc != 0:
+        raise RuntimeError(f"nart_vol_host_walk failed: {rc}")
+    return v1, v2

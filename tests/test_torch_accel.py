@@ -177,7 +177,8 @@ def test_cpu_tensors_take_the_plain_path():
         "bvh_hit": 0, "bvh_hit_reference": 0, "bsdf_sample": 0,
         "bsdf_sample_eval": 0, "bsdf_eval": 0, "bsdf_f_bwd": 0,
         "bsdf_sample_reference": 0, "bsdf_f_bwd_reference": 0,
-        "vol_steps": 0, "vol_steps_bwd": 0}
+        "vol_steps": 0, "vol_steps_bwd": 0, "vol_steps_reference": 0,
+        "vol_steps_bwd_reference": 0}
     with pytest.raises(ValueError):
         tca.intersect_clusters(o.to("meta"), d.to("meta"), tmin.to("meta"),
                                tmax.to("meta"), acc)

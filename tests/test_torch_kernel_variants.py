@@ -1,9 +1,10 @@
 """nart_tpu_torch/kernel_variants.py without a card: every variant's
 substitutions still find their anchors in csrc/cluster_hit.cu (K1, K2),
-csrc/bvh_walk.cu (B1) and csrc/bsdf.cu (X1, X3), the shipped sources
-carry none of the measuring code nor the steps measured and not taken,
-ptxas' report is read right, and the BSDF rows' comparison reads bits.
-(The variants are built and timed on the card only.)
+csrc/bvh_walk.cu (B1), csrc/bsdf.cu (X1, X3) and csrc/vol_step.cu (V1,
+V2), each exactly once, the shipped sources carry none of the measuring
+code nor the steps measured and not taken, ptxas' report is read right,
+and the BSDF rows' comparison reads bits.  (The variants are built and
+timed on the card only.)
 """
 
 import pytest
@@ -12,44 +13,51 @@ import torch
 from nart_tpu_torch import kernel_variants as kv
 
 
-def test_as_built_is_the_shipped_source():
-    with open(kv.SOURCE) as f:
+def _shipped(kernel):
+    """The kernel's source as shipped, after checking that the "as built"
+    variant is that text."""
+    with open(kv.KERNELS[kernel][0]) as f:
         shipped = f.read()
-    assert kv.variant_sources()["as built"] == shipped
+    assert kv.variant_sources(kernel)["as built"] == shipped
+    return shipped
+
+
+def _applies(kernel, name):
+    """A variant's every substitution found its anchor exactly once (else
+    variant_sources raises) and left balanced braces."""
+    variants = kv.KERNELS[kernel][1]
+    for old, _ in variants[name]:
+        assert _shipped(kernel).count(old) == 1, old
+    sources = kv.variant_sources(kernel)
+    text = sources[name]
+    assert text != sources["as built"]
+    for _, new in variants[name]:
+        assert new in text
+    assert text.count("{") == text.count("}")
+
+
+def test_as_built_is_the_shipped_source():
+    shipped = _shipped("cluster")
     assert "g_zero" not in shipped and "NART_REPEAT" not in shipped
 
 
 @pytest.mark.parametrize("name", [k for k in kv.VARIANTS if k != "as built"])
 def test_variant_applies_to_the_source(name):
-    sources = kv.variant_sources()
-    text = sources[name]
-    assert text != sources["as built"]
-    for _, new in kv.VARIANTS[name]:
-        assert new in text
-    assert text.count("{") == text.count("}")
+    _applies("cluster", name)
 
 
 def test_bvh_as_built_is_the_shipped_source():
-    with open(kv.BVH_SOURCE) as f:
-        shipped = f.read()
-    assert kv.variant_sources("bvh")["as built"] == shipped
+    _shipped("bvh")
 
 
 @pytest.mark.parametrize("name", [k for k in kv.BVH_VARIANTS
                                   if k != "as built"])
 def test_bvh_variant_applies_to_the_source(name):
-    sources = kv.variant_sources("bvh")
-    text = sources[name]
-    assert text != sources["as built"]
-    for _, new in kv.BVH_VARIANTS[name]:
-        assert new in text
-    assert text.count("{") == text.count("}")
+    _applies("bvh", name)
 
 
 def test_bsdf_as_built_is_the_shipped_source():
-    with open(kv.BSDF_SOURCE) as f:
-        shipped = f.read()
-    assert kv.variant_sources("bsdf")["as built"] == shipped
+    shipped = _shipped("bsdf")
     for k, v in kv.BSDF_AS_BUILT.items():
         assert f" {k} = {v};" in shipped
     assert "Regroup" not in shipped and "kPasses" not in shipped
@@ -58,13 +66,30 @@ def test_bsdf_as_built_is_the_shipped_source():
 @pytest.mark.parametrize("name", [k for k in kv.BSDF_VARIANTS
                                   if k != "as built"])
 def test_bsdf_variant_applies_to_the_source(name):
-    sources = kv.variant_sources("bsdf")
-    text = sources[name]
-    assert text != sources["as built"]
-    for _, new in kv.BSDF_VARIANTS[name]:
-        assert new in text
+    _applies("bsdf", name)
     assert "first design" in kv.BSDF_VARIANTS
-    assert text.count("{") == text.count("}")
+
+
+def test_vol_as_built_is_the_shipped_source():
+    """csrc/vol_step.cu's redesign switches as VOL_AS_BUILT says, the
+    first designs' entries beside the redesign's, and the host walk
+    outside the nvcc build."""
+    shipped = _shipped("vol")
+    for k, v in kv.VOL_AS_BUILT.items():
+        assert f"constexpr bool {k} = {v};" in shipped
+    for entry in ("int nart_vol_steps(", "int nart_vol_steps_bwd(",
+                  "int nart_vol_steps_ref(", "int nart_vol_steps_bwd_ref(",
+                  "int nart_vol_host_walk("):
+        assert shipped.count(entry) == 1, entry
+    assert shipped.index("#else  // the host walk") < shipped.index(
+        "int nart_vol_host_walk(")
+
+
+@pytest.mark.parametrize("name", [k for k in kv.VOL_VARIANTS
+                                  if k != "as built"])
+def test_vol_variant_applies_to_the_source(name):
+    _applies("vol", name)
+    assert {"steps off", "32 threads", "64 threads"} <= set(kv.VOL_VARIANTS)
 
 
 def test_bsdf_same_reads_bits():

@@ -10,10 +10,14 @@ at p_null = 0 and near the majorant): V1's every output the plain steps'
 bits on every lane for k = 1, 2 and 4, also from a CUDA graph's replay;
 V2 within rtol 1e-5 / atol 1e-6 of the float64 VJP of the plain steps on
 every lane, and its torch twin's (flight_steps_vjp_plain) reverse pass
-within the same; the Function (vol_ops.flight_steps) launches V1 once a
-call and V2 once a backward, its leaves' gradients within rtol 1e-5 /
-atol 1e-6 of float64 autograd; a step count above MAX_STEPS and a
-direction that requires grad are refused.
+within the same; V1 and V2 their first designs' (nart_vol_steps_ref,
+nart_vol_steps_bwd_ref) bits on every lane; V1's segment starts added
+into an accumulator, also at each replay of a graph; the Function
+(vol_ops.flight_steps) launches V1 once a call and V2 once a backward,
+its leaves' gradients within rtol 1e-5 / atol 1e-6 of float64 autograd;
+a step count above MAX_STEPS, a direction that requires grad and a cell
+table not 32-byte aligned (the redesign's two 16-byte loads a row) are
+refused.
 """
 
 import dataclasses
@@ -78,6 +82,36 @@ def test_v1_from_a_graph_replay(lanes):
     graph.replay()
     torch.cuda.synchronize()
     _same_bits(outs, _plain(lanes, 4))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_v1_and_v2_are_their_first_designs(lanes, k):
+    args, shape, b = _args(lanes), _shape(lanes), lanes["bounces"]
+    _same_bits(vol_ops.steps_cuda(k, b, shape, *args),
+               vol_ops.steps_ref_cuda(k, b, shape, *args))
+    g = (lanes["g_beta"], lanes["g_l"])
+    for name, x, y in zip(GRADS, vol_ops.steps_bwd_cuda(k, b, shape, *args,
+                                                        *g),
+                          vol_ops.steps_bwd_ref_cuda(k, b, shape, *args,
+                                                     *g)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), name
+
+
+def test_v1_adds_into_an_accumulator(lanes):
+    args, shape, b = _args(lanes), _shape(lanes), lanes["bounces"]
+    count = int(vol_ops.steps_cuda(4, b, shape, *args)[-1])
+    acc = torch.full((), 5, dtype=torch.int64, device="cuda")
+    assert vol_ops.steps_cuda(4, b, shape, *args, seg=acc)[-1] is acc
+    assert int(acc) == 5 + count
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        vol_ops.steps_cuda(4, b, shape, *args, seg=acc)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(acc) == 5 + 3 * count
 
 
 @pytest.mark.parametrize("k", [1, 4])
@@ -164,3 +198,12 @@ def test_refusals(lanes):
     with pytest.raises(ValueError, match="requires grad"):
         vol_ops.flight_steps(vs, 1, lanes["cells"], lanes["medium"],
                              lanes["sigma_maj"], lanes["bounces"])
+    cells = lanes["cells"]
+    off = torch.empty(cells.numel() + 1, device="cuda")[1:].view(cells.shape)
+    off.copy_(cells)
+    args = _args(lanes)
+    args[len(vol_ops.FIELDS)] = off
+    with pytest.raises(ValueError, match="32-byte aligned"):
+        vol_ops.steps_cuda(1, lanes["bounces"], _shape(lanes), *args)
+    _same_bits(vol_ops.steps_ref_cuda(1, lanes["bounces"], _shape(lanes),
+                                      *args), _plain(lanes, 1))

@@ -388,6 +388,23 @@ def test_the_rounds_call_flight_steps(monkeypatch):
     assert calls and set(calls) == {1}
 
 
+def test_flight_steps_add_into_an_accumulator(lanes):
+    """flight_steps' seg: the segment starts added in place into the
+    caller's () int64 accumulator (the machines' ray count), which is the
+    tensor returned, the same count as a call without one; the
+    integrator's steps take it the same way."""
+    vs = lanes["vs"]
+    _, _, _, fresh = vol_ops.flight_steps(vs, 4, *_args(lanes))
+    acc = torch.tensor(7, dtype=torch.int64)
+    out = vol_ops.flight_steps(vs, 4, *_args(lanes), acc)
+    assert out[3] is acc and int(acc) == 7 + int(fresh)
+    plain = vol_ops.flight_steps_plain(vs, 4, *_args(lanes), seg=acc)
+    assert plain[3] is acc and int(acc) == 7 + 2 * int(fresh)
+    for f in vol_ops.FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(plain[0], f)), f
+    assert torch.equal(out[1], plain[1]) and torch.equal(out[2], plain[2])
+
+
 def test_cuda_wrappers_refuse():
     """The kernels' wrappers refuse CPU tensors and a step count one launch
     does not take, before any build or launch; flight_steps refuses a
@@ -404,6 +421,11 @@ def test_cuda_wrappers_refuse():
         vol_ops.steps_bwd_cuda(4, 2, shape, *args, s["g_beta"], s["g_l"])
     with pytest.raises(ValueError, match="1 to 8"):
         vol_ops.steps_cuda(vol_ops.MAX_STEPS + 1, 2, shape, *args)
+    for fn in (vol_ops.steps_ref_cuda, vol_ops.steps_bwd_ref_cuda):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(1, 2, shape, *args, s["g_beta"], s["g_l"])
+    with pytest.raises(ValueError, match="seg must be a"):
+        vol_ops.steps_cuda(1, 2, shape, *args, seg=torch.zeros(()))
     d = s["vs"].d.clone().requires_grad_()
     out = vol_ops.flight_steps(dataclasses.replace(s["vs"], d=d), 1,
                                *_args(s))
