@@ -1,0 +1,8 @@
+"""The hand-written kernels' share (%) of their roofline in the traced
+train units: their least times (roofline.py) over their device times."""
+
+from benchmark import readers
+
+
+def read(summary):
+    return readers.hand_kernels_roofline(summary, "train")

@@ -1,0 +1,7 @@
+"""Device kernels, copies and memsets a round of the traced render units."""
+
+from benchmark import readers
+
+
+def read(summary):
+    return readers.kernels_per_round(summary, "render")
